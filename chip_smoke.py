@@ -18,8 +18,13 @@ Phases (each raises on failure; the script then exits non-zero):
    same query run on the CPU (plain versions) at identical partitioning.
 4. The main path, keyed: trend, fraud and ysb through ``batch_run`` at 4096
    keys x 4096 ticks, the first 64 keys compared with the CPU.
-5. One JSON line with every kernel's launches on the main path (phases 3-4),
-   its error against its plain version, its times and its bound.
+   In phases 3-4 the launch counts are set to 0 just before each timed
+   ``partition_run``/``batch_run`` and read just after it; the warm-up
+   call before it and the ``torch.profiler`` run after it (one partition
+   or batch: device busy time, idle share, top kernels) are outside.
+5. One JSON line with every kernel's launches on the main path (the sum
+   of those windows), its error against its plain version, its times and
+   its bound.
 6. The last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 before printing any result.
@@ -44,30 +49,6 @@ N_TICKS = 1 << 24
 PART = 1 << 20
 N_CMP_PARTS = 2
 KEYS, KEY_TICKS, CMP_KEYS = 4096, 4096, 64
-# apps whose single-stream partition is also timed node by node
-BREAKDOWN_APPS = ("trend", "fraud", "resample", "vibration")
-
-# (atol, rtol, gate) per app for the card-vs-CPU comparison at identical
-# partitioning, as in tests/test_torch_query.py.  Window sums differ only in
-# the order of f32 additions, so each bound is a few ulps of the window's
-# content: values of ~100 for the price apps, N(0,1) samples for the
-# signal apps.  fraud's threshold mu + 3 sd takes sd from E[x^2] - E[x]^2
-# over 1000-tick windows of lognormal amounts with 50x spikes, so its
-# rounding is eps * E[x^2] / sd, up to ~1e-2.  ``gate`` excuses a validity
-# flip of a ``> 0`` predicate where the value is within that distance of 0
-# (the predicate's operands carry the same rounding).  ysb counts
-# integers: exact.
-TOLERANCE = {
-    "trend": (1e-4, 1e-6, 1e-3),
-    "rsi": (1e-3, 1e-5, 0.0),
-    "znorm": (1e-4, 1e-5, 0.0),
-    "impute": (1e-5, 1e-5, 0.0),
-    "resample": (1e-6, 1e-6, 0.0),
-    "pantomkins": (1e-6, 1e-5, 1e-5),
-    "vibration": (1e-4, 1e-5, 0.0),
-    "fraud": (2e-2, 1e-5, 0.1),
-    "ysb": (0.0, 0.0, 0.0),
-}
 
 
 def log(*a):
@@ -273,41 +254,80 @@ def _leaves(v) -> dict:
 
 def compare(name: str, got, want) -> dict:
     """Hold a card output grid against the CPU's (both already cut to the
-    compared region): finite values, equal shapes, agreement within the
-    app's tolerance, validity equal except excused predicate flips."""
-    atol, rtol, gate = TOLERANCE[name]
-    gm, wm = got.valid.cpu().numpy(), want.valid.cpu().numpy()
-    gv, wv = _leaves(got.value), _leaves(want.value)
-    if gm.shape != wm.shape or gv.keys() != wv.keys():
-        raise AssertionError(f"{name}: shapes {gm.shape} vs {wm.shape}")
-    both = gm & wm
-    worst = 0.0
-    for k in gv:
-        a, b = gv[k], wv[k]
-        if a.shape != b.shape:
-            raise AssertionError(f"{name}.{k}: {a.shape} vs {b.shape}")
-        if not np.isfinite(a[both]).all():
-            raise AssertionError(f"{name}.{k}: non-finite valid values")
-        d = np.abs(a[both].astype(np.float64) - b[both])
-        lim = atol + rtol * np.abs(b[both])
-        if d.size and not (d <= lim).all():
-            i = int(np.argmax(d - lim))
-            raise AssertionError(
-                f"{name}.{k}: |card - cpu| {d[i]} > {lim[i]}")
-        worst = max(worst, float(d.max()) if d.size else 0.0)
-    flips = gm != wm
-    v = np.abs(wv[next(iter(wv))][flips])
-    if not (v <= gate).all():
-        raise AssertionError(f"{name}: validity differs where |value| is "
-                             f"{v.max()} > {gate}")
-    return {"max_abs_diff": worst, "flips": int(flips.sum()),
-            "valid_frac": float(gm.mean())}
+    compared region) within the app's limits in
+    ``repro_torch.data.tolerance``."""
+    from repro_torch.data import tolerance
+    return tolerance.compare(name, got.valid.cpu().numpy(),
+                             _leaves(got.value), want.valid.cpu().numpy(),
+                             _leaves(want.value))
 
 
-def run_apps(dev, n_ticks: int, part: int, n_cmp: int, seed: int = 0):
-    """Every app over ``n_ticks`` in partitions of ``part`` ticks on
-    ``dev``; the first ``n_cmp`` partitions against the CPU."""
+def drive(main_launches: dict, fn):
+    """One call on the main path: every launch count is set to 0 just
+    before it and read just after, once the card has finished, and added
+    to ``main_launches``.  Returns the call's result and seconds."""
     import torch
+    from repro_torch.kernels import window_reduce as wr
+    torch.cuda.synchronize()
+    wr.reset_launches()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for k, n in wr.launches.items():
+        main_launches[k] = main_launches.get(k, 0) + n
+    return res, dt
+
+
+def device_profile(fn, wall_s: float) -> dict:
+    """Device time of one call by ``torch.profiler``, outside any launch
+    count window: the busy time (union of kernel and copy intervals), the
+    idle share against ``wall_s`` (the same call's time without the
+    profiler) and the kernels that took most of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans, per_kernel = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        short = e.name.replace("(anonymous namespace)::", "")
+        short = short.removeprefix("void ").split("<")[0].split("(")[0]
+        short = short.split("::")[-1].strip()[:40]
+        per_kernel[short] = (per_kernel.get(short, 0.0)
+                             + e.time_range.elapsed_us() / 1e3)
+    if not spans:
+        return {"device_ms": None, "idle_share": None, "top": []}
+    busy_us, end = 0.0, -float("inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    busy_ms = busy_us / 1e3
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:4]
+    return {"device_ms": busy_ms,
+            "idle_share": max(0.0, 1.0 - busy_ms / (wall_s * 1e3)),
+            "top": [[k, v] for k, v in top]}
+
+
+def _profile_text(p: dict) -> str:
+    if p["device_ms"] is None:
+        return "device time not reported by torch.profiler"
+    return (f"device busy {p['device_ms']:.4f} ms, idle share "
+            f"{p['idle_share']:.3f}; " + ", ".join(
+                f"{k} {v:.4f}" for k, v in p["top"]))
+
+
+def run_apps(dev, main_launches: dict, n_ticks: int, part: int, n_cmp: int,
+             seed: int = 0):
+    """Every app over ``n_ticks`` in partitions of ``part`` ticks on the
+    card; the first ``n_cmp`` partitions against the CPU."""
     from torch.utils._pytree import tree_map
     from repro_torch.core import compile as qc
     from repro_torch.core.parallel import partition_run
@@ -323,58 +343,32 @@ def run_apps(dev, n_ticks: int, part: int, n_cmp: int, seed: int = 0):
                                sum_algo=algo)
         n_parts = n_ticks // part
         partition_run(exe, grids, 0, 1)          # first use of every shape
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = partition_run(exe, grids, 0, n_parts)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        res, dt = drive(main_launches,
+                        lambda: partition_run(exe, grids, 0, n_parts))
         if res.valid.shape != (n_parts * exe.out_len,):
             raise AssertionError(f"{name}: output shape {res.valid.shape}")
-        if name in BREAKDOWN_APPS and algo == "block":
-            log(f"  {name}: one partition operator at a time: "
-                + node_breakdown(exe, grids, part))
+        prof = device_profile(lambda: partition_run(exe, grids, 1, 1),
+                              dt / n_parts)
         cpu = partition_run(exe, A.make_grids(data, device="cpu"), 0, n_cmp)
         k = n_cmp * exe.out_len
         head = res.replace(value=tree_map(lambda x: x[:k], res.value),
                            valid=res.valid[:k])
         stats = compare(name, head, cpu)
         out[f"{name}/{algo}"] = dict(stats, events_per_s=n_ticks / dt,
-                                     seconds=dt)
+                                     seconds=dt, profile=prof)
         log(f"app {name:10s} {algo:5s}: {n_ticks / dt:.4g} events/s "
             f"({dt * 1e3:.2f} ms for {n_parts} partitions of {part}); "
             f"vs cpu max diff {stats['max_abs_diff']:.3g}, "
             f"{stats['flips']} gate flips")
+        log(f"  one partition: {_profile_text(prof)}")
         del grids, res
     return out
 
 
-def node_breakdown(exe, grids, part: int) -> str:
-    """ms per node type for the second partition, evaluated operator at a
-    time with a device barrier after each node."""
-    from repro_torch.core.parallel import slice_grid
-    inputs = {}
-    for name, spec in exe.input_specs.items():
-        t0 = part + spec.t0
-        g = slice_grid(grids[name], t0, t0 + spec.length * spec.prec)
-        inputs[name] = (g.value, g.valid)
-    exe.run_interpreted(inputs)              # first use of every shape
-    timings = []
-    exe.run_interpreted(inputs, timings=timings)
-    per_type = {}
-    for kind, _name, sec in timings:
-        per_type[kind] = per_type.get(kind, 0.0) + sec * 1e3
-    total = sum(per_type.values())
-    return f"{total:.3f} ms: " + ", ".join(
-        f"{k} {v:.3f}" for k, v in sorted(per_type.items(),
-                                          key=lambda kv: -kv[1]))
-
-
-def run_keyed(dev, n_keys: int, n_ticks: int, n_cmp: int, seed: int = 0):
+def run_keyed(dev, main_launches: dict, n_keys: int, n_ticks: int,
+              n_cmp: int, seed: int = 0):
     """Keyed trend, fraud and ysb through ``batch_run``; the first
     ``n_cmp`` keys against the CPU."""
-    import torch
     from torch.utils._pytree import tree_map
     from repro_torch.core import compile as qc
     from repro_torch.core.parallel import batch_run
@@ -388,15 +382,10 @@ def run_keyed(dev, n_keys: int, n_ticks: int, n_cmp: int, seed: int = 0):
         exe = qc.compile_query(app.query.node,
                                out_len=n_ticks // app.query.prec)
         batch_run(exe, grids)                    # first use of every shape
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = batch_run(exe, grids)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        res, dt = drive(main_launches, lambda: batch_run(exe, grids))
         if res.valid.shape != (n_keys, exe.out_len):
             raise AssertionError(f"{name}: output shape {res.valid.shape}")
+        prof = device_profile(lambda: batch_run(exe, grids), dt)
         few = {nm: {"value": ({k: a[:n_cmp] for k, a in d["value"].items()}
                               if isinstance(d["value"], dict)
                               else d["value"][:n_cmp]),
@@ -406,10 +395,12 @@ def run_keyed(dev, n_keys: int, n_ticks: int, n_cmp: int, seed: int = 0):
                            valid=res.valid[:n_cmp])
         stats = compare(name, head, cpu)
         events = n_keys * n_ticks
-        out[name] = dict(stats, events_per_s=events / dt, seconds=dt)
+        out[name] = dict(stats, events_per_s=events / dt, seconds=dt,
+                         profile=prof)
         log(f"keyed {name:6s}: {events / dt:.4g} events/s ({dt * 1e3:.2f} "
             f"ms for {n_keys} keys x {n_ticks} ticks); vs cpu max diff "
             f"{stats['max_abs_diff']:.3g}, {stats['flips']} gate flips")
+        log(f"  one batch: {_profile_text(prof)}")
         del grids, res
     return out
 
@@ -447,20 +438,22 @@ def main() -> int:
 
     errs, rows = check_kernels(dev)
 
-    wr.reset_launches()
-    apps = run_apps(dev, N_TICKS, PART, N_CMP_PARTS)
-    after_apps = dict(wr.launches)
-    for k, n in after_apps.items():
-        if n == 0:
+    single, keyed_launches = {}, {}
+    apps = run_apps(dev, single, N_TICKS, PART, N_CMP_PARTS)
+    for k in wr.launches:
+        if single.get(k, 0) == 0:
             raise AssertionError(f"{k} was never launched on the main path")
-    keyed = run_keyed(dev, KEYS, KEY_TICKS, CMP_KEYS)
-    launches = dict(wr.launches)
-    log(f"launches: partition_run {after_apps}, with batch_run {launches}")
+    keyed = run_keyed(dev, keyed_launches, KEYS, KEY_TICKS, CMP_KEYS)
+    launches = {k: single.get(k, 0) + keyed_launches.get(k, 0)
+                for k in wr.launches}
+    log(f"main-path launches: partition_run {single}, batch_run "
+        f"{keyed_launches}, total {launches}")
 
     Path("out").mkdir(exist_ok=True)
     detail = {"card": card, "apps": apps, "keyed": keyed,
               "kernels": {f"{k}/{lab}": v for (k, lab), v in rows.items()},
-              "launches": {"partition_run": after_apps, "total": launches}}
+              "launches": {"partition_run": single, "batch_run": keyed_launches,
+                           "total": launches}}
     Path("out/chip_smoke.json").write_text(json.dumps(detail,
                                                               indent=1))
 

@@ -24,8 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict
 
 import numpy as np
 import torch
@@ -222,24 +221,19 @@ class CompiledQuery:
     def input_specs(self) -> Dict[str, InputSpec]:
         return self.plan.input_specs
 
-    def run_interpreted(self, inputs: Dict[str, tuple],
-                        timings: Optional[list] = None) -> tuple:
-        """Evaluate operator at a time; with ``timings``, append each
-        node's ``(type, name, seconds)``, barrier included."""
+    def run_interpreted(self, inputs: Dict[str, tuple]) -> tuple:
+        """Evaluate operator at a time, with a device barrier after every
+        node."""
         dev = _input_device(inputs)
         env: Dict[int, tuple] = {}
         out = None
-        for name, fn_i, arg_ids, node in self._node_fns:
-            t0 = time.perf_counter()
+        for _name, fn_i, arg_ids, node in self._node_fns:
             if isinstance(node, ir.Input):
                 env[id(node)] = fn_i(dev, inputs[node.name])
             else:
                 env[id(node)] = fn_i(dev, *[env[i] for i in arg_ids])
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)  # operator-at-a-time barrier
-            if timings is not None:
-                timings.append((type(node).__name__, name,
-                                time.perf_counter() - t0))
             out = env[id(node)]
         return out
 
