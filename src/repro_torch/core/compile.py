@@ -24,14 +24,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 from torch.utils._pytree import tree_map
 
 from . import fusion, ir
-from .plan import InputSpec, QueryPlan, plan_query
+from .plan import ChangePlan, InputSpec, QueryPlan, plan_change, plan_query
 from .reduction import get_reduction
 from ..device import resolve
 from ..kernels import ops as kops
@@ -202,12 +202,14 @@ class CompiledQuery:
     ``run_interpreted`` evaluates operator at a time with a device barrier
     after every node (the event-centric execution model, for the Fig. 10
     ablation).  ``plan`` is the static artifact both share.
+    ``change_plan`` is attached by ``compile_query(..., sparse=True)``.
     """
 
     root: ir.Node
     plan: QueryPlan
     fn: Callable[[Dict[str, tuple]], tuple]
     _node_fns: list  # [(name, evaluator, arg node ids, node)]
+    change_plan: Optional[ChangePlan] = None
 
     @property
     def out_len(self) -> int:
@@ -239,12 +241,19 @@ class CompiledQuery:
 
 
 def compile_query(root: ir.Node, out_len: int, *, opt: bool = True,
-                  sum_algo: str = "block") -> CompiledQuery:
+                  sum_algo: str = "block",
+                  sparse: bool = False) -> CompiledQuery:
     """Compile a TiLT query for partitions of ``out_len`` output ticks.
 
     ``opt`` runs the fusion passes; ``sum_algo`` picks the windowed-sum
     algorithm (``"block"`` or the paper's subtract-on-evict ``"soe"``, see
-    :func:`repro_torch.kernels.ops.sliding_sum`).
+    :func:`repro_torch.kernels.ops.sliding_sum`).  With ``sparse=True`` the
+    executable also carries a :class:`plan.ChangePlan` (per-source
+    dirty-span dilation, derived from the halo contracts), which the
+    change-compressed executors need — :func:`repro_torch.core.sparse.
+    sparse_run` and ``Runner(exe, ExecPolicy(body="sparse"))`` — to skip
+    partitions and keys whose inputs did not change.  ``out_len`` is then
+    the *segment* length they compact over.
     """
     if opt:
         root = fusion.optimize(root)
@@ -268,4 +277,5 @@ def compile_query(root: ir.Node, out_len: int, *, opt: bool = True,
     node_fns = [(n.name, functools.partial(_eval_op, n, qp, sum_algo),
                  tuple(id(a) for a in n.args), n)
                 for n in ir.topo_order(root)]
-    return CompiledQuery(root=root, plan=qp, fn=fn, _node_fns=node_fns)
+    return CompiledQuery(root=root, plan=qp, fn=fn, _node_fns=node_fns,
+                         change_plan=plan_change(qp) if sparse else None)

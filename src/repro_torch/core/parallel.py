@@ -12,11 +12,15 @@ into the two one-shot execution strategies:
   ``(K, T)`` and the query runs once over all keys, the key axis riding
   along every tensor (and folded into the kernels' row axis).
 
-Both run on the device the input tensors live on.  The time-sharded and
-chunked executors of the reference wait for later slices.
+Both run on the device the input tensors live on.  The chunked executors
+are :class:`repro_torch.engine.Runner`; :class:`StreamRunner` and
+:class:`SparseStreamRunner` survive here as its deprecated wrappers.  The
+time-sharded executor waits for the multi-device slice (ROADMAP A14).
 """
 from __future__ import annotations
 
+import dataclasses
+import warnings
 from typing import Dict
 
 import torch
@@ -26,7 +30,8 @@ from torch.utils._pytree import tree_map
 from . import compile as qcompile
 from .stream import SnapshotGrid
 
-__all__ = ["partition_run", "batch_run", "slice_grid"]
+__all__ = ["partition_run", "batch_run", "slice_grid", "StreamRunner",
+           "SparseStreamRunner"]
 
 
 def _slice_pad(value, valid, lo: int, hi: int):
@@ -106,3 +111,94 @@ def batch_run(exe: qcompile.CompiledQuery,
                          F.pad(g.valid, (hl, hr)))
     val, msk = exe.fn(flat_in)
     return SnapshotGrid(value=val, valid=msk, t0=0, prec=exe.out_prec)
+
+
+@dataclasses.dataclass
+class StreamRunner:
+    """Continuous chunked execution with carried halo state (deprecated
+    alias for ``repro_torch.engine.Runner(exe, ExecPolicy())``).
+
+    The only cross-chunk state is, per input, the trailing ``left_halo``
+    ticks of the previous chunk — exactly the boundary-resolution contract.
+    Queries must be lookback-only.
+    """
+
+    exe: qcompile.CompiledQuery
+    _runner: object = dataclasses.field(default=None, repr=False)
+
+    def __post_init__(self):
+        from ..engine.policy import ExecPolicy
+        from ..engine.runner import Runner
+        warnings.warn(
+            "StreamRunner is deprecated; use repro_torch.engine.Runner with "
+            "ExecPolicy()", DeprecationWarning, stacklevel=3)
+        self._runner = Runner(self.exe, ExecPolicy())
+
+    def step(self, chunks: Dict[str, SnapshotGrid]) -> SnapshotGrid:
+        """Feed exactly one partition's worth of new core ticks per input."""
+        return self._runner.step(chunks)
+
+    def state(self) -> Dict[str, tuple]:
+        """Checkpointable runner state (host arrays)."""
+        return self._runner.state()
+
+    def restore(self, state: Dict) -> None:
+        self._runner.restore(state, strict=False)
+
+
+@dataclasses.dataclass
+class SparseStreamRunner:
+    """Change-compressed continuous execution (deprecated alias for
+    ``repro_torch.engine.Runner(exe, ExecPolicy(body="sparse"),
+    segs_per_chunk)``).
+
+    Each step feeds ``segs_per_chunk`` partitions' worth of fresh ticks and
+    only the partitions whose dilated input lineage saw a change are
+    computed; the rest hold the previous output (see
+    :mod:`repro_torch.core.sparse`).  The carried state is the halo
+    contract plus its change metadata: dirty tails, 1-tick snapshots and
+    the hold seed.  ``exe`` must be compiled with ``sparse=True``.
+    """
+
+    exe: qcompile.CompiledQuery
+    segs_per_chunk: int = 8
+    _runner: object = dataclasses.field(default=None, repr=False)
+
+    def __post_init__(self):
+        from ..engine.policy import ExecPolicy
+        from ..engine.runner import Runner
+        warnings.warn(
+            "SparseStreamRunner is deprecated; use repro_torch.engine.Runner "
+            "with ExecPolicy(body='sparse')", DeprecationWarning,
+            stacklevel=3)
+        if self.exe.change_plan is None:
+            raise ValueError("SparseStreamRunner needs a query compiled "
+                             "with sparse=True")
+        self._runner = Runner(self.exe, ExecPolicy(body="sparse"),
+                              segs_per_chunk=self.segs_per_chunk)
+
+    def step(self, chunks: Dict[str, SnapshotGrid]) -> SnapshotGrid:
+        """Feed ``segs_per_chunk`` partitions' worth of fresh core ticks
+        per input; compute only the dirty ones."""
+        return self._runner.step(chunks)
+
+    # -- checkpointing (historical flat format, translated to the runner's
+    #    state pytree) --------------------------------------------------------
+    def state(self) -> Dict:
+        """Checkpointable runner state (host arrays): halo tails + change
+        metadata (dirty tails, 1-tick snapshots, hold seed)."""
+        c = self._runner.state()
+        sp = c.pop("__sparse")
+        t = c.pop("__t")
+        return {"tails": c, "dirty": sp["dirty"], "prev": sp["prev"],
+                "seed": sp["seed"].get("__out"), "__t": t}
+
+    def restore(self, state: Dict) -> None:
+        seed = state["seed"]
+        canonical = dict(state["tails"])
+        canonical["__t"] = state["__t"]
+        canonical["__sparse"] = {
+            "dirty": state["dirty"], "prev": state["prev"],
+            "seed": {} if seed is None else {"__out": seed},
+            "started": True}
+        self._runner.restore(canonical, strict=False)

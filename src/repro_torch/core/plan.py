@@ -1,7 +1,6 @@
 """Static query planning (paper §5.1 + §6): IR + partition size →
-QueryPlan; port of ``repro.core.plan`` (the one-shot dense path:
-``ChangePlan``, ``seg_range_affine`` and ``UnionPlan`` belong to later
-slices).
+QueryPlan; port of ``repro.core.plan`` (``UnionPlan`` waits for the
+multi-query slice, ROADMAP A11).
 
 TiLT's central systems claim is that a time-centric IR makes the query plan
 a *static artifact*: grid extents, alignment index maps and halo contracts
@@ -25,6 +24,8 @@ This module is that artifact.  It owns, in exactly one place:
 * :class:`QueryPlan` — the whole bundle, built once per (query, out_len)
   by :func:`plan_query` and shared by the fused executable, the
   interpreted operator-at-a-time program, and all partitioned runners.
+* :class:`ChangePlan` — the halo contracts read backwards: how far a
+  changed input tick spreads through the query (sparse execution).
 
 Grid/alignment conventions (shared with stream.py):
 
@@ -45,7 +46,8 @@ from torch.utils._pytree import tree_map
 
 from . import boundary, halo, ir
 
-__all__ = ["GridPlan", "AlignSpec", "InputSpec", "QueryPlan", "plan_query"]
+__all__ = ["GridPlan", "AlignSpec", "InputSpec", "QueryPlan", "plan_query",
+           "ChangeSpec", "ChangePlan", "plan_change", "seg_range_affine"]
 
 
 def _ceil_div(a, b):
@@ -276,3 +278,132 @@ def _plan_grids(roots, span: int):
         input_specs[name] = InputSpec(t0=t0, length=(t_hi - t0) // p, prec=p,
                                       core=span // p)
     return node_plans, input_specs
+
+
+@dataclasses.dataclass(frozen=True)
+class ChangeSpec:
+    """Per-input dirty-span dilation contract (change-compressed execution).
+
+    Boundary resolution says output time ``τ`` reads this input inside
+    ``[τ − lookback, τ + lookahead]``; the *reverse image* of that lineage
+    interval is the dirty span: a changed input tick at time ``t`` can only
+    alter outputs in ``[t − lookahead, t + lookback]``.  Both bounds are in
+    time units and use the halo-rounded extents of :class:`InputSpec`, so
+    the dilation is conservative exactly where the halo is.
+    """
+
+    lookback: int    # input change at t dirties outputs in [t, t+lookback]
+    lookahead: int   # ... and in [t-lookahead, t]
+    prec: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ChangePlan:
+    """Static change-propagation artifact for one (query, out_len) pair.
+
+    The sparse executor (:mod:`repro_torch.core.sparse`) needs exactly one fact
+    per source to turn per-tick dirty masks into dirty *output segments*:
+    how far a change spreads through the query DAG.  That is the halo
+    contract read backwards — window/interp/shift ops widen dirty spans by
+    the same lookback/lookahead extents they demand as halo — so the plan
+    is derived entirely from :class:`InputSpec` (no second DAG walk).
+    """
+
+    out_len: int                      # segment length in output ticks
+    out_prec: int
+    specs: Dict[str, ChangeSpec]      # per input NAME
+
+    def check_covers(self, required: Dict[str, tuple]) -> list:
+        """Verifier hook: does every per-input dilation cover a required
+        ``{name: (lookback_t, lookahead_t)}`` demand (time units)?
+        Returns one ``(name, field, have, need)`` tuple per shortfall —
+        empty means every change an input sees really reaches every
+        output it can affect.  Used by the temporal-plan verifier
+        (the reference's ``repro.analysis``) with *independently
+        re-derived* demands,
+        so a bug in the :func:`plan_change` derivation (or a hand-built
+        under-dilated plan) can't vouch for itself."""
+        bad = []
+        for name, (lb, la) in required.items():
+            sp = self.specs.get(name)
+            if sp is None:
+                bad.append((name, "missing", None, (lb, la)))
+                continue
+            if sp.lookback < lb:
+                bad.append((name, "lookback", sp.lookback, lb))
+            if sp.lookahead < la:
+                bad.append((name, "lookahead", sp.lookahead, la))
+        return bad
+
+    # -- retro-invalidation (late-data revision processing) ------------------
+    def retro_span(self, name: str, t_lo: int, t_hi: int) -> tuple:
+        """The *open* output-time interval ``(lo, hi)`` that changed input
+        ticks of ``name`` at times in ``[t_lo, t_hi]`` can dirty — the
+        reverse lineage image :func:`repro_torch.core.sparse.seg_ranges` resolves
+        per segment, as one interval.  A late event that patches sealed
+        input ticks in ``[t_lo, t_hi]`` can only change outputs strictly
+        inside this span; everything else is provably unchanged (the
+        sparse exactness contract), which is what makes revision
+        processing a sparse re-run rather than a chunk replay."""
+        sp = self.specs[name]
+        return (t_lo - sp.lookahead - sp.prec,
+                t_hi + sp.lookback + self.out_prec)
+
+    def revision_horizon_chunks(self, lateness_bound: int,
+                                chunk_span: int) -> int:
+        """Snapshot-ring depth (in chunks) that guarantees revisability of
+        any event no more than ``lateness_bound`` time units behind the
+        sealed frontier.
+
+        A patched tick at time ``t ≥ F − lateness_bound`` (``F`` the
+        sealed frontier) dirties outputs ``τ > t − lookahead − prec``
+        (:meth:`retro_span`), so the earliest chunk a revision must
+        restart from is the one containing
+        ``F − lateness_bound − lookahead − prec + 1`` — the ring must
+        reach ``ceil((bound + lookahead + prec) / chunk_span)`` chunks
+        back.  The ingest layer sizes its ring (and the sealed-raster
+        buffer) with this; the ``revision`` analysis pass re-checks a
+        configured runner against it."""
+        slack = max((sp.lookahead + sp.prec for sp in self.specs.values()),
+                    default=1)
+        return max(1, -(-(lateness_bound + slack) // chunk_span))
+
+
+def plan_change(qp: "QueryPlan") -> ChangePlan:
+    """Derive the change-propagation plan from a query's halo contracts.
+
+    A union plan's merged ``input_specs`` would give the per-input union
+    of the per-query dilations the same way (ROADMAP A11).
+    """
+    specs = {name: ChangeSpec(lookback=s.left_halo * s.prec,
+                              lookahead=s.right_halo * s.prec, prec=s.prec)
+             for name, s in qp.input_specs.items()}
+    return ChangePlan(out_len=qp.out_len, out_prec=qp.out_prec, specs=specs)
+
+
+def seg_range_affine(lookback_t: int, lookahead_t: int, prec: int,
+                     grid_t0: int, out_t0: int, out_prec: int,
+                     seg_len: int) -> tuple:
+    """Affine lowering of the dilated-lineage ranges: ``(a0, step, width)``
+    such that segment ``k``'s dirty input-tick range is the half-open
+    ``[a0 + k·step, a0 + k·step + width)``.
+
+    This is :func:`repro_torch.core.sparse.seg_ranges` specialized to the case
+    every chunked executor already enforces (segment span a multiple of the
+    input precision), in the closed form the fused change-detection kernel
+    needs: a *fixed-width* window sliding by a *fixed stride* per segment,
+    so the kernel can map segment ``k`` straight to its input range.
+    Raises ``ValueError`` when the span is not stride-aligned (callers fall
+    back to the general per-segment ranges).
+    """
+    span = seg_len * out_prec
+    if span % prec:
+        raise ValueError(
+            f"segment span {span} not a multiple of input precision {prec}"
+            " — no affine lowering; use seg_ranges")
+    step = span // prec
+    lo_t = out_t0 + 1 - lookback_t
+    hi_t = out_t0 + span + lookahead_t + prec - 1
+    a0 = _ceil_div(lo_t - grid_t0, prec) - 1
+    width = (hi_t - grid_t0) // prec - a0
+    return a0, step, width

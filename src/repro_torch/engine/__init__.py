@@ -1,0 +1,16 @@
+"""Execution engine: one policy-driven runner for the chunked strategies
+(port of ``repro.engine``).
+
+:class:`Runner` advances a compiled TiLT query chunk by chunk under an
+:class:`ExecPolicy` — ``body`` (dense | sparse) × ``keys`` (single |
+vmapped) at ``placement="local"``, ``dag="solo"`` — around a single
+carried state pytree with one checkpoint/restore/validate path.
+:class:`KeyedEngine` survives as a deprecated alias for
+``Runner(exe, ExecPolicy(keys="vmapped"))``.
+"""
+from .keyed import KeyedEngine, keyed_grid
+from .policy import ExecPolicy
+from .runner import BodySpec, Runner, body_spec_of
+
+__all__ = ["KeyedEngine", "keyed_grid", "ExecPolicy", "BodySpec", "Runner",
+           "body_spec_of"]

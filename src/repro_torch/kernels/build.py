@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of this package, at first use.
 
-All sources under ``csrc/`` go to one ``nvcc`` call for ``sm_90a`` that
-produces a shared library with a plain C interface, loaded with ``ctypes``
-(no PyTorch headers, so the build takes seconds).  The library lands in
+Every source under ``csrc/`` is compiled for ``sm_90a`` by its own
+``nvcc`` process, all started together, and the objects are linked into
+one shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers, so the build takes seconds).  The library lands in
 ``build/kernels/`` at the root of the checkout (git-ignored), named by a
 hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads the cached file.  A failed build raises; nothing falls
@@ -23,7 +24,7 @@ __all__ = ["library", "BUILD_DIR", "NVCC_FLAGS"]
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VOID = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -35,6 +36,11 @@ _SIGNATURES = {
     "wr_prefix_scan_bf16": ([_VOID, _VOID, _VOID, _LL, _LL, _VOID], _INT),
     "wr_sliding_assoc_f32": ([_VOID, _VOID, _LL, _LL, _INT, _INT, _VOID],
                              _INT),
+    "sd_max_rows": ([], _INT),
+    "sd_seg_dirty": ([_VOID, _VOID, _VOID, _INT, _LL, _INT, _LL, _LL, _LL,
+                      _LL, _VOID, _INT, _VOID], _INT),
+    "ft_max_window": ([], _LL),
+    "ft_fused_trend": ([_VOID, _VOID, _VOID, _LL, _INT, _INT, _VOID], _INT),
 }
 
 
@@ -72,18 +78,30 @@ class _Library:
                                "the repro_torch kernels")
         nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+            objs = [os.path.join(work, src.stem + ".o") for src in sources]
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(sources, objs)]
+            logs = [p.communicate()[0] for p in procs]
+            self.build_log = "".join(logs)
+            failed = [src.name for src, p in zip(sources, procs)
+                      if p.returncode != 0]
+            if failed:
+                raise RuntimeError(
+                    f"nvcc failed on {failed}:\n{self.build_log}")
+            tmp = os.path.join(work, path.name)
+            res = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                                 capture_output=True, text=True)
+            self.build_log += res.stdout + res.stderr
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc link failed ({res.returncode}):\n"
+                    f"{self.build_log}")
+            os.replace(tmp, path)  # atomic: a concurrent load never sees half
         self.build_seconds = time.perf_counter() - t0
-        self.build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{self.build_log}")
-        os.replace(tmp, path)  # atomic: a concurrent load never sees half
 
 
 library = _Library()

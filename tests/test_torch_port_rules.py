@@ -14,7 +14,8 @@ import torch
 import repro_torch
 from repro_torch import convert
 from repro_torch.core import stream
-from repro_torch.data import apps
+from repro_torch.data import apps, streams
+from repro_torch.engine import keyed_grid
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -65,7 +66,12 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch):
     for call in (lambda **kw: stream.events_to_grid(es, 0, 4, 1, **kw),
                  lambda **kw: apps.make_grids(data, **kw),
                  lambda **kw: convert.to_grid(np.zeros(4, np.float32),
-                                              np.ones(4, bool), 0, 1, **kw)):
+                                              np.ones(4, bool), 0, 1, **kw),
+                 lambda **kw: streams.burst_grids(64, 0.1, 0, **kw),
+                 lambda **kw: streams.keyed_activity_grids(4, 16, 0.5, 0,
+                                                           **kw),
+                 lambda **kw: keyed_grid(np.zeros((2, 8), np.float32),
+                                         np.ones((2, 8), bool), **kw)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
         assert call(device="cpu") is not None
@@ -86,3 +92,25 @@ def test_executors_follow_their_inputs_device(monkeypatch):
     kg = apps.make_grids(keyed.make_keyed_input(3, 128, 0), device="cpu")
     kout = par.batch_run(qc.compile_query(keyed.query.node, out_len=128), kg)
     assert kout.valid.device.type == "cpu" and kout.valid.shape == (3, 128)
+
+
+def test_runner_and_sparse_run_follow_their_inputs_device(monkeypatch):
+    """The runner and the one-shot sparse path take no device either: CPU
+    chunks run on the CPU without CUDA, the wrappers' kernels never
+    launch."""
+    from repro_torch.core import compile as qc
+    from repro_torch.core import sparse
+    from repro_torch.engine import ExecPolicy, Runner
+    from repro_torch.kernels import sparse_compact
+    _no_cuda(monkeypatch)
+    q = streams.fraud_query(16).node
+    grids = streams.burst_grids(256, 0.1, 0, device="cpu")
+    n0 = sparse_compact.launches["seg_dirty"]
+    r = Runner(qc.compile_query(q, out_len=32, sparse=True),
+               ExecPolicy(body="sparse"), segs_per_chunk=2)
+    out = r.run(grids, 4)
+    assert out.valid.device.type == "cpu" and out.valid.shape == (256,)
+    s = sparse.sparse_run(qc.compile_query(q, out_len=32, sparse=True),
+                          grids, 0, 8)
+    assert s.valid.device.type == "cpu"
+    assert sparse_compact.launches["seg_dirty"] == n0
