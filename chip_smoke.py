@@ -10,7 +10,14 @@ Phases (each raises on failure; the script then exits non-zero):
 2. Hold each kernel against its plain PyTorch version on the card, at the
    apps' windows, at edge shapes and at the main path's shapes; time the
    kernel, the plain version and one PyTorch library call that computes
-   the same function (CUDA events, median of repeats).
+   the same function (CUDA events, median of repeats).  ``seg_dirty``
+   also gets its kernel's device time (``torch.profiler``) and its
+   wrapper's host time per call (1000 calls, no synchronize inside) beside
+   the event time, and the host cost of each part of a launch.  The
+   ``sliding_assoc`` shapes of the runners (recorded from the wrapper
+   during the first-use run of each dense runner of phases 5-6, the same
+   chunks as the timed run) are timed after phase 7, with their launches
+   per timed run.
 3. The main path, single stream: every app of ``repro_torch.data.apps``
    through ``compile_query`` -> ``partition_run`` over 2**24 ticks held on
    the card, in 16 partitions of 2**20 ticks; ysb once more with the
@@ -104,6 +111,39 @@ def cuda_ms(fn, reps: int = 7, inner: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return float(np.median(times))
+
+
+def host_ms(fn, calls: int = 1000) -> float:
+    """Host time per call over ``calls`` calls with no synchronize inside
+    (what a wrapper costs the host; the card catches up afterwards)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e3
+
+
+def kernel_device_ms(fn, name: str, calls: int = 20):
+    """Mean device time per call of the kernels whose name contains
+    ``name``, by ``torch.profiler`` over ``calls`` calls (None when the
+    profiler reports no device events)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and name in e.name]
+    return sum(us) / 1e3 / calls if us else None
 
 
 def bound(nbytes: float, nops: float):
@@ -380,13 +420,26 @@ def check_change_kernels(dev, errs: dict, rows: dict):
                                                            spc))}
         b, by = bound(seg_dirty_bytes([v, m], geom, spc, T),
                       2.0 * K * T)
+        # wrapper and kernel told apart: device time by the profiler, host
+        # time of the wrapper with no synchronize inside
+        t["device_ms"] = kernel_device_ms(
+            lambda: sc.seg_dirty(mats, geoms, spc), "seg_dirty")
+        t["host_ms"] = host_ms(lambda: sc.seg_dirty(mats, geoms, spc))
         rows[("seg_dirty", label)] = dict(
             t, max_abs_err=0.0, bound_ms=b, bound_by=by, shape=[K, 2, T],
-            n_segs=spc, dirty_frac=float(got.float().mean()))
+            n_segs=spc, dirty_frac=float(got.float().mean()),
+            plan=list(sc.seg_dirty_plan(K * spc, geom[2])))
+        dev_ms = ("not reported" if t["device_ms"] is None
+                  else f"{t['device_ms']:.4f} ms")
         log(f"seg_dirty {label} ({K}, 2, {T}) n_segs={spc}: "
-            f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch "
-            f"composition {t['library_ms']:.4f} ms; bound {b:.4f} ms "
-            f"({by}); dirty {float(got.float().mean()):.3f}")
+            f"{t['ms']:.4f} ms event-timed, kernel {dev_ms} on the device, "
+            f"wrapper {t['host_ms']:.4f} ms of host time per call; plain "
+            f"{t['plain_ms']:.4f} ms, torch composition "
+            f"{t['library_ms']:.4f} ms; bound {b:.4f} ms ({by}); dirty "
+            f"{float(got.float().mean()):.3f}")
+        if label == "single":
+            rows[("seg_dirty", "host parts")] = wrapper_host_parts(
+                dev, mats, geoms, spc)
     log(f"seg_dirty: {len(cases)} edge cases and the main path's shapes "
         "equal the plain version")
 
@@ -442,6 +495,141 @@ def check_change_kernels(dev, errs: dict, rows: dict):
         f"{t['plain_ms']:.4f} ms, conv1d composition "
         f"{t['library_ms']:.4f} ms (its error vs f64 {lib_err:.3g}); bound "
         f"{b:.4f} ms ({by}); max err vs plain {errs['fused_trend']:.3g}")
+
+
+def wrapper_host_parts(dev, mats, geoms, n_segs: int) -> dict:
+    """Host ms per call (1000 calls, no synchronize inside) of the parts a
+    ``seg_dirty`` launch can cost the host: those of this wrapper and the
+    ones the previous wrapper paid on every call (a ``torch.cuda.device``
+    context, a ``Stream`` object, three ``ctypes`` arrays, the library's
+    row limit by a ``ctypes`` call), and the whole wrapper."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import sparse_compact as sc
+    from repro_torch.kernels.build import launch_stream, library
+    dev = mats[0].device        # with its index, as the wrapper sees it
+    xs = [m.reshape((-1,) + m.shape[-2:]) for m in mats]
+    K = xs[0].shape[0]
+    words = list(sc.pack_rows(xs))
+    table = [words[i:i + 3] for i in range(0, len(words), 3)]
+
+    def old_arrays():
+        n = len(table)
+        return ((ctypes.c_void_p * n)(*[r[0] for r in table]),
+                (ctypes.c_longlong * n)(*[r[1] for r in table]),
+                (ctypes.c_int * n)(*[r[2] for r in table]))
+
+    def old_stream():
+        with torch.cuda.device(dev):
+            return torch.cuda.current_stream().cuda_stream
+
+    parts = {
+        "this wrapper: raw stream (launch_stream)":
+            lambda: launch_stream(dev),
+        "this wrapper: row table (pack_rows)": lambda: sc.pack_rows(xs),
+        "this wrapper: plan (seg_dirty_plan)":
+            lambda: sc.seg_dirty_plan(K * n_segs, geoms[0][2]),
+        "both: output (torch.empty)": lambda: torch.empty(
+            (K, n_segs), dtype=torch.uint8, device=dev),
+        "previous: device context + Stream object": old_stream,
+        "previous: three ctypes arrays": old_arrays,
+        "previous: library.load() + sd_max_rows()":
+            lambda: library.load().sd_max_rows(),
+        "whole wrapper (seg_dirty)":
+            lambda: sc.seg_dirty(mats, geoms, n_segs),
+    }
+    # the C entry point itself: refused before the launch (no rows), and
+    # with the launch
+    lib = sc._seg_lib()
+    packed = sc.pack_rows(xs)
+    out = torch.zeros((K, n_segs), dtype=torch.bool, device=dev)
+    a0, step, width = geoms[0]
+    group, blocks = sc.seg_dirty_plan(K * n_segs, width)
+    stream = launch_stream(dev)
+    T = xs[0].shape[-1]
+
+    def c_call(n_rows):
+        return lambda: lib.sd_seg_dirty(
+            packed, n_rows, K, n_segs, a0, step, width, T, out.data_ptr(),
+            0, group, blocks, dev.index, stream)
+
+    parts["C entry, refused before the launch"] = c_call(0)
+    parts["C entry with the kernel launch"] = c_call(len(packed) // 3)
+    out = {k: host_ms(fn) for k, fn in parts.items()}
+    log("seg_dirty host time per call by part (ms): " + "; ".join(
+        f"{k} {v:.5f}" for k, v in out.items()))
+    return out
+
+
+def record_sliding_shapes(fn) -> list:
+    """``[R, T, W, op, calls]`` of every ``sliding_assoc`` shape the
+    wrapper sees while ``fn()`` runs (its module attribute is swapped for a
+    recorder, so every caller through ``ops`` is seen)."""
+    from repro_torch.kernels import window_reduce as wr
+    seen: dict = {}
+    orig = wr.sliding_assoc
+
+    def recorder(x, window, op):
+        key = (*x.shape, int(window), op)
+        seen[key] = seen.get(key, 0) + 1
+        return orig(x, window, op)
+
+    wr.sliding_assoc = recorder
+    try:
+        fn()
+    finally:
+        wr.sliding_assoc = orig
+    return [[*k, n] for k, n in seen.items()]
+
+
+def time_runner_shapes(dev, errs: dict, rows: dict, runners: dict):
+    """Phase 2 at the runners' own shapes (recorded from the dense runs of
+    phases 5-6): each against its plain version, then the event time, the
+    bound, the PyTorch call's time and the launches per timed run."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, window_reduce as wr
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    for cell in ("fraud_single", "fraud_keyed_1"):
+        row = runners[cell]["dense"]
+        per_chunk = row["sliding_shapes_per_chunk"]
+        for R, T, W, op, calls in per_chunk:
+            x = (torch.randn(R, T, generator=gen) * 5 + 100).to(dev)
+            combine, ident, _ = wr.COMBINES[op]
+            got = wr.sliding_assoc(x, W, op)
+            plain = ref.sliding_assoc_block_ref(x, W, combine, ident)
+            if op == "add":
+                e = sum_check(f"sliding_assoc runner ({R},{T})", got, plain,
+                              ref.sliding_assoc_block_ref(
+                                  x.double(), W, torch.add, 0.0))
+                filt = torch.ones(1, 1, W, device=dev)
+                lib = lambda: F.conv1d(x.unsqueeze(1), filt, padding=W - 1)
+            else:
+                e = exact_check(f"sliding_assoc runner ({R},{T}) {op}", got,
+                                plain)
+                xp = F.pad(x, (W - 1, 0), value=ident)
+                sign = 1.0 if op == "max" else -1.0
+                lib = lambda: F.max_pool1d(sign * xp.unsqueeze(1), W,
+                                           stride=1)
+            errs["sliding_assoc"] = max(errs["sliding_assoc"], e)
+            t = {"ms": cuda_ms(lambda: wr.sliding_assoc(x, W, op)),
+                 "plain_ms": cuda_ms(lambda: ref.sliding_assoc_block_ref(
+                     x, W, combine, ident)),
+                 "library_ms": cuda_ms(lib),
+                 "host_ms": host_ms(lambda: wr.sliding_assoc(x, W, op))}
+            b, by = bound(8.0 * R * T, 2.0 * R * T)
+            launches = calls * row["chunks"]
+            plan = wr.sliding_plan(R, T, W)
+            rows[("sliding_assoc", f"{cell} {R}x{T}")] = dict(
+                t, max_abs_err=e, bound_ms=b, bound_by=by, shape=[R, T],
+                window=W, op=op, launches_per_timed_run=launches,
+                regime=plan.regime, blocks=plan.blocks)
+            log(f"sliding_assoc {cell} ({R},{T}) W={W} {op} "
+                f"[{plan.regime}, {plan.blocks} blocks]: {t['ms']:.4f} ms, "
+                f"plain {t['plain_ms']:.4f} ms, library "
+                f"{t['library_ms']:.4f} ms, wrapper host "
+                f"{t['host_ms']:.4f} ms; bound {b:.4f} ms ({by}); "
+                f"{launches} launches per timed run")
 
 
 # ---------------------------------------------------------------------------
@@ -518,7 +706,8 @@ def device_profile(fn, wall_s: float) -> dict:
         per_kernel[short] = (per_kernel.get(short, 0.0)
                              + e.time_range.elapsed_us() / 1e3)
     if not spans:
-        return {"device_ms": None, "idle_share": None, "top": []}
+        return {"device_ms": None, "idle_share": None, "top": [],
+                "per_kernel": {}}
     busy_us, end = 0.0, -float("inf")
     for a, b in sorted(spans):
         if b > end:
@@ -528,7 +717,7 @@ def device_profile(fn, wall_s: float) -> dict:
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:4]
     return {"device_ms": busy_ms,
             "idle_share": max(0.0, 1.0 - busy_ms / (wall_s * 1e3)),
-            "top": [[k, v] for k, v in top]}
+            "top": [[k, v] for k, v in top], "per_kernel": per_kernel}
 
 
 def _profile_text(p: dict) -> str:
@@ -689,7 +878,9 @@ def run_runner(dev, main_launches: dict, label: str, query, grids: dict,
     for body in ("dense", "sparse"):
         exe = qc.compile_query(query, out_len=seg, sparse=body == "sparse")
         policy = ExecPolicy(body=body, keys=keys)
-        Runner(exe, policy, **kw).run(grids, 2)   # first use of every step
+        # first use of every step; the kernel shapes of its two chunks
+        shapes = record_sliding_shapes(
+            lambda: Runner(exe, policy, **kw).run(grids, 2))
         r = Runner(exe, policy, **kw)
         launches = {}
         res[body], dt = drive(launches,
@@ -711,7 +902,9 @@ def run_runner(dev, main_launches: dict, label: str, query, grids: dict,
                    ms_per_chunk=dt / n_chunks * 1e3, profile=prof,
                    launches_per_chunk={k: n / n_chunks
                                        for k, n in launches.items()},
-                   metrics=snap)
+                   chunks=n_chunks, metrics=snap,
+                   sliding_shapes_per_chunk=[[*k[:4], k[4] / 2]
+                                             for k in shapes])
         if body == "sparse":
             row["dirty_fraction"] = _compact_check(f"{label} sparse", snap,
                                                    n_chunks, all_dirty)
@@ -724,7 +917,10 @@ def run_runner(dev, main_launches: dict, label: str, query, grids: dict,
             f"{dt / n_chunks * 1e3:.3f} ms per chunk{dirty}; launches per "
             f"chunk: {per}; vs cpu max diff {stats['max_abs_diff']:.3g}, "
             f"{stats['flips']} gate flips")
-        log(f"  one chunk: {_profile_text(prof)}")
+        slid = sum(v for k, v in prof["per_kernel"].items()
+                   if k.startswith("sliding"))
+        log(f"  one chunk: {_profile_text(prof)}; sliding_assoc kernels "
+            f"{slid:.4f} ms")
     if not _same_bits(res["dense"], res["sparse"]):
         raise AssertionError(f"runner {label}: sparse != dense")
     log(f"runner {label}: sparse output equals dense output bit for bit")
@@ -859,6 +1055,7 @@ def main() -> int:
     keyed = run_keyed(dev, keyed_launches, KEYS, KEY_TICKS, CMP_KEYS)
     runners = run_runners(dev, runner_launches)
     one_shot = run_one_shot(dev, one_shot_launches)
+    time_runner_shapes(dev, errs, rows, runners)
     windows = {"partition_run": single, "batch_run": keyed_launches,
                "runner": runner_launches, "sparse_run": one_shot_launches}
     launches = {k: sum(w.get(k, 0) for w in windows.values())

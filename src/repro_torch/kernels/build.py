@@ -19,7 +19,7 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["library", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["library", "BUILD_DIR", "NVCC_FLAGS", "launch_stream"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -29,16 +29,20 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _VOID = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _INT = ctypes.c_int
+_I64P = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "wr_tile": ([], _INT),
     "wr_max_window": ([], _LL),
     "wr_prefix_scan_f32": ([_VOID, _VOID, _VOID, _LL, _LL, _VOID], _INT),
     "wr_prefix_scan_bf16": ([_VOID, _VOID, _VOID, _LL, _LL, _VOID], _INT),
-    "wr_sliding_assoc_f32": ([_VOID, _VOID, _LL, _LL, _INT, _INT, _VOID],
-                             _INT),
+    "wr_short_t": ([], _INT),
+    "wr_long_tile": ([], _INT),
+    "wr_sliding_assoc_f32": ([_VOID, _VOID, _LL, _LL, _INT, _INT, _INT, _LL,
+                              _INT, _LL, _LL, _INT, _VOID], _INT),
     "sd_max_rows": ([], _INT),
-    "sd_seg_dirty": ([_VOID, _VOID, _VOID, _INT, _LL, _INT, _LL, _LL, _LL,
-                      _LL, _VOID, _INT, _VOID], _INT),
+    "sd_threads": ([], _INT),
+    "sd_seg_dirty": ([_I64P, _INT, _LL, _INT, _LL, _LL, _LL, _LL, _VOID,
+                      _INT, _INT, _LL, _INT, _VOID], _INT),
     "ft_max_window": ([], _LL),
     "ft_fused_trend": ([_VOID, _VOID, _VOID, _LL, _INT, _INT, _VOID], _INT),
 }
@@ -105,3 +109,12 @@ class _Library:
 
 
 library = _Library()
+
+
+def launch_stream(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device`` (a CUDA
+    ``torch.device`` with its index), the stream every wrapper launches
+    on.  One call into PyTorch, without the ``Stream`` object or a device
+    context: the C entry points make the device current themselves."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -12,10 +12,14 @@ On the H100 both are bound by bytes: each reads its input once and writes
 its output once (8 bytes per f32 element), against 3.35 TB/s.  The TPU
 kernels carry state across a grid that runs in order; on Hopper blocks run
 in no order, so ``prefix_scan`` becomes a tile-total pass plus a scan pass
-whose blocks add the totals to their left, and ``sliding_assoc`` gives each
-(row, group of stripes) its own block that walks its stripes in tiles with
-carries (see the notes in the CUDA source).  Rows are independent, so a
-leading key axis folds into R.
+whose blocks add the totals to their left.  ``sliding_assoc`` has three
+launch regimes, chosen from ``(T, W)`` alone (:func:`sliding_regime`), so
+a row's result never depends on how many rows share its launch: short
+rows (``T <= SHORT_T``) one warp per row, rows staged per block; long rows
+one block per (row, group of stripes) with one staged tile; stripes wider
+than a tile walked tile by tile (see the notes in the CUDA source).
+:func:`sliding_plan` computes the grid; it needs no card.  Rows are
+independent, so a leading key axis folds into R.
 
 Each wrapper dispatches on the tensor's device: a CPU tensor goes to the
 plain version in :mod:`.ref`; a CUDA tensor launches the kernel or raises.
@@ -24,15 +28,17 @@ the card).
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import ref as _ref
-from .build import library
+from .build import launch_stream, library
 
-__all__ = ["prefix_scan", "sliding_assoc", "launches", "reset_launches",
-           "COMBINES"]
+__all__ = ["prefix_scan", "sliding_assoc", "sliding_regime", "sliding_plan",
+           "SlidingPlan", "launches", "reset_launches", "COMBINES"]
 
 # op name -> (plain combine, identity, kernel op code)
 COMBINES = {
@@ -44,6 +50,77 @@ COMBINES = {
 launches = {"prefix_scan": 0, "sliding_assoc": 0}
 
 _MAX_BLOCKS = 2**31 - 1
+
+# The sliding kernel's geometry, as in csrc/window_reduce.cu (checked
+# against the library when it is first used).
+SHORT_T = 1024        # longest row of the short regime
+LONG_TILE = 2048      # ticks per block tile in the long regimes
+_THREADS = 256
+_STAGE_FLOATS = 4096  # short regime: floats of rows one block stages
+_REGIME_CODES = {"short": 0, "long": 1, "stripe": 2}
+
+
+class SlidingPlan(NamedTuple):
+    """One ``sliding_assoc`` launch: regime, grid, block size, the
+    regime's parameter (rows per block, stripes per block, or 0) and the
+    dynamic shared memory in bytes."""
+    regime: str
+    blocks: int
+    threads: int
+    param: int
+    smem: int
+
+
+def sliding_regime(T: int, W: int) -> str:
+    """The launch regime for rows of ``T`` ticks at window ``W``: a
+    function of ``(T, W)`` only, never of the row count, so a row's bits do
+    not depend on which rows share its launch."""
+    if T <= SHORT_T:
+        return "short"
+    return "long" if W < LONG_TILE else "stripe"
+
+
+@functools.lru_cache(maxsize=256)
+def sliding_plan(R: int, T: int, W: int) -> SlidingPlan:
+    """The grid of ``sliding_assoc`` over ``(R, T)`` rows at window ``W``.
+
+    * short: one warp per row, 8 warps a block up to 256 ticks and 4
+      above, each warp taking up to 4 rows so that a block stages about
+      ``_STAGE_FLOATS`` floats; rows per block depend on ``T`` only.
+    * long (``W < LONG_TILE``): one block per (row, group of
+      ``LONG_TILE // W`` stripes).
+    * stripe: one block per (row, stripe), with one carry per tile of the
+      stripe in shared memory.
+    """
+    regime = sliding_regime(T, W)
+    if regime == "short":
+        warps = 8 if T <= 256 else 4
+        rpb = warps * min(4, max(1, _STAGE_FLOATS // (T * warps)))
+        stage = -(-rpb * T // 4) * 4 + 4
+        return SlidingPlan(regime, -(-R // rpb), 32 * warps, rpb,
+                           4 * (stage + warps * T))
+    if regime == "long":
+        S = LONG_TILE // W
+        return SlidingPlan(regime, R * -(-T // (S * W)), _THREADS, S, 0)
+    return SlidingPlan(regime, R * -(-T // W), _THREADS, 0,
+                       4 * -(-W // LONG_TILE))
+
+
+_lib = None
+
+
+def _sliding_lib():
+    """The kernel library and its largest window, the geometry checked
+    against this module's at the first call."""
+    global _lib
+    if _lib is None:
+        lib = library.load()
+        if (lib.wr_short_t(), lib.wr_long_tile()) != (SHORT_T, LONG_TILE):
+            raise RuntimeError("sliding_assoc: kernel geometry "
+                               f"{(lib.wr_short_t(), lib.wr_long_tile())} "
+                               f"!= the wrapper's {(SHORT_T, LONG_TILE)}")
+        _lib = lib, lib.wr_max_window()
+    return _lib
 
 
 def reset_launches() -> None:
@@ -97,28 +174,26 @@ def sliding_assoc(x: torch.Tensor, window: int, op: str) -> torch.Tensor:
     ``add``/``max``/``min``."""
     combine, identity, code = COMBINES[op]
     W = int(window)
-    if x.device.type == "cpu":
+    if not x.is_cuda and x.device.type == "cpu":
         return _ref.sliding_assoc_block_ref(x, W, combine, identity)
     _check(x, "sliding_assoc", (torch.float32,))
     if W <= 1:
         return x
-    lib = library.load()
-    if W > lib.wr_max_window():
-        raise ValueError(f"sliding_assoc: window {W} exceeds "
-                         f"{lib.wr_max_window()}")
+    lib, max_w = _sliding_lib()
+    if W > max_w:
+        raise ValueError(f"sliding_assoc: window {W} exceeds {max_w}")
     R, T = x.shape
     out = torch.empty_like(x)
     if R == 0 or T == 0:
         return out
-    tile = lib.wr_tile()
-    per_block = W if W >= tile else (tile // W) * W
-    if R * -(-T // per_block) > _MAX_BLOCKS:
+    plan = sliding_plan(R, T, W)
+    if plan.blocks > _MAX_BLOCKS:
         raise ValueError(f"sliding_assoc: ({R}, {T}) at W={W} exceeds the "
                          "grid")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _raise_on(lib.wr_sliding_assoc_f32(x.data_ptr(), out.data_ptr(), R,
-                                           T, W, code, stream),
-                  "sliding_assoc")
+    dev = x.device
+    _raise_on(lib.wr_sliding_assoc_f32(
+        x.data_ptr(), out.data_ptr(), R, T, W, code,
+        _REGIME_CODES[plan.regime], plan.blocks, plan.threads, plan.param,
+        plan.smem, dev.index, launch_stream(dev)), "sliding_assoc")
     launches["sliding_assoc"] += 1
     return out

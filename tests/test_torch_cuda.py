@@ -74,6 +74,74 @@ def test_cuda_sliding_assoc_matches_plain(cuda, T, C, W, op):
         assert torch.equal(got, plain)
 
 
+def _nonfinite_rows(R, T, seed):
+    """Normal rows with a sprinkling of NaN, +inf and -inf."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 3, (R, T)).astype(np.float32)
+    for v in (np.nan, np.inf, -np.inf):
+        x[rng.random((R, T)) < 0.002] = v
+    return torch.from_numpy(x)
+
+
+def _assert_window_result(got, plain, exact, op):
+    """Equal non-finite pattern (NaN where NaN, each infinity with its
+    sign); max/min equal elsewhere, sums within ``_assert_sums``."""
+    got = got.cpu()
+    assert torch.equal(got.isnan(), plain.isnan())
+    assert torch.equal(got.isposinf(), plain.isposinf())
+    assert torch.equal(got.isneginf(), plain.isneginf())
+    fin = plain.isfinite()
+    if op == "add":
+        _assert_sums(got[fin], plain[fin], exact[fin])
+    else:
+        assert torch.equal(got[fin], plain[fin])
+
+
+# each regime's edges (wr.sliding_regime: short up to SHORT_T = 1024 ticks,
+# long below W = 2048, stripe from there): T < 32, T = W, T not a multiple
+# of W, T at and just above the threshold, W > T, W >= 1024, R = 1 and
+# large R
+SLIDING_EDGES = [(1, 5, 2), (3, 31, 8), (2, 100, 100), (4, 533, 37),
+                 (2, 1024, 64), (2, 1025, 64), (3, 1024, 1023),
+                 (3, 1025, 1024), (2, 96, 256), (1, 900, 1500),
+                 (2, 3000, 1024), (2, 5000, 2048), (1, 9000, 4100),
+                 (3000, 129, 64), (5000, 577, 50), (1, 1 << 20, 50),
+                 (1, 3000, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,T,W", SLIDING_EDGES)
+@pytest.mark.parametrize("op", ["add", "max", "min"])
+def test_cuda_sliding_assoc_regime_edges(cuda, R, T, W, op):
+    x = _nonfinite_rows(R, T, R * T + W)
+    combine, ident, _ = wr.COMBINES[op]
+    got = wr.sliding_assoc(x.to(cuda), W, op)
+    plain = ref.sliding_assoc_block_ref(x, W, combine, ident)
+    exact = (ref.sliding_assoc_block_ref(x.double(), W, torch.add, 0.0)
+             if op == "add" else None)
+    _assert_window_result(got, plain, exact, op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,W", [(129, 64), (577, 64), (1024, 50),
+                                 (4145, 50), (5000, 3001)])
+@pytest.mark.parametrize("op", ["add", "max"])
+def test_cuda_sliding_assoc_row_bits_depend_on_the_row_alone(cuda, T, W,
+                                                              op):
+    """A row gives the same bits alone, at another index among R rows, and
+    after a compacting gather (what the sparse body launches)."""
+    rng = np.random.default_rng(T + W)
+    rows = torch.from_numpy(
+        (100 + rng.normal(0, 5, (200, T))).astype(np.float32)).to(cuda)
+    row = 77
+    alone = wr.sliding_assoc(rows[row:row + 1].contiguous(), W, op)[0]
+    among = wr.sliding_assoc(rows, W, op)[row]
+    ids = torch.tensor([3, row, 150, 9], device=cuda)
+    gathered = wr.sliding_assoc(rows[ids].contiguous(), W, op)[1]
+    for other in (among, gathered):
+        assert torch.equal(alone.view(torch.int32), other.view(torch.int32))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,C", [(10, 1), (1025, 3), (1 << 20, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -199,6 +267,39 @@ def test_cuda_seg_dirty_edges(cuda):
         False, False, True, False]
     with pytest.raises(TypeError):
         sc.seg_dirty([a.double().to(cuda)], geoms[:1], n_segs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.bool])
+def test_cuda_seg_dirty_long_units(cuda, dtype):
+    """Units wider than LONG_UNIT (a block each): a change at a unit's
+    first and at its last tick, NaN and -0.0, int32 and bool rows,
+    accumulation over several launches (more rows than one launch
+    takes)."""
+    width, step, n_segs = 577, 512, 6
+    T = step * n_segs + 65
+    assert sc.seg_dirty_plan(3 * n_segs, width)[0] == 256
+    x = torch.zeros(3, 2, T)
+    x[0, 0, 1] = 1.0                         # first tick of unit 0
+    x[0, 1, 512 + 576:] = 2.0                # last tick of unit 1 (+ on)
+    x[1, 0, 1030:1040] = -0.0                # no change
+    x[1, 1, 2100] = float("nan")             # a change (and its return)
+    x[2, 0, 5 * step + 300] = 3.0
+    if dtype != torch.float32:
+        x = torch.nan_to_num(x, nan=7.0)
+        x = (x != 0) if dtype == torch.bool else x.to(dtype)
+    geoms = [(0, step, width)]
+    got = sc.seg_dirty([x.to(cuda)], geoms, n_segs)
+    want = ref.seg_dirty_fused_ref([x], geoms, n_segs)
+    assert torch.equal(got.cpu(), want)
+    assert want.any() and not want.all()
+    # 40 channels of one source: three launches OR-ed into one output
+    wide = torch.from_numpy(_pw_rows((3, 40, T), 5, rate=3e-5)).to(dtype)
+    n0 = sc.launches["seg_dirty"]
+    got = sc.seg_dirty([wide.to(cuda), x.to(cuda)], geoms * 2, n_segs)
+    assert sc.launches["seg_dirty"] == n0 + 3
+    assert torch.equal(got.cpu(), ref.seg_dirty_fused_ref(
+        [wide, x], geoms * 2, n_segs))
 
 
 @pytest.mark.cuda
