@@ -10,10 +10,15 @@ Phases (each raises on failure; the script then exits non-zero):
 2. Hold each kernel against its plain PyTorch version on the card, at the
    apps' windows, at edge shapes and at the main path's shapes; time the
    kernel, the plain version and one PyTorch library call that computes
-   the same function (CUDA events, median of repeats).  ``seg_dirty``
-   also gets its kernel's device time (``torch.profiler``) and its
-   wrapper's host time per call (1000 calls, no synchronize inside) beside
-   the event time, and the host cost of each part of a launch.  The
+   the same function (CUDA events, median of repeats).  ``seg_dirty``,
+   ``prefix_scan`` and ``fused_trend`` also get their device time
+   (``torch.profiler``) and their wrapper's host time per call (1000
+   calls, no synchronize inside) beside the event time; ``seg_dirty`` the
+   host cost of each part of a launch.  ``prefix_scan`` and
+   ``fused_trend`` are swept over their launch plans' edges (odd T, rows
+   off the 16-byte grid, block and tile boundaries, bf16 for
+   ``prefix_scan``), and ``prefix_scan``'s bits are checked to repeat over
+   20 calls and to be a row's own (alone, among others, gathered).  The
    ``sliding_assoc`` shapes of the runners (recorded from the wrapper
    during the first-use run of each dense runner of phases 5-6, the same
    chunks as the timed run) are timed after phase 7, with their launches
@@ -224,18 +229,29 @@ def check_kernels(dev):
     log(f"sliding_assoc: {len(cases) * 3} cases agree with the plain "
         f"version (max err {errs['sliding_assoc']:.3g})")
 
-    # prefix_scan: f32 accumulation of f32 or bf16 rows
-    for R, T in [(1, 10), (3, 1025), (2, 100_003), (6, PART + 49)]:
+    # prefix_scan: f32 accumulation of f32 or bf16 rows, at the plan's
+    # edges (wr.prefix_plan: a block per row up to PREFIX_TILE, tiles
+    # above), odd T, and rows off the 16-byte grid (a view one element
+    # into its allocation)
+    tile = wr.PREFIX_TILE
+    shapes = [(1, 10), (3, 1025), (2, 100_003), (6, PART + 49)]
+    shapes += [(3, T) for T in (1, tile - 1, tile, tile + 1, PART + 9)]
+    for R, T in shapes:
         x = randn(R, T)
         for dt in (torch.float32, torch.bfloat16):
-            xi = x.to(dt).contiguous()
-            got = wr.prefix_scan(xi)
-            if got.dtype != torch.float32:
-                raise AssertionError(f"prefix_scan {dt}: out {got.dtype}")
-            e = sum_check(f"prefix_scan {dt} ({R},{T})", got,
-                          ref.prefix_sum_ref(xi.float()),
-                          torch.cumsum(xi.double(), dim=-1))
-            errs["prefix_scan"] = max(errs["prefix_scan"], e)
+            for layout in ("contiguous", "misaligned"):
+                xi = x.to(dt).contiguous()
+                if layout == "misaligned":
+                    xi = misaligned(xi)
+                got = wr.prefix_scan(xi)
+                if got.dtype != torch.float32:
+                    raise AssertionError(f"prefix_scan {dt}: out "
+                                         f"{got.dtype}")
+                e = sum_check(f"prefix_scan {dt} {layout} ({R},{T})", got,
+                              ref.prefix_sum_ref(xi.float()),
+                              torch.cumsum(xi.double(), dim=-1))
+                errs["prefix_scan"] = max(errs["prefix_scan"], e)
+    prefix_bits_checks(dev, gen)
     # W < 8 sums take the prefix-scan path through ops.sliding_sum: the
     # prefix sums P are what is rounded, P[t] - P[t-W] what is compared
     for W in (1, 3, 7):
@@ -293,18 +309,78 @@ def check_kernels(dev):
         e = sum_check(f"prefix_scan {label}", wr.prefix_scan(x),
                       ref.prefix_sum_ref(x), torch.cumsum(x.double(), -1))
         errs["prefix_scan"] = max(errs["prefix_scan"], e)
+        if not torch.equal(wr.prefix_scan(x), torch.cumsum(x, dim=-1)):
+            raise AssertionError(f"prefix_scan {label}: 0/1 counts differ "
+                                 "from torch.cumsum")
+        fn = lambda: wr.prefix_scan(x)
         t = {
-            "ms": cuda_ms(lambda: wr.prefix_scan(x)),
+            "ms": cuda_ms(fn),
             "plain_ms": cuda_ms(lambda: ref.prefix_sum_ref(x)),
             "library_ms": cuda_ms(lambda: torch.cumsum(x, dim=-1)),
+            # every device event of the wrapper (the status words' memset
+            # of the long regime included), and its host time
+            "device_ms": kernel_device_ms(fn, ""),
+            "host_ms": host_ms(fn),
         }
         b, by = bound(8.0 * R * T, 1.0 * R * T)
-        rows[("prefix_scan", label)] = dict(t, max_abs_err=e, bound_ms=b,
-                                            bound_by=by, shape=[R, T])
-        log(f"prefix_scan {label} ({R},{T}): {t['ms']:.4f} ms, plain "
+        plan = wr.prefix_plan(R, T)
+        rows[("prefix_scan", label)] = dict(
+            t, max_abs_err=e, bound_ms=b, bound_by=by, shape=[R, T],
+            plan=list(plan))
+        log(f"prefix_scan {label} ({R},{T}) [{plan.regime}, {plan.blocks} "
+            f"blocks]: {t['ms']:.4f} ms event-timed, "
+            f"{_ms(t['device_ms'])} on the device, wrapper "
+            f"{t['host_ms']:.4f} ms of host time per call; plain "
             f"{t['plain_ms']:.4f} ms, cumsum {t['library_ms']:.4f} ms; "
-            f"bound {b:.4f} ms ({by})")
+            f"bound {b:.4f} ms ({by}); equals cumsum on 0/1 rows")
     return errs, rows
+
+
+def _ms(v) -> str:
+    return "not reported" if v is None else f"{v:.4f} ms"
+
+
+def misaligned(x):
+    """``x`` copied into a contiguous view one element into a larger
+    allocation (as ``buf[1:]``), so its rows are off the 16-byte grid."""
+    buf = x.new_empty(x.numel() + 1)
+    v = buf[1:].view(x.shape)
+    v.copy_(x)
+    if v.data_ptr() % 16 == 0:
+        raise AssertionError("misaligned: view is 16-byte aligned")
+    return v
+
+
+def prefix_bits_checks(dev, gen) -> None:
+    """``prefix_scan``'s bits follow from a row's values alone: 20 calls
+    agree bit for bit (the long regime's carries do not depend on the
+    blocks' timing), and a row gives the same bits alone, among others and
+    after a gather, short rows (200 of 4105) and long (5 of 2**20 + 9)."""
+    import torch
+    from repro_torch.kernels import window_reduce as wr
+
+    def bits(a):
+        return a.view(torch.int32)
+
+    for R, T in ((2, PART + 9), (2 * KEYS, KEY_TICKS + 9), (200, 4105),
+                 (5, PART + 9)):
+        x = (torch.randn(R, T, generator=gen) * 5 + 100).to(dev)
+        first = bits(wr.prefix_scan(x))
+        for _ in range(19):
+            if not torch.equal(bits(wr.prefix_scan(x)), first):
+                raise AssertionError(f"prefix_scan ({R},{T}): bits differ "
+                                     "between repeated calls")
+        if R in (200, 5):
+            row = R // 2 + 1
+            alone = bits(wr.prefix_scan(x[row:row + 1].contiguous())[0])
+            ids = torch.tensor([R - 1, row, 0], device=dev)
+            gathered = bits(wr.prefix_scan(x[ids].contiguous())[1])
+            if not (torch.equal(alone, first[row])
+                    and torch.equal(alone, gathered)):
+                raise AssertionError(f"prefix_scan ({R},{T}): a row's bits "
+                                     "depend on its neighbours")
+    log("prefix_scan: identical bits over 20 calls, and for a row alone, "
+        "among others and gathered")
 
 
 def seg_dirty_torch(x, m, geom, n_segs: int):
@@ -429,10 +505,9 @@ def check_change_kernels(dev, errs: dict, rows: dict):
             t, max_abs_err=0.0, bound_ms=b, bound_by=by, shape=[K, 2, T],
             n_segs=spc, dirty_frac=float(got.float().mean()),
             plan=list(sc.seg_dirty_plan(K * spc, geom[2])))
-        dev_ms = ("not reported" if t["device_ms"] is None
-                  else f"{t['device_ms']:.4f} ms")
         log(f"seg_dirty {label} ({K}, 2, {T}) n_segs={spc}: "
-            f"{t['ms']:.4f} ms event-timed, kernel {dev_ms} on the device, "
+            f"{t['ms']:.4f} ms event-timed, kernel {_ms(t['device_ms'])} on "
+            "the device, "
             f"wrapper {t['host_ms']:.4f} ms of host time per call; plain "
             f"{t['plain_ms']:.4f} ms, torch composition "
             f"{t['library_ms']:.4f} ms; bound {b:.4f} ms ({by}); dirty "
@@ -452,11 +527,22 @@ def check_change_kernels(dev, errs: dict, rows: dict):
                    / torch.clamp(pos + 1, max=w)
                    for s, w in ((1, w1), (-1, w2)))
 
-    for T, w1, w2 in ((N_TICKS, 20, 50), (49, 20, 50), (1001, 20, 50),
-                      (100_003, 7, 64), (300_007, 30, 2000),
-                      (50_000, 100, 5000)):
+    # the apps' windows, then fq.trend_plan's block edges: T one short of
+    # and past whole blocks, windows wider than a tile (one stripe a block,
+    # walked in tiles), rows off the 16-byte grid
+    cases = [(N_TICKS, 20, 50, False), (49, 20, 50, False),
+             (1001, 20, 50, False), (100_003, 7, 64, False),
+             (300_007, 30, 2000, False), (50_000, 100, 5000, False)]
+    for w1, w2 in ((20, 50), (1, 2), (100, 2048), (100, 2049),
+                   (1000, 5000)):
+        span = fq.trend_plan(1, w2).span
+        cases += [(3 * span + d, w1, w2, m) for d in (-1, 1, 3)
+                  for m in (False, True)]
+    for T, w1, w2, mis in cases:
         x = (100.0 + torch.cumsum(torch.randn(T, generator=gen) * 0.05,
                                   0)).float().to(dev)
+        if mis:
+            x = misaligned(x)
         diff, up = fq.fused_trend(x, w1, w2)
         pd, _ = ref.fused_trend_block_ref(x, w1, w2)
         e = sum_check(f"fused_trend T={T} w={w1},{w2}", diff, pd,
@@ -484,14 +570,20 @@ def check_change_kernels(dev, errs: dict, rows: dict):
 
     lib_d, _ = composed()       # a yardstick: its error is only logged
     lib_err = max_err(lib_d, f64_trend(x, w1, w2))
-    t = {"ms": cuda_ms(lambda: fq.fused_trend(x, w1, w2)),
+    fn = lambda: fq.fused_trend(x, w1, w2)
+    t = {"ms": cuda_ms(fn),
          "plain_ms": cuda_ms(lambda: ref.fused_trend_block_ref(x, w1, w2)),
-         "library_ms": cuda_ms(composed)}
+         "library_ms": cuda_ms(composed),
+         "device_ms": kernel_device_ms(fn, "fused_trend"),
+         "host_ms": host_ms(fn)}
     b, by = bound(9.0 * T, 10.0 * T)
     rows[("fused_trend", "single")] = dict(
         t, max_abs_err=errs["fused_trend"], bound_ms=b, bound_by=by,
-        shape=[T], windows=[w1, w2])
-    log(f"fused_trend (2**24,) w=20,50: {t['ms']:.4f} ms, plain "
+        shape=[T], windows=[w1, w2], plan=list(fq.trend_plan(T, w2)))
+    log(f"fused_trend: {len(cases)} cases agree with the plain version")
+    log(f"fused_trend (2**24,) w=20,50: {t['ms']:.4f} ms event-timed, "
+        f"{_ms(t['device_ms'])} on the device, wrapper {t['host_ms']:.4f} "
+        f"ms of host time per call; plain "
         f"{t['plain_ms']:.4f} ms, conv1d composition "
         f"{t['library_ms']:.4f} ms (its error vs f64 {lib_err:.3g}); bound "
         f"{b:.4f} ms ({by}); max err vs plain {errs['fused_trend']:.3g}")

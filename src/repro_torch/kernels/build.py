@@ -19,7 +19,7 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["library", "BUILD_DIR", "NVCC_FLAGS", "launch_stream"]
+__all__ = ["library", "BUILD_DIR", "NVCC_FLAGS", "launch_stream", "padded"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -31,10 +31,10 @@ _LL = ctypes.c_longlong
 _INT = ctypes.c_int
 _I64P = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
-    "wr_tile": ([], _INT),
+    "wr_prefix_tile": ([], _INT),
     "wr_max_window": ([], _LL),
-    "wr_prefix_scan_f32": ([_VOID, _VOID, _VOID, _LL, _LL, _VOID], _INT),
-    "wr_prefix_scan_bf16": ([_VOID, _VOID, _VOID, _LL, _LL, _VOID], _INT),
+    "wr_prefix_scan": ([_VOID, _VOID, _VOID, _LL, _LL, _INT, _INT, _LL, _INT,
+                        _LL, _LL, _INT, _VOID], _INT),
     "wr_short_t": ([], _INT),
     "wr_long_tile": ([], _INT),
     "wr_sliding_assoc_f32": ([_VOID, _VOID, _LL, _LL, _INT, _INT, _INT, _LL,
@@ -43,8 +43,10 @@ _SIGNATURES = {
     "sd_threads": ([], _INT),
     "sd_seg_dirty": ([_I64P, _INT, _LL, _INT, _LL, _LL, _LL, _LL, _VOID,
                       _INT, _INT, _LL, _INT, _VOID], _INT),
+    "ft_tile": ([], _INT),
     "ft_max_window": ([], _LL),
-    "ft_fused_trend": ([_VOID, _VOID, _VOID, _LL, _INT, _INT, _VOID], _INT),
+    "ft_fused_trend": ([_VOID, _VOID, _VOID, _LL, _INT, _INT, _INT, _LL, _LL,
+                        _INT, _VOID], _INT),
 }
 
 
@@ -118,3 +120,9 @@ def launch_stream(device) -> int:
     context: the C entry points make the device current themselves."""
     import torch
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def padded(n: int) -> int:
+    """Floats of a staged tile of ``n`` in shared memory, one pad word per
+    32 (``padded`` of ``csrc/stage.cuh``)."""
+    return n + (n >> 5) + 1

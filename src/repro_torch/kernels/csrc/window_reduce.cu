@@ -11,11 +11,17 @@
 // output per element, O(1) combines per element.  Neither has a grid that
 // runs in order, so the TPU's cross-step carries become:
 //
-//   prefix_scan: two launches.  tile_sums writes one f32 total per
-//   (row, 1024-element tile); scan re-reads its tile, adds the sum of the
-//   totals to its left as the carry, and scans the tile in registers and
-//   shared memory.  Every (row, tile) block is independent, so a long row
-//   spreads over all SMs instead of one.
+//   prefix_scan: one launch, each element read once and written once.
+//   Rows up to PS_TILE elements: one block per row stages the row in
+//   shared memory (16-byte loads of its aligned cover), scans it with 16
+//   elements a thread in registers, and stores it with 16-byte stores.
+//   Longer rows: tiles of PS_TILE elements; each publishes its total in a
+//   64-bit status word (value and ready flag stored together) as soon as
+//   it has scanned, then sums its predecessors' totals in an order fixed
+//   by their index (no decoupled look-back that stops at whichever
+//   inclusive prefix happens to be ready, whose f32 bits would depend on
+//   timing).  The regime and the tile follow from T alone
+//   (window_reduce.prefix_plan), so a row's bits depend on its values.
 //
 //   sliding_assoc: out[t] = combine(suffix of stripe k-1 after offset j,
 //   prefix of stripe k up to j) for t = kW + j, stripes of width W from
@@ -65,14 +71,12 @@
 #include <stdint.h>
 
 #include "device_guard.cuh"
+#include "stage.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int ITEMS = 4;
-constexpr int TILE = THREADS * ITEMS;  // elements per tile
 constexpr int WARPS = THREADS / 32;
-constexpr unsigned FULL = 0xffffffffu;
 
 enum Op { OP_ADD = 0, OP_MAX = 1, OP_MIN = 2 };
 
@@ -102,93 +106,10 @@ struct Combine<OP_MIN> {
   }
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// Scratch a block needs for the cross-warp step of a scan or reduction.
+// Scratch a block needs for the cross-warp step of a reduction.
 struct WarpScratch {
   float val[WARPS];
-  int flag[WARPS];
 };
-
-// Segment heads for the scans below (logical index i of the tile).
-struct NoHeads {
-  __device__ bool operator()(int) const { return false; }
-};
-
-// Inclusive segmented scan of one tile held in shared memory, in place.
-// Logical element i is buf[i] (forward) or buf[TILE-1-i] (REVERSE).
-// `carry` is combined into every element before the first segment head.
-// Thread t owns logical elements [t*ITEMS, (t+1)*ITEMS).
-template <int OP, bool REVERSE, typename Heads>
-__device__ void seg_scan_tile(float* buf, Heads heads, float carry,
-                              WarpScratch& ws) {
-  using C = Combine<OP>;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float v[ITEMS];
-  bool h[ITEMS];
-#pragma unroll
-  for (int q = 0; q < ITEMS; ++q) {
-    const int i = tid * ITEMS + q;
-    v[q] = buf[REVERSE ? TILE - 1 - i : i];
-    h[q] = heads(i);
-  }
-  // thread-local inclusive scan
-  bool any = h[0];
-#pragma unroll
-  for (int q = 1; q < ITEMS; ++q) {
-    if (h[q]) {
-      any = true;
-    } else {
-      v[q] = C::apply(v[q - 1], v[q]);
-    }
-  }
-  // warp inclusive scan of the (head seen, value) pairs of each thread
-  float sv = v[ITEMS - 1];
-  int sf = any ? 1 : 0;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const float ov = __shfl_up_sync(FULL, sv, d);
-    const int of = __shfl_up_sync(FULL, sf, d);
-    if (lane >= d) {
-      if (!sf) sv = C::apply(ov, sv);
-      sf |= of;
-    }
-  }
-  // exclusive value within the warp
-  const float ev = __shfl_up_sync(FULL, sv, 1);
-  const int ef = __shfl_up_sync(FULL, sf, 1);
-  if (lane == 31) {
-    ws.val[warp] = sv;
-    ws.flag[warp] = sf;
-  }
-  __syncthreads();
-  if (tid == 0) {  // exclusive prefix of each warp, seeded with the carry
-    float run = carry;
-    for (int w = 0; w < WARPS; ++w) {
-      const float wv = ws.val[w];
-      const int wf = ws.flag[w];
-      ws.val[w] = run;
-      run = wf ? wv : C::apply(run, wv);
-    }
-  }
-  __syncthreads();
-  const float wp = ws.val[warp];
-  const float pre = (lane == 0) ? wp : (ef ? ev : C::apply(wp, ev));
-#pragma unroll
-  for (int q = 0; q < ITEMS; ++q) {
-    if (h[q]) break;
-    v[q] = C::apply(pre, v[q]);
-  }
-#pragma unroll
-  for (int q = 0; q < ITEMS; ++q) {
-    const int i = tid * ITEMS + q;
-    buf[REVERSE ? TILE - 1 - i : i] = v[q];
-  }
-  __syncthreads();
-}
 
 // Combine of one value per thread across the block; the result is
 // returned to every thread.
@@ -210,54 +131,209 @@ __device__ float block_reduce(float v, WarpScratch& ws) {
 // prefix_scan
 // ---------------------------------------------------------------------------
 
-template <typename In>
-__global__ void __launch_bounds__(THREADS)
-tile_sums_kernel(const In* __restrict__ x, float* __restrict__ sums,
-                 long long T, int nt) {
-  __shared__ WarpScratch ws;
-  const long long row = blockIdx.x / nt;
-  const int t = blockIdx.x % nt;
-  const In* xr = x + row * T;
-  const long long base = (long long)t * TILE;
-  float acc = 0.0f;
-#pragma unroll
-  for (int q = 0; q < ITEMS; ++q) {
-    const long long pos = base + q * THREADS + threadIdx.x;
-    if (pos < T) acc += to_f32(xr[pos]);
-  }
-  const float total = block_reduce<OP_ADD>(acc, ws);
-  if (threadIdx.x == 0) sums[row * nt + t] = total;
+constexpr int PS_ITEMS = 16;     // elements a thread scans, in registers
+constexpr int PS_THREADS = 512;  // largest block: a long row's tile
+constexpr int PS_TILE = PS_ITEMS * PS_THREADS;  // longest short row
+constexpr unsigned long long PS_READY = 1ull << 32;  // status: total set
+
+enum PrefixRegime { PS_SHORT = 0, PS_LONG = 1 };
+
+// A tile's status word: the f32 bits of its total in the low half, the
+// ready flag in the high half, stored and loaded as one 64-bit word.
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             float total) {
+  const unsigned long long v = PS_READY | __float_as_uint(total);
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
 }
 
-template <typename In>
-__global__ void __launch_bounds__(THREADS)
-prefix_scan_kernel(const In* __restrict__ x, const float* __restrict__ sums,
-                   float* __restrict__ out, long long T, int nt) {
-  __shared__ float buf[TILE];
-  __shared__ WarpScratch ws;
-  const long long row = blockIdx.x / nt;
-  const int t = blockIdx.x % nt;
-  const In* xr = x + row * T;
-  float* outr = out + row * T;
-  const long long base = (long long)t * TILE;
-  // carry: total of every tile to the left of this one
-  float acc = 0.0f;
-  for (int k = threadIdx.x; k < t; k += THREADS) acc += sums[row * nt + k];
-  const float carry = block_reduce<OP_ADD>(acc, ws);
+__device__ __forceinline__ float wait_status(const unsigned long long* p) {
+  unsigned long long v;
+  do {
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+                 : "=l"(v)
+                 : "l"(p)
+                 : "memory");
+  } while (!(v & PS_READY));
+  return __uint_as_float((unsigned)v);
+}
+
+// The sum of the totals of tiles [0, n) of a row (n >= 1), to every lane of
+// the calling warp: lane l waits for tiles l, l + 32, ..., each group of
+// 32 is summed by a fixed butterfly, and the group sums are added in index
+// order.  The bits follow from the totals alone.
+__device__ float predecessors_sum(const unsigned long long* st, int n) {
+  const int lane = threadIdx.x & 31;
+  float c = 0.0f;
+  for (int g = 0; g < n; g += 32) {
+    float v = g + lane < n ? wait_status(st + g + lane) : 0.0f;
 #pragma unroll
-  for (int q = 0; q < ITEMS; ++q) {
-    const int i = q * THREADS + threadIdx.x;
-    const long long pos = base + i;
-    buf[i] = pos < T ? to_f32(xr[pos]) : 0.0f;
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(FULL, v, d);
+    c += v;
+  }
+  return c;
+}
+
+// Inclusive sum, in place, of the n <= blockDim.x * PS_ITEMS values at
+// buf[pad(k)]: thread t scans [PS_ITEMS t, PS_ITEMS t + PS_ITEMS) in
+// registers, a warp shuffle scan adds the threads' totals and one warp
+// scans the warp totals.  Returns the sum of all n to every thread.  The
+// order of association follows from blockDim.x alone.
+__device__ float scan_tile_sum(float* buf, int n, float* wsum) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  float v[PS_ITEMS];
+#pragma unroll
+  for (int q = 0; q < PS_ITEMS; ++q) {
+    const int k = tid * PS_ITEMS + q;
+    v[q] = k < n ? buf[pad(k)] : 0.0f;
+  }
+#pragma unroll
+  for (int q = 1; q < PS_ITEMS; ++q) v[q] += v[q - 1];
+  float agg = v[PS_ITEMS - 1];
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const float o = __shfl_up_sync(FULL, agg, d);
+    if (lane >= d) agg = o + agg;
+  }
+  const float texcl = __shfl_up_sync(FULL, agg, 1);
+  if (lane == 31) wsum[warp] = agg;
+  __syncthreads();
+  if (warp == 0) {  // wsum[32 + w]: inclusive sum of warps 0 .. w
+    float t = lane < nwarps ? wsum[lane] : 0.0f;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const float o = __shfl_up_sync(FULL, t, d);
+      if (lane >= d) t = o + t;
+    }
+    wsum[32 + lane] = t;
   }
   __syncthreads();
-  seg_scan_tile<OP_ADD, false>(buf, NoHeads{}, carry, ws);
+  if (lane > 0 || warp > 0) {
+    const float p = lane == 0   ? wsum[31 + warp]
+                    : warp == 0 ? texcl
+                                : wsum[31 + warp] + texcl;
 #pragma unroll
-  for (int q = 0; q < ITEMS; ++q) {
-    const int i = q * THREADS + threadIdx.x;
-    const long long pos = base + i;
-    if (pos < T) outr[pos] = buf[i];
+    for (int q = 0; q < PS_ITEMS; ++q) v[q] = p + v[q];
   }
+#pragma unroll
+  for (int q = 0; q < PS_ITEMS; ++q) {
+    const int k = tid * PS_ITEMS + q;
+    if (k < n) buf[pad(k)] = v[q];
+  }
+  __syncthreads();
+  return wsum[31 + nwarps];
+}
+
+// Writes buf[pad(k)] (+ carry when `add`) to dst[k], k < n: 16-byte
+// stores on the aligned words, single floats at the ragged ends.
+__device__ void store_tile(float* dst, int n, const float* buf, float carry,
+                           bool add) {
+  const int lead = (int)((reinterpret_cast<uintptr_t>(dst) >> 2) & 3);
+  float4* w = reinterpret_cast<float4*>(dst - lead);
+  const int nw = (lead + n + 3) >> 2;
+  for (int i = threadIdx.x; i < nw; i += blockDim.x) {
+    const int k0 = 4 * i - lead;
+    float r[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int k = min(max(k0 + c, 0), n - 1);
+      r[c] = add ? buf[pad(k)] + carry : buf[pad(k)];
+    }
+    if (k0 >= 0 && k0 + 4 <= n) {
+      w[i] = make_float4(r[0], r[1], r[2], r[3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (k0 + c >= 0 && k0 + c < n) dst[k0 + c] = r[c];
+    }
+  }
+}
+
+// One launch.  PS_SHORT: block b scans row b whole (T <= blockDim.x *
+// PS_ITEMS).  PS_LONG: a block takes the next tile index from the counter
+// status[0] (so every tile it waits on belongs to a block already
+// running), stages and scans its PS_TILE elements, publishes their total
+// in status[1 + tile index] before it waits on anything, then forms its
+// carry from the totals of the tiles to its left in its row
+// (predecessors_sum, in a fixed order of association).  So the carry's
+// bits follow from the row's values and T alone, never from the blocks'
+// timing, and a tile waits only for its predecessors' loads and sums,
+// never for a chain of carries.
+template <typename In, int REGIME>
+__global__ void __launch_bounds__(PS_THREADS)
+prefix_scan_kernel(const In* __restrict__ x, float* __restrict__ out,
+                   long long T, int tiles,
+                   unsigned long long* __restrict__ status) {
+  extern __shared__ __align__(16) float buf[];
+  __shared__ float wsum[64];
+  __shared__ long long tile_id;
+  __shared__ float carry_s;
+  long long id = blockIdx.x;
+  if (REGIME == PS_LONG) {
+    if (threadIdx.x == 0) tile_id = (long long)atomicAdd(status, 1ull);
+    __syncthreads();
+    id = tile_id;
+  }
+  const long long row = id / tiles;
+  const int tile = (int)(id % tiles);
+  const long long t0 = (long long)tile * PS_TILE;
+  const int n = (int)min(T - t0, (long long)PS_TILE);
+  stage(x + row * T + t0, n, buf, 0);
+  __syncthreads();
+  const float total = scan_tile_sum(buf, n, wsum);
+  float carry = 0.0f;
+  if (REGIME == PS_LONG) {
+    unsigned long long* st = status + 1 + row * tiles;
+    if (threadIdx.x == 0 && tile + 1 < tiles) store_status(st + tile, total);
+    if (tile > 0) {
+      if (threadIdx.x < 32) {
+        const float c = predecessors_sum(st, tile);
+        if (threadIdx.x == 0) carry_s = c;
+      }
+      __syncthreads();
+      carry = carry_s;
+    }
+  }
+  store_tile(out + row * T + t0, n, buf, carry, tile > 0);
+}
+
+size_t prefix_smem(int threads) {
+  return sizeof(float) * (size_t)padded(threads * PS_ITEMS);
+}
+
+// The launch plan comes from the wrapper (window_reduce.prefix_plan);
+// here it is checked against what the kernel needs.  The long regime
+// clears its counter and status words on the stream first.
+template <typename In>
+int launch_prefix(const In* x, float* out, void* scratch, long long rows,
+                  long long T, int regime, long long blocks, int threads,
+                  long long tiles, long long smem, cudaStream_t stream) {
+  if (rows <= 0 || T <= 0 || blocks <= 0 || blocks > 0x7fffffffLL ||
+      threads < 32 || threads % 32 || threads > PS_THREADS ||
+      smem < (long long)prefix_smem(threads) || smem > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  unsigned long long* status = static_cast<unsigned long long*>(scratch);
+  if (regime == PS_SHORT) {
+    if (T > (long long)threads * PS_ITEMS || tiles != 1 || blocks != rows)
+      return (int)cudaErrorInvalidValue;
+    prefix_scan_kernel<In, PS_SHORT><<<(unsigned)blocks, threads,
+                                       (size_t)smem, stream>>>(
+        x, out, T, 1, nullptr);
+  } else if (regime == PS_LONG) {
+    if (threads != PS_THREADS || tiles != (T + PS_TILE - 1) / PS_TILE ||
+        blocks != rows * tiles || status == nullptr)
+      return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaMemsetAsync(
+        status, 0, sizeof(unsigned long long) * (size_t)(1 + blocks), stream);
+    if (e != cudaSuccess) return (int)e;
+    prefix_scan_kernel<In, PS_LONG><<<(unsigned)blocks, threads,
+                                      (size_t)smem, stream>>>(
+        x, out, T, (int)tiles, status);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -269,10 +345,6 @@ constexpr int SR_CH = 4;             // short regime: chunks scanned at once
 constexpr int LTILE = 2048;          // long regime: ticks per block tile
 constexpr int LT_ITEMS = LTILE / THREADS;
 constexpr int LONG_BLOCKS_PER_SM = 8;  // occupancy the long kernel asks for
-// Shared-memory index of tick e of a tile: one pad word per 32 words, so
-// the 8 consecutive ticks of each thread fall on distinct banks.
-__device__ __forceinline__ int pad(int e) { return e + (e >> 5); }
-__host__ __device__ constexpr int padded(int n) { return n + (n >> 5) + 1; }
 // static shared memory of the W >= LTILE kernel (two slots of two tiles)
 constexpr int STRIPE_STATIC_BYTES = 4 * padded(LTILE) * 4 + 1024;
 constexpr int SMEM_OPTIN = 232448;   // shared memory a block may use
@@ -813,23 +885,11 @@ int launch_sliding(const float* x, float* out, long long rows, long long T,
   return (int)cudaGetLastError();
 }
 
-template <typename In>
-int launch_prefix(const In* x, float* sums, float* out, long long rows,
-                  long long T, cudaStream_t stream) {
-  const int nt = (int)((T + TILE - 1) / TILE);
-  const unsigned blocks = (unsigned)(rows * nt);
-  tile_sums_kernel<In><<<blocks, THREADS, 0, stream>>>(x, sums, T, nt);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  prefix_scan_kernel<In><<<blocks, THREADS, 0, stream>>>(x, sums, out, T, nt);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-int wr_tile() { return TILE; }
+int wr_prefix_tile() { return PS_TILE; }
 
 // Largest W the sliding kernel takes: the W >= LTILE kernel keeps one
 // carry per tile of a stripe in shared memory.
@@ -842,21 +902,23 @@ long long wr_max_window() {
 int wr_short_t() { return SHORT_T; }
 int wr_long_tile() { return LTILE; }
 
-// x: (rows, T) f32 or bf16, contiguous; sums: rows * ceil(T/TILE) f32
-// scratch; out: (rows, T) f32.
-int wr_prefix_scan_f32(const void* x, void* sums, void* out, long long rows,
-                       long long T, void* stream) {
-  return launch_prefix<float>(static_cast<const float*>(x),
-                              static_cast<float*>(sums),
-                              static_cast<float*>(out), rows, T,
-                              static_cast<cudaStream_t>(stream));
-}
-
-int wr_prefix_scan_bf16(const void* x, void* sums, void* out, long long rows,
-                        long long T, void* stream) {
-  return launch_prefix<__nv_bfloat16>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<float*>(sums),
-      static_cast<float*>(out), rows, T, static_cast<cudaStream_t>(stream));
+// x: (rows, T) f32 (bf16 = 0) or bf16 (bf16 = 1), contiguous rows at any
+// alignment; out: (rows, T) f32; scratch: 1 + blocks int64 words for the
+// long regime (cleared here), else unused.  regime, blocks, threads,
+// tiles, smem: the wrapper's launch plan (window_reduce.prefix_plan).
+int wr_prefix_scan(const void* x, void* out, void* scratch, long long rows,
+                   long long T, int bf16, int regime, long long blocks,
+                   int threads, long long tiles, long long smem, int device,
+                   void* stream) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_prefix(static_cast<const __nv_bfloat16*>(x), o, scratch,
+                         rows, T, regime, blocks, threads, tiles, smem, s);
+  return launch_prefix(static_cast<const float*>(x), o, scratch, rows, T,
+                       regime, blocks, threads, tiles, smem, s);
 }
 
 // x, out: (rows, T) f32 contiguous; op: 0 add, 1 max, 2 min; W >= 2.

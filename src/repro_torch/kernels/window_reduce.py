@@ -11,15 +11,18 @@
 On the H100 both are bound by bytes: each reads its input once and writes
 its output once (8 bytes per f32 element), against 3.35 TB/s.  The TPU
 kernels carry state across a grid that runs in order; on Hopper blocks run
-in no order, so ``prefix_scan`` becomes a tile-total pass plus a scan pass
-whose blocks add the totals to their left.  ``sliding_assoc`` has three
+in no order, so ``prefix_scan`` is one launch with two regimes, chosen from
+``T`` alone (:func:`prefix_plan`): a row of up to ``PREFIX_TILE`` elements
+is one block's, a longer row is cut into tiles of ``PREFIX_TILE`` that
+publish their totals and sum their predecessors' totals in a fixed order,
+so the bits never depend on the blocks' timing.  ``sliding_assoc`` has three
 launch regimes, chosen from ``(T, W)`` alone (:func:`sliding_regime`), so
 a row's result never depends on how many rows share its launch: short
 rows (``T <= SHORT_T``) one warp per row, rows staged per block; long rows
 one block per (row, group of stripes) with one staged tile; stripes wider
 than a tile walked tile by tile (see the notes in the CUDA source).
-:func:`sliding_plan` computes the grid; it needs no card.  Rows are
-independent, so a leading key axis folds into R.
+:func:`prefix_plan` and :func:`sliding_plan` compute the grids; they need
+no card.  Rows are independent, so a leading key axis folds into R.
 
 Each wrapper dispatches on the tensor's device: a CPU tensor goes to the
 plain version in :mod:`.ref`; a CUDA tensor launches the kernel or raises.
@@ -35,10 +38,11 @@ from typing import NamedTuple
 import torch
 
 from . import ref as _ref
-from .build import launch_stream, library
+from .build import launch_stream, library, padded
 
-__all__ = ["prefix_scan", "sliding_assoc", "sliding_regime", "sliding_plan",
-           "SlidingPlan", "launches", "reset_launches", "COMBINES"]
+__all__ = ["prefix_scan", "prefix_plan", "PrefixPlan", "sliding_assoc",
+           "sliding_regime", "sliding_plan", "SlidingPlan", "launches",
+           "reset_launches", "COMBINES"]
 
 # op name -> (plain combine, identity, kernel op code)
 COMBINES = {
@@ -58,6 +62,45 @@ LONG_TILE = 2048      # ticks per block tile in the long regimes
 _THREADS = 256
 _STAGE_FLOATS = 4096  # short regime: floats of rows one block stages
 _REGIME_CODES = {"short": 0, "long": 1, "stripe": 2}
+
+# The prefix kernel's geometry, as in csrc/window_reduce.cu.
+PREFIX_ITEMS = 16     # elements a thread scans
+PREFIX_THREADS = 512  # threads of a long row's tile
+PREFIX_TILE = PREFIX_ITEMS * PREFIX_THREADS  # longest short row; long tile
+_PREFIX_CODES = {"short": 0, "long": 1}
+
+
+class PrefixPlan(NamedTuple):
+    """One ``prefix_scan`` launch: regime, grid, block size, tiles per row,
+    dynamic shared memory in bytes, and the int64 scratch words (the tile
+    counter and one status word per tile; 0 for short rows)."""
+    regime: str
+    blocks: int
+    threads: int
+    tiles: int
+    smem: int
+    scratch: int
+
+
+@functools.lru_cache(maxsize=256)
+def prefix_plan(R: int, T: int) -> PrefixPlan:
+    """The grid of ``prefix_scan`` over ``(R, T)`` rows, ``T >= 1``.
+
+    * short (``T <= PREFIX_TILE``): one block per row, ``PREFIX_ITEMS``
+      elements a thread, the fewest whole warps that hold the row.
+    * long: ``ceil(T / PREFIX_TILE)`` tiles per row, one block of
+      ``PREFIX_THREADS`` each.
+
+    Everything but the grid and the scratch is a function of ``T`` alone,
+    so a row's bits never depend on how many rows share its launch.
+    """
+    if T <= PREFIX_TILE:
+        threads = 32 * -(-T // (32 * PREFIX_ITEMS))
+        return PrefixPlan("short", R, threads, 1,
+                          4 * padded(threads * PREFIX_ITEMS), 0)
+    tiles = -(-T // PREFIX_TILE)
+    return PrefixPlan("long", R * tiles, PREFIX_THREADS, tiles,
+                      4 * padded(PREFIX_TILE), 1 + R * tiles)
 
 
 class SlidingPlan(NamedTuple):
@@ -107,6 +150,21 @@ def sliding_plan(R: int, T: int, W: int) -> SlidingPlan:
 
 
 _lib = None
+_plib = None
+
+
+def _prefix_lib():
+    """The kernel library, its prefix tile checked against this module's
+    at the first call."""
+    global _plib
+    if _plib is None:
+        lib = library.load()
+        if lib.wr_prefix_tile() != PREFIX_TILE:
+            raise RuntimeError(f"prefix_scan: kernel tile "
+                               f"{lib.wr_prefix_tile()} != the wrapper's "
+                               f"{PREFIX_TILE}")
+        _plib = lib
+    return _plib
 
 
 def _sliding_lib():
@@ -145,25 +203,31 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def prefix_scan(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive f32 prefix sum along the last axis of ``x: (R, T)``."""
+    """Inclusive f32 prefix sum along the last axis of ``x: (R, T)``.
+
+    On the card the long regime's scratch (:class:`PrefixPlan`) rides in
+    front of the output in one allocation: the result is a view into it.
+    """
     if x.device.type == "cpu":
         return _ref.prefix_sum_ref(x.float())
     _check(x, "prefix_scan", (torch.float32, torch.bfloat16))
-    lib = library.load()
     R, T = x.shape
-    out = torch.empty((R, T), dtype=torch.float32, device=x.device)
     if R == 0 or T == 0:
-        return out
-    nt = -(-T // lib.wr_tile())
-    if R * nt > _MAX_BLOCKS:
-        raise ValueError(f"prefix_scan: {R} x {nt} blocks exceed the grid")
-    sums = torch.empty((R, nt), dtype=torch.float32, device=x.device)
-    fn = (lib.wr_prefix_scan_f32 if x.dtype == torch.float32
-          else lib.wr_prefix_scan_bf16)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _raise_on(fn(x.data_ptr(), sums.data_ptr(), out.data_ptr(), R, T,
-                     stream), "prefix_scan")
+        return torch.empty((R, T), dtype=torch.float32, device=x.device)
+    plan = prefix_plan(R, T)
+    if plan.blocks > _MAX_BLOCKS:
+        raise ValueError(f"prefix_scan: ({R}, {T}) exceeds the grid")
+    dev = x.device
+    # int64 scratch words as f32 pairs, rounded so the output stays
+    # 16-byte aligned
+    front = -(-2 * plan.scratch // 4) * 4
+    buf = torch.empty(front + R * T, dtype=torch.float32, device=dev)
+    out = buf[front:].view(R, T) if front else buf.view(R, T)
+    _raise_on(_prefix_lib().wr_prefix_scan(
+        x.data_ptr(), out.data_ptr(), buf.data_ptr() if front else None, R,
+        T, x.dtype == torch.bfloat16, _PREFIX_CODES[plan.regime],
+        plan.blocks, plan.threads, plan.tiles, plan.smem, dev.index,
+        launch_stream(dev)), "prefix_scan")
     launches["prefix_scan"] += 1
     return out
 

@@ -156,6 +156,83 @@ def test_cuda_prefix_scan_matches_plain(cuda, T, C, dtype):
                  torch.cumsum(xt.double(), dim=-1))
 
 
+def _misaligned(x):
+    """``x`` copied into a contiguous view that starts one element past an
+    allocation's start (as ``buf[1:]``): its rows are not 16-byte
+    aligned."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    v = buf[1:].view(x.shape)
+    v.copy_(x)
+    return v
+
+
+# wr.prefix_plan's edges: one block per row up to PREFIX_TILE, tiles above
+PREFIX_EDGES = [1, 31, wr.PREFIX_TILE - 1, wr.PREFIX_TILE,
+                wr.PREFIX_TILE + 1, 4105, (1 << 20) + 9]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", PREFIX_EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["contiguous", "misaligned"])
+def test_cuda_prefix_scan_edges(cuda, T, dtype, layout):
+    """Odd T, tile edges and a contiguous view off the 16-byte grid, for
+    both input types."""
+    x, _ = _data(T, 3, T + 1)
+    xt = torch.from_numpy(x).to(cuda).to(dtype)
+    if layout == "misaligned":
+        xt = _misaligned(xt)
+        assert xt.data_ptr() % 16 != 0
+    n0 = wr.launches["prefix_scan"]
+    got = wr.prefix_scan(xt)
+    assert wr.launches["prefix_scan"] == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == (3, T)
+    _assert_sums(got, ref.prefix_sum_ref(xt.float()),
+                 torch.cumsum(xt.double(), dim=-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,T", [(2, (1 << 20) + 9), (8192, 4105),
+                                 (3, 3 * wr.PREFIX_TILE + 5)])
+def test_cuda_prefix_scan_bits_repeat(cuda, R, T):
+    """The long regime's carries sum the tiles' totals in a fixed order, so
+    20 calls give the same bits whatever order the blocks ran in."""
+    rng = np.random.default_rng(R + T)
+    x = torch.from_numpy(rng.normal(0, 1, (R, T)).astype(np.float32)).to(
+        cuda)
+    first = wr.prefix_scan(x).view(torch.int32)
+    for _ in range(19):
+        assert torch.equal(wr.prefix_scan(x).view(torch.int32), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,T", [(200, 4105), (200, 1000),
+                                 (5, (1 << 20) + 9)])
+def test_cuda_prefix_scan_row_bits_depend_on_the_row_alone(cuda, R, T):
+    """A row gives the same bits alone, among R rows and after a gather."""
+    rng = np.random.default_rng(T)
+    rows = torch.from_numpy(
+        (100 + rng.normal(0, 5, (R, T))).astype(np.float32)).to(cuda)
+    row = R // 2 + 1
+    alone = wr.prefix_scan(rows[row:row + 1].contiguous())[0]
+    among = wr.prefix_scan(rows)[row]
+    ids = torch.tensor([R - 1, row, 0], device=cuda)
+    gathered = wr.prefix_scan(rows[ids].contiguous())[1]
+    for other in (among, gathered):
+        assert torch.equal(alone.view(torch.int32), other.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,T", [(3, (1 << 20) + 9), (64, 4105),
+                                 (5, wr.PREFIX_TILE + 1), (7, 33)])
+def test_cuda_prefix_scan_counts_exactly(cuda, R, T):
+    """On 0/1 data every partial sum is an integer below 2**24: the kernel
+    equals torch.cumsum exactly."""
+    g = torch.Generator().manual_seed(T)
+    x = (torch.rand(R, T, generator=g) < 0.33).float().to(cuda)
+    assert torch.equal(wr.prefix_scan(x), torch.cumsum(x, dim=-1))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("W", [1, 3, 7, 8, 50])
 @pytest.mark.parametrize("algo", ["block", "soe"])
@@ -326,6 +403,62 @@ def test_cuda_fused_trend_matches_plain(cuda, T, w1, w2):
     e_p = float((pd.double() - exact).abs().max())
     assert e_k <= 2 * e_p + 4 * EPS32 * float(x.abs().max()) * w2
     assert torch.equal(up, diff > 0)
+
+
+def _assert_trend(x, w1, w2, diff, up):
+    """``diff`` within the stripe formulation's bound of the f64 result
+    (as test_cuda_fused_trend_matches_plain), ``up == diff > 0``."""
+    x = x.cpu()
+    T = x.shape[0]
+    pd, _ = ref.fused_trend_block_ref(x, w1, w2)
+    p = torch.cumsum(x.double(), 0)
+    pos = torch.arange(T)
+
+    def wmean(w):
+        return (p - ref.shift_right(p, w, 0.0)) / torch.clamp(pos + 1, max=w)
+
+    exact = wmean(w1) - wmean(w2)
+    e_k = float((diff.cpu().double() - exact).abs().max())
+    e_p = float((pd.double() - exact).abs().max())
+    assert e_k <= 2 * e_p + 4 * EPS32 * float(x.abs().max()) * w2
+    assert torch.equal(up, diff > 0)
+
+
+# block edges of fq.trend_plan: T one past and one short of whole blocks,
+# odd T, windows wider than a tile (one stripe a block, walked in tiles)
+# with the block boundary inside the tile walk
+TREND_EDGES = [(20, 50), (7, 64), (1, 2), (30, 2000), (100, 2048),
+               (100, 2049), (1000, 5000), (2, 4097)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w1,w2", TREND_EDGES)
+@pytest.mark.parametrize("extra", [-1, 1, 3])
+@pytest.mark.parametrize("layout", ["contiguous", "misaligned"])
+def test_cuda_fused_trend_edges(cuda, w1, w2, extra, layout):
+    span = fq.trend_plan(1, w2).span
+    T = 3 * span + extra
+    rng = np.random.default_rng(T + w1)
+    x = torch.from_numpy(
+        (100 + np.cumsum(rng.normal(0, 0.05, T))).astype(np.float32))
+    xt = x.to(cuda)
+    if layout == "misaligned":
+        xt = _misaligned(xt)
+        assert xt.data_ptr() % 16 != 0
+    diff, up = fq.fused_trend(xt, w1, w2)
+    _assert_trend(x, w1, w2, diff, up)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_trend_bits_repeat(cuda):
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy((100 + np.cumsum(rng.normal(0, 0.05, 1 << 20)))
+                         .astype(np.float32)).to(cuda)
+    d0, u0 = fq.fused_trend(x, 20, 50)
+    for _ in range(5):
+        d, u = fq.fused_trend(x, 20, 50)
+        assert torch.equal(d.view(torch.int32), d0.view(torch.int32))
+        assert torch.equal(u, u0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """The kernels' launch planning, which runs on the host and needs no card:
 ``window_reduce.sliding_plan`` (the regime of ``sliding_assoc`` and its
-grid), ``sparse_compact.seg_dirty_plan`` and ``sparse_compact.pack_rows``
-(the row table ``seg_dirty`` reads).  The geometry constants are held
+grid), ``window_reduce.prefix_plan`` (``prefix_scan``'s),
+``fused_query.trend_plan`` (``fused_trend``'s),
+``sparse_compact.seg_dirty_plan`` and ``sparse_compact.pack_rows`` (the
+row table ``seg_dirty`` reads).  The geometry constants are held
 against the CUDA sources they mirror.
 """
 import ctypes
@@ -12,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import fused_query as fq
 from repro_torch.kernels import sparse_compact as sc
 from repro_torch.kernels import window_reduce as wr
 
@@ -141,3 +144,96 @@ def test_pack_rows_keeps_the_matrices_order():
     assert [(t, n) for t, n in fields] == [("const void*", "ptr"),
                                            ("long long", "kstride"),
                                            ("long long", "dtype")]
+
+
+# ---------------------------------------------------------------------------
+# prefix_scan and fused_trend
+# ---------------------------------------------------------------------------
+
+# (R, T) of prefix_scan: ysb's subtract-on-evict partitions (2 rows of a
+# 2**20-tick partition plus halo), keyed batches, phase 2's shapes
+PREFIX_SHAPES = [(2, (1 << 20) + 9), (2, (1 << 20) + 49), (8192, 4105),
+                 (6, (1 << 20) + 49), (3, 1025), (1, 10), (3, 100_003),
+                 (1, 1), (200, 8192), (5, 8193)]
+SMEM_OPTIN = 232448
+
+
+def test_prefix_and_trend_constants_match_the_cuda_sources():
+    assert wr.PREFIX_ITEMS == _constant("window_reduce.cu", "PS_ITEMS")
+    assert wr.PREFIX_THREADS == _constant("window_reduce.cu", "PS_THREADS")
+    assert wr.PREFIX_TILE == wr.PREFIX_ITEMS * wr.PREFIX_THREADS
+    assert "PS_TILE = PS_ITEMS * PS_THREADS;" in (
+        CSRC / "window_reduce.cu").read_text()
+    assert fq.FT_TILE == _constant("fused_query.cu", "FT_TILE")
+    assert fq.FT_THREADS == _constant("fused_query.cu", "FT_THREADS")
+
+
+@pytest.mark.parametrize("T", [1, 31, 512, 513, 4105, wr.PREFIX_TILE,
+                               wr.PREFIX_TILE + 1, (1 << 20) + 9])
+def test_prefix_plan_depends_on_T_only(T):
+    """Regime, block size, tile length and shared memory are the same for
+    every row count: a row's bits cannot depend on its neighbours."""
+    plans = [wr.prefix_plan(R, T) for R in (1, 2, 7, 200, 8192)]
+    assert len({(p.regime, p.threads, p.tiles, p.smem) for p in plans}) == 1
+    assert plans[0].regime == ("short" if T <= wr.PREFIX_TILE else "long")
+
+
+@pytest.mark.parametrize("R,T", PREFIX_SHAPES)
+def test_prefix_grid_covers_every_row_and_tick(R, T):
+    p = wr.prefix_plan(R, T)
+    assert 0 < p.blocks <= MAX_GRID
+    assert p.threads % 32 == 0 and 32 <= p.threads <= wr.PREFIX_THREADS
+    # the staged tile (one pad word per 32) fits the static limit
+    assert p.smem == 4 * (p.threads * wr.PREFIX_ITEMS
+                          + p.threads * wr.PREFIX_ITEMS // 32 + 1)
+    assert p.smem <= STATIC_SMEM
+    if p.regime == "short":
+        assert p.blocks == R and p.tiles == 1 and p.scratch == 0
+        # the fewest whole warps that hold the row
+        assert p.threads * wr.PREFIX_ITEMS >= T
+        assert (p.threads - 32) * wr.PREFIX_ITEMS < T
+    else:
+        assert p.threads == wr.PREFIX_THREADS
+        assert p.tiles * wr.PREFIX_TILE >= T > (p.tiles - 1) * wr.PREFIX_TILE
+        assert p.blocks == R * p.tiles and p.scratch == 1 + p.blocks
+
+
+def test_prefix_main_path_shapes_use_one_launch_of_few_blocks():
+    """The one-shot partition's 2 rows: tiles of PREFIX_TILE, about two
+    blocks an SM of the H100's 132; the keyed rows: a block each."""
+    p = wr.prefix_plan(2, (1 << 20) + 9)
+    assert p.regime == "long" and p.blocks == 2 * 129
+    k = wr.prefix_plan(8192, 4105)
+    assert k.regime == "short" and k.blocks == 8192 and k.threads == 288
+
+
+@pytest.mark.parametrize("w2", [2, 3, 50, 64, 1000, 1025, 2047, 2048, 2049,
+                                5000])
+def test_trend_plan_depends_on_w2_only(w2):
+    """Outputs per block are whole stripes, as many as fit FT_TILE (one
+    stripe above it), for every T."""
+    plans = [fq.trend_plan(T, w2) for T in (1, 49, 1001, 1 << 24)]
+    assert len({(p.span, p.threads, p.smem) for p in plans}) == 1
+    span = plans[0].span
+    assert span % w2 == 0
+    if w2 <= fq.FT_TILE:
+        assert span <= fq.FT_TILE < span + w2
+    else:
+        assert span == w2
+
+
+@pytest.mark.parametrize("T,w2", [(1 << 24, 50), (1 << 24, 20), (49, 50),
+                                  (100_003, 64), (300_007, 2000),
+                                  (50_000, 5000), (1, 2)])
+def test_trend_grid_covers_every_tick_within_cuda_limits(T, w2):
+    p = fq.trend_plan(T, w2)
+    assert 0 < p.blocks <= MAX_GRID and p.threads == fq.FT_THREADS
+    assert p.blocks * p.span >= T > (p.blocks - 1) * p.span
+    # the staged ticks (the stripe before included) and the suffix sums,
+    # padded to whole tiles
+    L = -(-p.span // fq.FT_TILE) * fq.FT_TILE
+    assert L - fq.FT_TILE < p.span <= L
+    n = L + w2
+    assert p.smem == 4 * (n + n // 32 + 1 + L + L // 32 + 1)
+    if w2 <= fq.FT_TILE:
+        assert p.smem <= STATIC_SMEM
