@@ -10,11 +10,12 @@ Phases (each raises on failure; the script then exits non-zero):
 2. Hold each kernel against its plain PyTorch version on the card, at the
    apps' windows, at edge shapes and at the main path's shapes; time the
    kernel, the plain version and one PyTorch library call that computes
-   the same function (CUDA events, median of repeats).  ``seg_dirty``,
-   ``prefix_scan`` and ``fused_trend`` also get their device time
-   (``torch.profiler``) and their wrapper's host time per call (1000
+   the same function (CUDA events, median of repeats), and give its device
+   time (``torch.profiler``) and its wrapper's host time per call (1000
    calls, no synchronize inside) beside the event time; ``seg_dirty`` the
-   host cost of each part of a launch.  ``prefix_scan`` and
+   host cost of each part of a launch.  ``seg_dirty`` is held on every
+   dtype a grid carries (f32, f16, bf16, f64, int64, int32, int16, int8,
+   uint8, bool) with its NaN and -0.0 edges.  ``prefix_scan`` and
    ``fused_trend`` are swept over their launch plans' edges (odd T, rows
    off the 16-byte grid, block and tile boundaries, bf16 for
    ``prefix_scan``), and ``prefix_scan``'s bits are checked to repeat over
@@ -47,16 +48,40 @@ Phases (each raises on failure; the script then exits non-zero):
    given (from the runner's own ``runner.*`` metrics, or the ``sparse.*``
    counters of the one-shot path), except where every unit is dirty by
    design, where every chunk must have picked the full-capacity bucket.
-   In phases 3-7 the launch counts are set to 0 just before each timed
+   In phases 3-9 the launch counts are set to 0 just before each timed
    main-path call and read just after it; the warm-up call before it and
    the ``torch.profiler`` run after it (one partition, batch or chunk:
    device busy time, idle share, top kernels) are outside.
-8. One JSON line with every kernel's launches on the main path (the sum
-   of those windows), its error against its plain version, its times and
-   its bound.  ``fused_trend`` has no caller on any path (nor in the
-   reference), so its launches are 0; phase 2 holds it against its plain
-   version.
-9. The last line: ``{"ok": true, "device": {...}}``.
+8. Multi-query sharing: the 16 ``dashboard_queries`` in one
+   ``MultiQuerySession`` — unkeyed over ``dashboard_input``'s 2**24 ticks
+   in 256 chunks of 65536 (dense), keyed over ``dashboard_keyed_input``'s
+   4096 symbols x 16384 ticks in chunks of 1024 (dense and sparse, at 100%
+   and at 1% active keys, the inactive keys holding their first price).
+   Sparse ≡ dense bit for bit at both rates; the session ≡ 16 solo
+   runners over the same chunks, every head bit for bit (same kernels,
+   same buffers); the first two chunks (64 keys, half of them active ones
+   at 1%) against the CPU: the trend heads within ``tolerance``'s
+   ``dashboard`` limits, the stddev heads of the random walks only for
+   finite values and momentum's validity (f32 cancellation, see
+   ``tolerance.py``).  Each cell runs again, untimed, at its shapes over
+   integer prices in [0, 16), where every head, the stddev ones included,
+   is held against the CPU within ``MQ_STD_TOL``.  Events/s over the 16
+   queries, ms per chunk, device busy time and idle share of one steady
+   chunk, its host reads, the sharing report and the launches per chunk
+   are printed.
+9. Out-of-order ingestion with revision: ``fig_ooo``'s query (the
+   window(32) mean minus the window(64) mean), 128-tick segments, 8 per
+   chunk, its 2**17-tick burst stream, late fractions 0.02 and 0.1 at
+   lateness 16 and 256, through ``IngestRunner(..., policy="revise")``
+   with a 3-chunk horizon; then keyed, 64 keys x 8192 ticks.  After
+   ``flush()`` the sealed outputs with every correction laid over them
+   must equal an in-order ``Runner`` over the same events bit for bit.
+10. One JSON line with every kernel's launches on the main path (the sum
+   of the windows of phases 3-9), its error against its plain version, its
+   times and its bound.  ``fused_trend`` has no caller on any path (nor in
+   the reference), so its launches are 0; phase 2 holds it against its
+   plain version.
+11. The last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 before printing any result.
 """
@@ -85,6 +110,13 @@ RK_KEYS, RK_SEG, RK_SPC, RK_CHUNKS = 16384, 64, 2, 16   # keyed runner
 ONE_SHOT_TICKS = 1 << 20
 CMP_CHUNKS = 2
 FRAUD_WINDOW = 64
+MQ_QUERIES = 16                                          # phase 8
+MQ_TICKS, MQ_SPAN = 1 << 24, 65536
+MQ_KEYS, MQ_KEY_TICKS, MQ_KEY_SPAN = 4096, 16384, 1024
+MQ_STD_TOL = 1e-4   # every head, card against CPU, on integer prices
+OOO_SEG, OOO_SPC, OOO_TICKS = 128, 8, 1 << 17             # phase 9
+OOO_POLL = 256
+OOO_KEYS, OOO_KEY_TICKS = 64, 8192
 
 
 def log(*a):
@@ -284,13 +316,17 @@ def check_kernels(dev):
                       ref.sliding_assoc_block_ref(x.double(), 50, torch.add,
                                                   0.0))
         errs["sliding_assoc"] = max(errs["sliding_assoc"], e)
+        fn = lambda: wr.sliding_assoc(x, 50, "add")  # noqa: E731
         t = {
-            "ms": cuda_ms(lambda: wr.sliding_assoc(x, 50, "add")),
+            "ms": cuda_ms(fn),
             "plain_ms": cuda_ms(lambda: ref.sliding_assoc_block_ref(
                 x, 50, torch.add, 0.0)),
             # trailing 50-tick sums in one call: conv1d with a ones filter
             "library_ms": cuda_ms(lambda: F.conv1d(
                 x.unsqueeze(1), ones, padding=49)),
+            # every device event of the wrapper, and its host time
+            "device_ms": kernel_device_ms(fn, ""),
+            "host_ms": host_ms(fn),
         }
         b, by = bound(8.0 * R * T, 2.0 * R * T)
         rows[("sliding_assoc", label)] = dict(t, max_abs_err=e, bound_ms=b,
@@ -299,7 +335,9 @@ def check_kernels(dev):
         xp = F.pad(x, (49, 0), value=-float("inf"))
         tmax = cuda_ms(lambda: wr.sliding_assoc(x, 50, "max"))
         tpool = cuda_ms(lambda: F.max_pool1d(xp.unsqueeze(1), 50, stride=1))
-        log(f"sliding_assoc {label} ({R},{T}) W=50: add {t['ms']:.4f} ms, "
+        log(f"sliding_assoc {label} ({R},{T}) W=50: add {t['ms']:.4f} ms "
+            f"event-timed, {_ms(t['device_ms'])} on the device, wrapper "
+            f"{t['host_ms']:.4f} ms of host time per call; "
             f"plain {t['plain_ms']:.4f} ms, conv1d {t['library_ms']:.4f} ms;"
             f" max {tmax:.4f} ms, max_pool1d {tpool:.4f} ms; bound "
             f"{b:.4f} ms ({by})")
@@ -464,6 +502,7 @@ def check_change_kernels(dev, errs: dict, rows: dict):
         want = ref.seg_dirty_fused_ref(mats, [geom] * len(mats), n_segs)
         if not torch.equal(got.cpu(), want):
             raise AssertionError(f"seg_dirty {geom}: kernel != plain")
+    seg_dirty_dtype_checks(dev, gen)
 
     # the main path's shapes: the fraud query's lineage over the runner's
     # chunk buffer (halo + chunk), single stream and keyed
@@ -589,6 +628,65 @@ def check_change_kernels(dev, errs: dict, rows: dict):
         f"{b:.4f} ms ({by}); max err vs plain {errs['fused_trend']:.3g}")
 
 
+SEG_DIRTY_DTYPES = ("float32", "float16", "bfloat16", "float64", "int64",
+                    "int32", "int16", "int8", "uint8", "bool")
+
+
+def seg_dirty_dtype_checks(dev, gen) -> None:
+    """``seg_dirty`` on every dtype a grid carries, read in place, against
+    its plain version: warp and block units, rows on and off the vector
+    grid, keyed matrices of several channels; floats with NaN (a change),
+    -0.0 after 0.0 (none) and +-inf; int64 above 2**24 (f32 would merge
+    2**40 and 2**40 + 1)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparse_compact as sc
+    n = 0
+    for name in SEG_DIRTY_DTYPES:
+        dt = getattr(torch, name)
+        for K, C, T, geom, n_segs in ((4, 3, 300, (-3, 32, 64), 8),
+                                       (2, 2, 3200, (-3, 512, 577), 6),
+                                       (512, 1, 193, (0, 64, 129), 2)):
+            base = torch.randint(0, 50, (K, C, T), generator=gen)
+            hold = torch.rand((K, C, T), generator=gen) > 0.25 / geom[2]
+            hold[..., 0] = False
+            idx = torch.where(hold, 0, torch.arange(T)).cummax(-1).values
+            x = torch.gather(base, -1, idx)
+            if dt.is_floating_point:
+                x = x.to(dt)
+                x[0, 0, 40:60] = 0.0
+                x[0, 0, 50:60] = -0.0
+                x[1 % K, -1, T // 2:T // 2 + 3] = float("nan")
+                x[-1, 0, T // 3] = float("inf")
+                x[-1, 0, T // 3 + 1] = -float("inf")
+            elif dt == torch.int64:
+                x = x + (1 << 40)
+                x[-1, 0, T // 3] += 1
+            else:
+                x = (x > 25) if dt == torch.bool else x.to(dt)
+            geoms = [geom]
+            for mat in (x, x[..., 1:]):
+                got = sc.seg_dirty([mat.to(dev)], geoms, n_segs)
+                want = ref.seg_dirty_fused_ref([mat], geoms, n_segs)
+                if not torch.equal(got.cpu(), want):
+                    raise AssertionError(f"seg_dirty {name} ({K},{C},{T}): "
+                                         "kernel != plain")
+                n += 1
+    # the value comparison's edges, one f32 and one f16 row each: -0.0
+    # after 0.0 is clean, NaN after NaN is a change
+    for dt in (torch.float32, torch.float16, torch.bfloat16, torch.float64):
+        x = torch.zeros(1, 1, 64, dtype=dt)
+        x[..., 10:20] = -0.0
+        x[..., 40:44] = float("nan")
+        got = sc.seg_dirty([x.to(dev)], [(0, 16, 16)], 4)
+        if got.cpu().tolist() != [[False, False, True, False]]:
+            raise AssertionError(f"seg_dirty {dt}: NaN/-0.0 flags "
+                                 f"{got.cpu().tolist()}")
+    log(f"seg_dirty: {n} cases over {len(SEG_DIRTY_DTYPES)} dtypes "
+        f"({', '.join(SEG_DIRTY_DTYPES)}) and the NaN/-0.0 edges equal the "
+        "plain version")
+
+
 def wrapper_host_parts(dev, mats, geoms, n_segs: int) -> dict:
     """Host ms per call (1000 calls, no synchronize inside) of the parts a
     ``seg_dirty`` launch can cost the host: those of this wrapper and the
@@ -708,6 +806,8 @@ def time_runner_shapes(dev, errs: dict, rows: dict, runners: dict):
                  "plain_ms": cuda_ms(lambda: ref.sliding_assoc_block_ref(
                      x, W, combine, ident)),
                  "library_ms": cuda_ms(lib),
+                 "device_ms": kernel_device_ms(
+                     lambda: wr.sliding_assoc(x, W, op), ""),
                  "host_ms": host_ms(lambda: wr.sliding_assoc(x, W, op))}
             b, by = bound(8.0 * R * T, 2.0 * R * T)
             launches = calls * row["chunks"]
@@ -718,6 +818,7 @@ def time_runner_shapes(dev, errs: dict, rows: dict, runners: dict):
                 regime=plan.regime, blocks=plan.blocks)
             log(f"sliding_assoc {cell} ({R},{T}) W={W} {op} "
                 f"[{plan.regime}, {plan.blocks} blocks]: {t['ms']:.4f} ms, "
+                f"device {_ms(t['device_ms'])}, "
                 f"plain {t['plain_ms']:.4f} ms, library "
                 f"{t['library_ms']:.4f} ms, wrapper host "
                 f"{t['host_ms']:.4f} ms; bound {b:.4f} ms ({by}); "
@@ -1101,6 +1202,476 @@ def run_one_shot(dev, main_launches: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: multi-query sharing; phase 9: out-of-order ingestion
+# ---------------------------------------------------------------------------
+
+def count_syncs(fn) -> int:
+    """Synchronizing calls (device reads) ``fn`` makes, by PyTorch's sync
+    debug mode."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def active_keys(n_keys: int, rate: float, seed: int) -> np.ndarray:
+    """The sorted keys that stay active at ``rate`` (phase 6's active keys:
+    ``streams.keyed_activity`` picks them the same way)."""
+    rng = np.random.default_rng(seed)
+    return np.sort(rng.choice(n_keys, size=max(1, int(round(n_keys * rate))),
+                              replace=False))
+
+
+def held_keys(walks: np.ndarray, rate: float, seed: int) -> np.ndarray:
+    """``rate`` of the keys keep their walks, the rest hold their first
+    value."""
+    act = active_keys(walks.shape[0], rate, seed)
+    out = np.broadcast_to(walks[:, :1], walks.shape).copy()
+    out[act] = walks[act]
+    return out
+
+
+def compared_keys(n_keys: int, rate: float) -> np.ndarray:
+    """The ``CMP_KEYS`` keys a keyed session cell holds against the CPU:
+    the first ones, and at a rate below 1 half of them active keys, so the
+    held and the changing keys are both compared."""
+    if rate >= 1.0:
+        return np.arange(CMP_KEYS)
+    act = active_keys(n_keys, rate, 0)[:CMP_KEYS // 2]
+    rest = np.setdiff1d(np.arange(n_keys), act)[:CMP_KEYS - len(act)]
+    return np.union1d(act, rest)
+
+
+def _pick(grid, n: int, sel):
+    """The first ``n`` output ticks (of the keys ``sel``) on the host."""
+    import torch
+    v, m = grid.value[..., :n], grid.valid[..., :n]
+    if sel is not None:
+        i = torch.as_tensor(sel, device=v.device)
+        v, m = v[i], m[i]
+    return grid.replace(value=v.cpu(), valid=m.cpu())
+
+
+def _is_vol_head(name: str) -> bool:
+    """The dashboard's breakout and momentum heads read the stddev."""
+    return int(name[1:]) % 4 >= 2
+
+
+def _hold_heads(label: str, got: dict, want: dict, exact: bool):
+    """Per dashboard head.  ``exact``: every head bit for bit (the same
+    kernels over the same buffers: a session against its solo runners).
+    Otherwise, the card against the CPU on the random walks: the trend
+    heads within ``tolerance``'s ``dashboard`` limits, the stddev heads
+    finite where valid, with momentum's validity that of its inputs (see
+    tolerance.py; :func:`_hold_int_heads` holds them to a number on
+    integer prices).  Returns the largest trend-head difference and the
+    largest stddev-head one."""
+    import torch
+    worst, vol = 0.0, 0.0
+    for q in sorted(want):
+        g, w = got[q], want[q]
+        if exact:
+            if not _same_bits(g, w):
+                raise AssertionError(f"{label} {q}: not bit-identical")
+            continue
+        if _is_vol_head(q):
+            gv, wv = g.value.cpu(), w.value.cpu()
+            gm, wm = g.valid.cpu(), w.valid.cpu()
+            if not torch.isfinite(gv[gm]).all():
+                raise AssertionError(f"{label} {q}: non-finite values")
+            if int(q[1:]) % 4 == 3 and not torch.equal(gm, wm):
+                raise AssertionError(f"{label} {q}: momentum validity")
+            both = gm & wm
+            if both.any():
+                vol = max(vol, float((gv[both] - wv[both]).abs().max()))
+            continue
+        # a trend head thresholds its difference at +-thr: centre both
+        # on it, so the gate excuses flips at the head's own threshold
+        i = int(q[1:])
+        edge = 0.05 * (i // 4) * (1 if i % 4 == 0 else -1)
+        worst = max(worst, compare(
+            "dashboard", g.replace(value=g.value - edge),
+            w.replace(value=w.value - edge))["max_abs_diff"])
+    return worst, vol
+
+
+def _hold_int_heads(label: str, got: dict, want: dict) -> float:
+    """Every dashboard head of the card against the CPU on integer prices
+    within ``MQ_STD_TOL``, finite where both are valid; a head's validity
+    may differ only where the CPU's value lies within ``MQ_STD_TOL`` of 0
+    (a breakout at its threshold).  Returns the largest difference."""
+    import torch
+    worst = 0.0
+    for q in sorted(want):
+        gv, gm = got[q].value, got[q].valid
+        wv, wm = want[q].value, want[q].valid
+        if gv.shape != wv.shape:
+            raise AssertionError(f"{label} {q}: {gv.shape} vs {wv.shape}")
+        both = gm & wm
+        if not torch.isfinite(gv[both]).all():
+            raise AssertionError(f"{label} {q}: non-finite values")
+        d = float((gv[both] - wv[both]).abs().max()) if both.any() else 0.0
+        if d > MQ_STD_TOL or (wv[gm != wm].abs() > MQ_STD_TOL).any():
+            raise AssertionError(f"{label} {q}: max diff {d} or a validity "
+                                 f"flip beyond {MQ_STD_TOL}")
+        worst = max(worst, d)
+    return worst
+
+
+def _near_heads(label: str, got: dict, want: dict) -> float:
+    """Sparse against dense on the random walks at 1% active keys, on the
+    card over every key and chunk.  A held key's windows sum one constant
+    float, which a dense chunk adds in another order than the chunk whose
+    outputs the sparse body holds, so only integer prices are bit for bit
+    (:func:`run_sessions`).  The trend heads within ``tolerance``'s
+    ``dashboard`` limits (a validity flip only within its gate of the
+    head's threshold); the stddev heads finite where valid, momentum with
+    the validity of its inputs (a held key's stddev is the f32
+    cancellation noise of E[x^2] - E[x]^2, see tolerance.py).  Returns
+    the largest trend-head difference."""
+    import torch
+    from repro_torch.data.tolerance import TOLERANCE
+    atol, rtol, gate = TOLERANCE["dashboard"]
+    worst = 0.0
+    for q in sorted(want):
+        g, w = got[q], want[q]
+        i = int(q[1:])
+        bad = ~torch.isfinite(g.value) & g.valid
+        if i % 4 == 3:
+            bad |= g.valid != w.valid
+        elif i % 4 < 2:
+            both = g.valid & w.valid
+            d = torch.where(both, (g.value - w.value).abs(), 0.0)
+            edge = 0.05 * (i // 4) * (1 if i % 4 == 0 else -1)
+            bad |= d > atol + rtol * w.value.abs()
+            bad |= (g.valid != w.valid) & ((w.value - edge).abs() > gate)
+            worst = max(worst, float(d.max()))
+        if bool(bad.any()):
+            raise AssertionError(f"{label} {q}: beyond the dashboard limits")
+    return worst
+
+
+def _dash_session(qs: dict, span: int, n_keys: int, sparse: bool):
+    from repro_torch.multiquery import MultiQuerySession
+    sess = MultiQuerySession(span, n_keys=n_keys if n_keys > 1 else None,
+                             sparse=sparse)
+    for name, q in qs.items():
+        sess.attach(name, q)
+    return sess
+
+
+def run_int_session(dev, label: str, n_keys: int, span: int, n_chunks: int,
+                    sparse: bool, rate: float) -> tuple:
+    """A phase-8 cell on well-conditioned data, outside the launch-count
+    windows: the same session at the same shapes over integer prices in
+    [0, 16) (the CPU tests' data: f32 window sums and sums of squares over
+    them are exact, so the stddev is well conditioned), the inactive keys
+    held as in the cell; every head of the first ``CMP_CHUNKS`` chunks (of
+    :func:`compared_keys`) against the CPU by :func:`_hold_int_heads`.
+    Returns the largest difference and the card's outputs."""
+    from repro_torch.data import apps as A
+    keyed = n_keys > 1
+    rng = np.random.default_rng(7)
+    n_ticks = span * n_chunks
+    vals = np.floor(rng.random((n_keys, n_ticks) if keyed else n_ticks)
+                    * 16).astype(np.float32)
+    sel = None
+    if keyed:
+        vals = vals if rate >= 1.0 else held_keys(vals, rate, 0)
+        sel = compared_keys(n_keys, rate)
+    qs = A.dashboard_queries(MQ_QUERIES, keyed=keyed)
+    card = _dash_session(qs, span, n_keys, sparse).run(
+        {"in": _grid(vals, dev)}, n_chunks)
+    n_cmp = CMP_CHUNKS * span
+    few = vals[sel, :n_cmp] if keyed else vals[:n_cmp]
+    cpu = _dash_session(qs, span, len(sel) if keyed else 1, sparse).run(
+        {"in": _grid(few, "cpu")}, CMP_CHUNKS)
+    worst = _hold_int_heads(f"{label} integer prices",
+                            {q: _pick(g, n_cmp, sel)
+                             for q, g in card.items()}, cpu)
+    return worst, card
+
+
+def run_session(dev, main_launches: dict, label: str, vals: np.ndarray,
+                span: int, sparse: bool, solo: bool, rate: float = 1.0):
+    """One phase-8 cell: ``MQ_QUERIES`` dashboard queries in one
+    ``MultiQuerySession`` over ``vals`` (``(T,)`` or ``(K, T)``) in chunks of
+    ``span``, timed on the card; against ``MQ_QUERIES`` solo runners over
+    the same chunks (``solo``), for ``CMP_CHUNKS`` chunks (of
+    :func:`compared_keys`) against the CPU, and on integer prices
+    (:func:`run_int_session`)."""
+    from repro_torch.core import compile as qc
+    from repro_torch.data import apps as A
+    from repro_torch.engine import ExecPolicy, Runner
+    keyed = vals.ndim > 1
+    n_keys = vals.shape[0] if keyed else 1
+    n_chunks = vals.shape[-1] // span
+    grids = {"in": _grid(vals, dev)}
+    qs = A.dashboard_queries(MQ_QUERIES, keyed=keyed)
+
+    def session(keys=n_keys):
+        return _dash_session(qs, span, keys, sparse)
+
+    session().run(grids, 2)                      # first use of every shape
+    sess = session()
+    launches = {}
+    res, dt = drive(launches, lambda: sess.run(grids, n_chunks))
+    for k, n in launches.items():
+        main_launches[k] = main_launches.get(k, 0) + n
+    snap = sess.metrics.snapshot()
+    rep = sess.sharing_report()
+    # one steady chunk: device busy time and idle share, then host reads
+    rp = session()
+    rp.step(_chunk(grids, 0, span))
+    rp.step(_chunk(grids, 1, span))
+    prof = device_profile(lambda: rp.step(_chunk(grids, 2, span)),
+                          dt / n_chunks)
+    syncs = count_syncs(lambda: rp.step(_chunk(grids, 3, span)))
+    events = MQ_QUERIES * n_keys * span * n_chunks
+    row = dict(events_per_s=events / dt, seconds=dt,
+               ms_per_chunk=dt / n_chunks * 1e3, profile=prof,
+               host_reads_per_chunk=syncs, chunks=n_chunks,
+               sharing={"shared": rep.shared_nodes,
+                        "union": rep.union_nodes,
+                        "independent": rep.independent_nodes},
+               launches_per_chunk={k: n / n_chunks
+                                   for k, n in launches.items()},
+               metrics=snap)
+    if sparse:
+        st = sess.runner.dirty_stats()
+        row["dirty_fraction"] = st["compact"]
+    if solo:
+        outs = {}
+        for name, q in qs.items():
+            r = Runner(qc.compile_query(q.node, out_len=span),
+                       ExecPolicy(keys="vmapped" if keyed else "single"),
+                       n_keys=n_keys if keyed else None)
+            outs[name] = r.run(grids, n_chunks)
+        _hold_heads(f"{label} vs solo", res, outs, exact=True)
+        del outs
+    n_cmp = CMP_CHUNKS * span
+    sel = compared_keys(n_keys, rate) if keyed else None
+    few = vals[sel, :n_cmp] if keyed else vals[:n_cmp]
+    cpu = session(len(sel) if keyed else 1).run({"in": _grid(few, "cpu")},
+                                                CMP_CHUNKS)
+    heads = {q: _pick(g, n_cmp, sel) for q, g in res.items()}
+    row["vs_cpu_max_diff"], row["vs_cpu_vol_max_diff"] = _hold_heads(
+        f"{label} vs cpu", heads, cpu, exact=False)
+    del grids
+    row["int_vs_cpu_max_diff"], ints = run_int_session(
+        dev, label, n_keys, span, n_chunks, sparse, rate)
+    per = ", ".join(f"{k} {n / n_chunks:g}" for k, n in launches.items()
+                    if n)
+    dirty = (f", dirty fraction {row['dirty_fraction']:.4f}" if sparse
+             else "")
+    log(f"session {label} {'sparse' if sparse else 'dense '}: "
+        f"{events / dt:.4g} events/s over {MQ_QUERIES} queries, "
+        f"{dt / n_chunks * 1e3:.3f} ms per chunk{dirty}; launches per "
+        f"chunk: {per}; host reads per chunk {syncs}; sharing "
+        f"{rep.shared_nodes} shared / {rep.union_nodes} union nodes "
+        f"({rep.independent_nodes} if run apart)"
+        + (f"; all heads bit for bit against {MQ_QUERIES} solo runners"
+           if solo else "")
+        + f"; vs cpu: trend heads max diff {row['vs_cpu_max_diff']:.3g}, "
+        f"stddev heads max diff {row['vs_cpu_vol_max_diff']:.3g} (random "
+        f"walk); all heads max diff {row['int_vs_cpu_max_diff']:.3g} "
+        f"(integer prices)")
+    log(f"  one chunk: {_profile_text(prof)}")
+    return row, res, ints
+
+
+def _same_heads(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(_same_bits(a[q], b[q]) for q in a)
+
+
+def run_sessions(dev, main_launches: dict) -> dict:
+    """Phase 8: the dashboard fan-out, unkeyed (dense) and keyed (dense and
+    sparse, at 100% and at 1% active keys)."""
+    from repro_torch.data import apps as A
+    out = {}
+    vals = A.dashboard_input(MQ_TICKS, 5)["in"]["value"].astype(np.float32)
+    out["unkeyed"], *_ = run_session(
+        dev, main_launches, "dashboard 2**24", vals, MQ_SPAN, sparse=False,
+        solo=True)
+    walks = A.dashboard_keyed_input(MQ_KEYS, MQ_KEY_TICKS, 5)["in"]["value"]
+    for rate in (1.0, 0.01):
+        vals = (walks if rate >= 1.0 else held_keys(walks, rate, 0)
+                ).astype(np.float32)
+        res, ints = {}, {}
+        for sparse in (False, True):
+            key = f"keyed_{rate:g}_{'sparse' if sparse else 'dense'}"
+            out[key], res[sparse], ints[sparse] = run_session(
+                dev, main_launches, f"keyed dashboard {MQ_KEYS} keys, "
+                f"{rate:.0%} active", vals, MQ_KEY_SPAN, sparse=sparse,
+                solo=rate >= 1.0 and not sparse, rate=rate)
+        what = f"keyed session {rate:.0%} active"
+        if not _same_heads(ints[True], ints[False]):
+            raise AssertionError(f"{what}, integer prices: sparse != dense")
+        if rate >= 1.0:
+            if not _same_heads(res[True], res[False]):
+                raise AssertionError(f"{what}: sparse != dense")
+            log(f"{what}: sparse outputs equal dense outputs bit for bit, "
+                f"all {MQ_QUERIES} queries, random walks and integer prices")
+        else:
+            out[key]["vs_dense_max_diff"] = _near_heads(
+                f"{what} sparse vs dense", res[True], res[False])
+            log(f"{what}: sparse outputs equal dense outputs bit for bit on "
+                f"integer prices, all {MQ_QUERIES} queries; on the random "
+                f"walks trend heads max diff "
+                f"{out[key]['vs_dense_max_diff']:.3g}, stddev heads finite")
+        if rate < 1.0 and out[key]["dirty_fraction"] >= 0.5:
+            raise AssertionError(f"keyed session 1%: dirty fraction "
+                                 f"{out[key]['dirty_fraction']}")
+        del res, ints
+    return out
+
+
+def ooo_arrivals(vals: np.ndarray, rate: float, lateness: int, rng):
+    """``fig_ooo``'s arrival order: one event per tick; a ``rate`` fraction
+    displaced by up to two chunks (past any allowance), the rest jittered
+    within ``lateness``.  Returns ``(arrival key, event)`` pairs, so keyed
+    streams can be merged by arrival."""
+    from repro_torch.core.stream import Event
+    n = len(vals)
+    max_disp = 2 * OOO_SEG * OOO_SPC
+    late = rng.random(n) < rate
+    jitter = rng.integers(0, max(1, lateness // 2), size=n)
+    disp = np.where(late, rng.integers(lateness + 1, max_disp, size=n),
+                    jitter)
+    order = np.argsort(np.arange(n) + disp, kind="stable")
+    return [(int(t + disp[t]), Event(int(t), int(t) + 1, float(vals[t])))
+            for t in order]
+
+
+def _overlay(sealed: list, corrections: list):
+    """Sealed outputs with every correction's dirty segments laid over them
+    in version order, stitched along time, on the card."""
+    import torch
+    final = {s.chunk: (s.outputs.value.clone(), s.outputs.valid.clone())
+             for s in sealed}
+    for co in sorted(corrections, key=lambda c: (c.chunk, c.version)):
+        v, m = final[co.chunk]
+        mask = torch.from_numpy(np.repeat(np.asarray(co.seg_mask), OOO_SEG,
+                                          axis=-1)).to(v.device)
+        v.copy_(torch.where(mask, co.outputs.value, v))
+        m.copy_(torch.where(mask, co.outputs.valid, m))
+    cs = sorted(final)
+    if cs != list(range(len(cs))):
+        raise AssertionError(f"sealed chunks {cs[:5]}...")
+    return (torch.cat([final[c][0] for c in cs], dim=-1),
+            torch.cat([final[c][1] for c in cs], dim=-1))
+
+
+def run_ingest_cell(dev, main_launches: dict, label: str, exe, vals,
+                    arrivals: list, lateness: int, n_keys: int) -> dict:
+    """One phase-9 cell: the arrivals into an ``IngestRunner`` with the
+    ``revise`` policy, polled every ``OOO_POLL`` events; after ``flush()``
+    the sealed outputs with every correction applied must equal an in-order
+    ``Runner`` over the same events, bit for bit on the card."""
+    import torch
+    from repro_torch.engine import ExecPolicy, Runner
+    from repro_torch.ingest import IngestRunner
+    keyed = n_keys > 1
+    chunk = OOO_SEG * OOO_SPC
+    horizon = -(-(2 * chunk + chunk) // chunk)
+
+    def runner():
+        return Runner(exe, ExecPolicy(body="sparse",
+                                      keys="vmapped" if keyed else "single"),
+                      n_keys=n_keys if keyed else None,
+                      segs_per_chunk=OOO_SPC)
+
+    r = runner()
+    ing = IngestRunner(r, lateness=lateness, policy="revise",
+                       horizon_chunks=horizon, device=dev)
+
+    def go():
+        sealed, corrections = [], []
+        for i, (key, ev) in enumerate(arrivals):
+            ing.push("in", ev, key=key)
+            if i % OOO_POLL == OOO_POLL - 1:
+                s, c = ing.poll()
+                sealed += s
+                corrections += c
+        s, c = ing.flush()
+        return sealed + s, corrections + c
+
+    (sealed, corrections), dt = drive(main_launches, go)
+    got_v, got_m = _overlay(sealed, corrections)
+    full = {"in": _grid(vals.astype(np.float32), dev)}
+    want = runner().run(full, vals.shape[-1] // chunk)
+    if not (torch.equal(got_m, want.valid)
+            and torch.equal(got_v[got_m], want.value[want.valid])):
+        raise AssertionError(f"ingest {label}: sealed + corrections != "
+                             "in-order execution")
+    c = r.metrics.snapshot()["counters"]
+    n_events = len(arrivals)
+    row = {k.split(".")[-1]: c[k]["value"] for k in (
+        "ingest.late_events", "ingest.revised_events",
+        "ingest.beyond_horizon", "ingest.dropped_events",
+        "ingest.sealed_chunks", "ingest.corrections",
+        "runner.revision_runs", "runner.revision_chunks",
+        "runner.revision_units", "runner.dirty_units", "runner.units")}
+    row.update(events=n_events, seconds=dt, events_per_s=n_events / dt,
+               horizon_chunks=horizon, lateness=lateness)
+    log(f"ingest {label}: {n_events / dt:.4g} events/s ({dt:.2f} s); "
+        f"late {row['late_events']}, revised {row['revised_events']}, "
+        f"revision runs {row['revision_runs']}, chunks "
+        f"{row['revision_chunks']}, units {row['revision_units']}, "
+        f"corrections {row['corrections']}; beyond horizon "
+        f"{row['beyond_horizon']}, dropped {row['dropped_events']}; sealed "
+        f"{row['sealed_chunks']} chunks, dirty units {row['dirty_units']}/"
+        f"{row['units']}: sealed + corrections equal in-order execution bit "
+        "for bit")
+    return row
+
+
+def run_ingest(dev, main_launches: dict) -> dict:
+    """Phase 9: ``fig_ooo``'s query and stream, late fractions 0.02 and
+    0.1 at lateness 16 and 256; then keyed, 64 keys x 8192 ticks."""
+    from repro_torch.core import compile as qc
+    from repro_torch.core.frontend import TStream
+    from repro_torch.data import streams
+    out = {}
+    for keyed in (False, True):
+        s = TStream.source("in", prec=1, keyed=keyed)
+        q = (s.window(32).mean()
+             .join(s.window(64).mean(), lambda a, b: a - b))
+        exe = qc.compile_query(q.node, out_len=OOO_SEG, sparse=True)
+        if not keyed:
+            vals = streams.burst_stream(OOO_TICKS, 0.05, 5)
+            for rate in (0.02, 0.1):
+                for lateness in (16, 256):
+                    arr = ooo_arrivals(vals, rate, lateness,
+                                       np.random.default_rng(17))
+                    out[f"r{rate:g}_l{lateness}"] = run_ingest_cell(
+                        dev, main_launches, f"late {rate:g}, lateness "
+                        f"{lateness}", exe, vals,
+                        [(None, ev) for _a, ev in arr], lateness, 1)
+            continue
+        rng = np.random.default_rng(17)
+        vals = np.stack([streams.burst_stream(OOO_KEY_TICKS, 0.05, 5 + k)
+                         for k in range(OOO_KEYS)])
+        tagged = []
+        for k in range(OOO_KEYS):
+            tagged += [(a, k, ev) for a, ev in
+                       ooo_arrivals(vals[k], 0.1, 16, rng)]
+        tagged.sort(key=lambda x: (x[0], x[1]))
+        out["keyed_r0.1_l16"] = run_ingest_cell(
+            dev, main_launches, f"keyed {OOO_KEYS} keys, late 0.1, "
+            "lateness 16", exe, vals, [(k, ev) for _a, k, ev in tagged],
+            16, OOO_KEYS)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "prefix_scan": ("src/repro_torch/kernels/csrc/window_reduce.cu",
@@ -1148,14 +1719,23 @@ def main() -> int:
     runners = run_runners(dev, runner_launches)
     one_shot = run_one_shot(dev, one_shot_launches)
     time_runner_shapes(dev, errs, rows, runners)
+    session_launches, ingest_launches = {}, {}
+    sessions = run_sessions(dev, session_launches)
+    ingest = run_ingest(dev, ingest_launches)
     windows = {"partition_run": single, "batch_run": keyed_launches,
-               "runner": runner_launches, "sparse_run": one_shot_launches}
+               "runner": runner_launches, "sparse_run": one_shot_launches,
+               "session": session_launches, "ingest": ingest_launches}
     launches = {k: sum(w.get(k, 0) for w in windows.values())
                 for k in KERNELS}
     for k in ("seg_dirty",):
         if not (runner_launches.get(k, 0) and one_shot_launches.get(k, 0)):
             raise AssertionError(f"{k} was never launched on the sparse "
                                  "runner or sparse_run path")
+    for w in ("session", "ingest"):
+        for k in ("sliding_assoc", "seg_dirty"):
+            if not windows[w].get(k, 0):
+                raise AssertionError(f"{k} was never launched in the {w} "
+                                     "phase")
     for k in OFF_PATH:
         if launches[k]:
             raise AssertionError(f"{k} has no caller, yet launched")
@@ -1165,6 +1745,7 @@ def main() -> int:
     Path("out").mkdir(exist_ok=True)
     detail = {"card": card, "apps": apps, "keyed": keyed,
               "runner": runners, "sparse_run": one_shot,
+              "session": sessions, "ingest": ingest,
               "kernels": {f"{k}/{lab}": v for (k, lab), v in rows.items()},
               "launches": dict(windows, total=launches)}
     Path("out/chip_smoke.json").write_text(json.dumps(detail,

@@ -37,7 +37,7 @@ from ..device import resolve
 from ..kernels import ops as kops
 from ..kernels import ref as kref
 
-__all__ = ["InputSpec", "CompiledQuery", "compile_query"]
+__all__ = ["InputSpec", "CompiledQuery", "compile_query", "eval_op"]
 
 
 def _const_dtype(c) -> torch.dtype:
@@ -93,6 +93,11 @@ def _eval_op(n: ir.Node, qp: QueryPlan, sum_algo: str, device: torch.device,
         ((av, aok),) = args
         return _eval_interp(n, av, aok, qp)
     raise TypeError(type(n))  # pragma: no cover
+
+
+# the single node evaluator, shared with the union-DAG body of
+# repro_torch.multiquery
+eval_op = _eval_op
 
 
 def _eval_reduce(n: ir.Reduce, aval, avalid, qp: QueryPlan,

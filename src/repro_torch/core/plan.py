@@ -47,7 +47,8 @@ from torch.utils._pytree import tree_map
 from . import boundary, halo, ir
 
 __all__ = ["GridPlan", "AlignSpec", "InputSpec", "QueryPlan", "plan_query",
-           "ChangeSpec", "ChangePlan", "plan_change", "seg_range_affine"]
+           "UnionPlan", "plan_union", "ChangeSpec", "ChangePlan",
+           "plan_change", "seg_range_affine"]
 
 
 def _ceil_div(a, b):
@@ -254,6 +255,56 @@ def plan_query(root: ir.Node, out_len: int) -> QueryPlan:
                      node_plans=node_plans, input_specs=input_specs)
 
 
+@dataclasses.dataclass
+class UnionPlan(QueryPlan):
+    """A :class:`QueryPlan` over the *union* DAG of several query roots.
+
+    One shared static artifact serves N concurrent queries: every node of
+    every query gets a grid sized for the union of all consumers' demands
+    (:func:`boundary.node_bounds_multi`), and ``input_specs`` is the merged
+    per-source halo contract.  ``root``/``out_len``/``out_prec`` describe
+    the first root only; per-query output extents come from each root's own
+    :class:`GridPlan` (see :mod:`repro_torch.multiquery`).
+    """
+
+    roots: tuple = ()
+    span: int = 0  # shared output span (0, span] in time units per chunk
+
+
+def plan_union(roots, span: int) -> UnionPlan:
+    """Plan the union DAG of several queries over one shared output span.
+
+    All queries advance in lockstep: each chunk produces the output window
+    ``(0, span]`` of every root (``span // root.prec`` ticks each), so
+    ``span`` must be a multiple of every root's precision.  Shared nodes get
+    a single grid covering every consumer; per-source contracts merge across
+    queries.  Sources reached under the same name must agree on their grid
+    declaration (prec / keyed).
+    """
+    roots = tuple(roots)
+    if not roots:
+        raise ValueError("plan_union needs at least one query root")
+    for r in roots:
+        if span % r.prec:
+            raise ValueError(
+                f"span {span} not a multiple of root {r.name} prec {r.prec}")
+    decl: Dict[str, ir.Input] = {}
+    for n in ir.topo_order_multi(list(roots)):
+        if isinstance(n, ir.Input):
+            prev = decl.get(n.name)
+            if prev is not None and (prev.prec, prev.keyed) != (n.prec,
+                                                               n.keyed):
+                raise ValueError(
+                    f"source {n.name!r} declared with conflicting grids: "
+                    f"prec={prev.prec}/keyed={prev.keyed} vs "
+                    f"prec={n.prec}/keyed={n.keyed}")
+            decl[n.name] = n
+    node_plans, input_specs = _plan_grids(roots, span)
+    return UnionPlan(root=roots[0], out_len=span // roots[0].prec,
+                     out_prec=roots[0].prec, node_plans=node_plans,
+                     input_specs=input_specs, roots=roots, span=span)
+
+
 def _plan_grids(roots, span: int):
     """Grid extents + merged per-NAME input contracts for a (multi-)root DAG."""
     nb = boundary.node_bounds_multi(list(roots))
@@ -372,8 +423,12 @@ class ChangePlan:
 def plan_change(qp: "QueryPlan") -> ChangePlan:
     """Derive the change-propagation plan from a query's halo contracts.
 
-    A union plan's merged ``input_specs`` would give the per-input union
-    of the per-query dilations the same way (ROADMAP A11).
+    Works unchanged on a :class:`UnionPlan`: its ``input_specs`` are the
+    *merged* per-source contracts (union of every attached query's
+    bounds), so the derived dilations are the per-input union of the
+    per-query dilations — exactly the merged ChangePlan sparse multi-query
+    execution needs (every output of every query in a segment is clean iff
+    no input changed inside the union-dilated lineage).
     """
     specs = {name: ChangeSpec(lookback=s.left_halo * s.prec,
                               lookahead=s.right_halo * s.prec, prec=s.prec)

@@ -4,13 +4,18 @@
 Each application factory returns an :class:`App` carrying:
 * ``query``      — the TiLT query (frontend → IR), with its ``Map`` and
   ``Where`` functions written with torch,
+* ``spe``        — the equivalent EventSPE pipeline (the event-centric
+  baseline, numpy, :mod:`repro_torch.spe.eventspe`),
 * ``make_input`` — the synthetic data generator (numpy, the reference's
   code: the same seed gives the same arrays in both packages),
 * dataset/time-scale metadata.
 
 :func:`make_grids` turns a generator's arrays into ``SnapshotGrid``s on a
-device (CUDA unless ``"cpu"`` is asked for).  The EventSPE baselines, the
-dashboard fan-out and the primitive temporal ops belong to later slices.
+device (CUDA unless ``"cpu"`` is asked for).  Beside the nine apps:
+the dashboard fan-out of the multi-query sharing workload
+(:func:`dashboard_queries`, :func:`dashboard_input`,
+:func:`dashboard_keyed_input`) and the four primitive temporal operations
+(:func:`temporal_op`, ``TEMPORAL_OPS``).
 
 Window sizes follow the paper's descriptions (Appendix A); time unit = one
 input tick.
@@ -26,15 +31,18 @@ import torch
 from ..core.frontend import TStream
 from ..core.stream import SnapshotGrid
 from ..device import resolve
+from ..spe import eventspe as es
 
 __all__ = ["App", "APPS", "KEYED_APPS", "make_app", "make_keyed_app",
-           "make_grids"]
+           "make_grids", "temporal_op", "TEMPORAL_OPS", "dashboard_queries",
+           "dashboard_input", "dashboard_keyed_input"]
 
 
 @dataclasses.dataclass
 class App:
     name: str
     query: TStream               # TiLT IR
+    spe: es.Pipeline             # event-centric baseline
     # (n_events, seed) -> {name: numpy arrays}
     make_input: Callable[[int, int], dict]
     input_prec: int = 1
@@ -73,6 +81,13 @@ def trend_app(short: int = 20, long: int = 50, keyed: bool = False) -> App:
          .join(s.window(long).mean(), lambda a, b: a - b, name="diff")
          .where(lambda d: d > 0, name="uptrend"))
 
+    spe = es.Pipeline([
+        (es.WindowAgg("mean", short), ("in",), "a_s"),
+        (es.WindowAgg("mean", long), ("in",), "a_l"),
+        (es.Join(lambda a, b: a - b), ("a_s", "a_l"), "diff"),
+        (es.Where(lambda d: d > 0), ("diff",), "out"),
+    ])
+
     def mk_keyed(n_keys, n_ticks, seed):
         rng = np.random.default_rng(seed)
         walks = 100.0 + np.cumsum(
@@ -80,7 +95,7 @@ def trend_app(short: int = 20, long: int = 50, keyed: bool = False) -> App:
         return {"in": {"value": walks.astype(np.float64),
                        "valid": np.ones((n_keys, n_ticks), bool)}}
 
-    return App("trend", q,
+    return App("trend", q, spe,
                lambda n, seed: {"in": _dense_input(_randwalk(n, seed))},
                description="moving-average trend, NYSE-style prices",
                make_keyed_input=mk_keyed)
@@ -100,7 +115,18 @@ def rsi_app(period: int = 14) -> App:
     q = ag.join(al, lambda g, l: 100.0 - 100.0 / (
         1.0 + g / torch.clamp(l, min=1e-9)), name="rsi")
 
-    return App("rsi", q,
+    spe = es.Pipeline([
+        (es.ShiftOp(1), ("in",), "prev"),
+        (es.Join(lambda x, p: x - p), ("in", "prev"), "delta"),
+        (es.Select(lambda d: np.maximum(d, 0.0)), ("delta",), "gain"),
+        (es.Select(lambda d: np.maximum(-d, 0.0)), ("delta",), "loss"),
+        (es.WindowAgg("mean", period), ("gain",), "ag"),
+        (es.WindowAgg("mean", period), ("loss",), "al"),
+        (es.Join(lambda g, l: 100.0 - 100.0 / (1.0 + g / np.maximum(l, 1e-9))),
+         ("ag", "al"), "out"),
+    ])
+
+    return App("rsi", q, spe,
                lambda n, seed: {"in": _dense_input(_randwalk(n, seed))},
                description="relative strength index momentum")
 
@@ -120,9 +146,38 @@ def znorm_app(win: int = 10) -> App:
                     lambda x, m, d: (x - m) / torch.clamp(d, min=1e-9),
                     prec=1, name="znorm")
 
-    return App("znorm", q,
+    spe = es.Pipeline([
+        (es.WindowAgg("mean", win, stride=win), ("in",), "mu"),
+        (es.WindowAgg("stddev", win, stride=win), ("in",), "sd"),
+        (_SpeZnormJoin(win), ("in", "mu", "sd"), "out"),
+    ])
+
+    return App("znorm", q, spe,
                lambda n, seed: {"in": _dense_input(_signal(n, seed)[0])},
                description="z-score normalization, 10-tick tumbling window")
+
+
+class _SpeZnormJoin(es.Operator):
+    """3-way join assigning each event the stats of its own window.
+
+    (The event-centric engine needs a *custom* operator here — the exact
+    kind of inflexibility §3 attributes to fixed operator vocabularies.)
+    """
+
+    def __init__(self, win: int):
+        self.win = win
+
+    def __call__(self, xb, mub, sdb):
+        # window containing tick t ends at ceil(t/win)*win
+        wend = ((xb.ts + self.win - 1) // self.win) * self.win
+        idx = np.searchsorted(mub.ts, wend)
+        idx_ok = idx < len(mub.ts)
+        idx_c = np.clip(idx, 0, max(len(mub.ts) - 1, 0))
+        mu = np.asarray(mub.value)[idx_c]
+        sd = np.asarray(sdb.value)[idx_c]
+        ok = xb.valid & idx_ok & mub.valid[idx_c] & sdb.valid[idx_c]
+        val = (np.asarray(xb.value) - mu) / np.maximum(sd, 1e-9)
+        return es.Batch(xb.ts, val, ok)
 
 
 # ---------------------------------------------------------------------------
@@ -134,12 +189,32 @@ def impute_app(win: int = 10) -> App:
     mu = s.window(win, stride=win).mean().shift(-(win - 1), prec=1)
     q = s.coalesce(mu, name="imputed")
 
+    spe = es.Pipeline([
+        (es.WindowAgg("mean", win, stride=win), ("in",), "mu"),
+        (_SpeImputeJoin(win), ("in", "mu"), "out"),
+    ])
+
     def mk(n, seed):
         x, valid = _signal(n, seed, missing=0.1)
         return {"in": _dense_input(x, valid)}
 
-    return App("impute", q, mk,
+    return App("impute", q, spe, mk,
                description="fill missing samples with window mean (1000 Hz)")
+
+
+class _SpeImputeJoin(es.Operator):
+    def __init__(self, win: int):
+        self.win = win
+
+    def __call__(self, xb, mub):
+        wend = ((xb.ts + self.win - 1) // self.win) * self.win
+        idx = np.searchsorted(mub.ts, wend)
+        idx_ok = idx < len(mub.ts)
+        idx_c = np.clip(idx, 0, max(len(mub.ts) - 1, 0))
+        mu = np.asarray(mub.value)[idx_c]
+        mu_ok = idx_ok & mub.valid[idx_c]
+        val = np.where(xb.valid, np.asarray(xb.value), mu)
+        return es.Batch(xb.ts, val, xb.valid | mu_ok)
 
 
 # ---------------------------------------------------------------------------
@@ -151,11 +226,15 @@ def resample_app(out_prec: int = 4, max_gap: int = 16) -> App:
     s = TStream.source("in", prec=1)
     q = s.resample(out_prec, max_gap=max_gap)
 
+    spe = es.Pipeline([
+        (es.InterpOp(1, out_prec, max_gap), ("in",), "out"),
+    ])
+
     def mk(n, seed):
         x, valid = _signal(n, seed, missing=0.05)
         return {"in": _dense_input(x, valid)}
 
-    return App("resample", q, mk,
+    return App("resample", q, spe, mk,
                description="linear-interpolation resampling 1000→250 Hz")
 
 
@@ -176,6 +255,17 @@ def pantomkins_app(fs: int = 200) -> App:
     q = mwi.join(thr, lambda sig, th: sig - th, name="qrs") \
            .where(lambda d: d > 0, name="qrs_hit")
 
+    spe = es.Pipeline([
+        (es.ShiftOp(1), ("in",), "prev"),
+        (es.Join(lambda x, p: x - p), ("in", "prev"), "deriv"),
+        (es.Select(lambda d: d * d), ("deriv",), "sq"),
+        (es.WindowAgg("mean", mwi_w), ("sq",), "mwi"),
+        (es.WindowAgg("max", thr_w), ("mwi",), "mx"),
+        (es.Select(lambda m: 0.5 * m), ("mx",), "thr"),
+        (es.Join(lambda s_, t: s_ - t), ("mwi", "thr"), "d"),
+        (es.Where(lambda d: d > 0), ("d",), "out"),
+    ])
+
     def mk(n, seed):
         rng = np.random.default_rng(seed)
         t = np.arange(n) / fs
@@ -184,7 +274,7 @@ def pantomkins_app(fs: int = 200) -> App:
                + 0.05 * rng.normal(0, 1, n))
         return {"in": _dense_input(ecg)}
 
-    return App("pantomkins", q, mk,
+    return App("pantomkins", q, spe, mk,
                description="QRS detection on synthetic ECG (MIMIC-III style)")
 
 
@@ -205,14 +295,30 @@ def vibration_app(win: int = 100) -> App:
                     lambda k, r, c: {"kurtosis": k, "rms": r, "crest": c},
                     name="vib")
 
+    spe = es.Pipeline([
+        (es.WindowAgg("kurtosis", win, stride=win), ("in",), "k"),
+        (es.WindowAgg("rms", win, stride=win), ("in",), "r"),
+        (es.WindowAgg("absmax", win, stride=win), ("in",), "m"),
+        (es.Join(lambda a, r: a / np.maximum(r, 1e-9)), ("m", "r"), "c"),
+        (_SpeZip3(), ("k", "r", "c"), "out"),
+    ])
+
     def mk(n, seed):
         rng = np.random.default_rng(seed)
         x = rng.normal(0, 1, n) + 0.5 * np.sin(np.arange(n) * 0.1)
         x[rng.random(n) < 0.001] *= 8.0  # bearing impacts
         return {"in": _dense_input(x)}
 
-    return App("vibration", q, mk,
+    return App("vibration", q, spe, mk,
                description="kurtosis/RMS/crest-factor machine monitoring")
+
+
+class _SpeZip3(es.Operator):
+    def __call__(self, kb, rb, cb):
+        return es.Batch(kb.ts, {"kurtosis": np.asarray(kb.value),
+                                "rms": np.asarray(rb.value),
+                                "crest": np.asarray(cb.value)},
+                        kb.valid & rb.valid & cb.valid)
 
 
 # ---------------------------------------------------------------------------
@@ -229,6 +335,16 @@ def fraud_app(win: int = 1000, keyed: bool = False) -> App:
     q = s.join(thr, lambda x, t: x - t, name="excess") \
          .where(lambda e: e > 0, name="fraud")
 
+    spe = es.Pipeline([
+        (es.WindowAgg("mean", win), ("in",), "mu"),
+        (es.WindowAgg("stddev", win), ("in",), "sd"),
+        (es.ShiftOp(1), ("mu",), "mu1"),
+        (es.ShiftOp(1), ("sd",), "sd1"),
+        (es.Join(lambda m, d: m + 3.0 * d), ("mu1", "sd1"), "thr"),
+        (es.Join(lambda x, t: x - t), ("in", "thr"), "ex"),
+        (es.Where(lambda e: e > 0), ("ex",), "out"),
+    ])
+
     def mk(n, seed):
         rng = np.random.default_rng(seed)
         amt = rng.lognormal(3.0, 1.0, n)
@@ -243,7 +359,7 @@ def fraud_app(win: int = 1000, keyed: bool = False) -> App:
         valid = rng.random((n_keys, n_ticks)) > 0.3
         return {"in": {"value": amt, "valid": valid}}
 
-    return App("fraud", q, mk,
+    return App("fraud", q, spe, mk,
                description="credit-card anomaly flagging (Kaggle-style)",
                make_keyed_input=mk_keyed)
 
@@ -256,6 +372,11 @@ def ysb_app(win: int = 10, keyed: bool = False) -> App:
     s = TStream.source("in", prec=1, keyed=keyed)
     views = s.where(lambda v: v["etype"] == 1.0, name="views")
     q = views.window(win, stride=win).count(field="etype", name="cnt")
+
+    spe = es.Pipeline([
+        (es.Where(lambda v: v["etype"] == 1.0), ("in",), "views"),
+        (_SpeDictCount(win), ("views",), "out"),
+    ])
 
     def mk(n, seed):
         rng = np.random.default_rng(seed)
@@ -275,9 +396,20 @@ def ysb_app(win: int = 10, keyed: bool = False) -> App:
         return {"in": {"value": {"etype": etype, "camp": camp},
                        "valid": np.ones(sh, bool)}}
 
-    return App("ysb", q, mk,
+    return App("ysb", q, spe, mk,
                description="Yahoo streaming benchmark (filter+project+count)",
                make_keyed_input=mk_keyed)
+
+
+class _SpeDictCount(es.Operator):
+    def __init__(self, win):
+        self.agg = es.WindowAgg("count", win, stride=win)
+
+    def reset(self):
+        self.agg.reset()
+
+    def __call__(self, b):
+        return self.agg(es.Batch(b.ts, np.asarray(b.value["etype"]), b.valid))
 
 
 APPS = {
@@ -326,3 +458,118 @@ def make_grids(data: dict, device=None, t0: int = 0,
         valid = torch.as_tensor(np.asarray(d["valid"], bool)).to(dev)
         out[name] = SnapshotGrid(value=v, valid=valid, t0=t0, prec=prec)
     return out
+
+
+# ---------------------------------------------------------------------------
+# dashboard fan-out: N query variants over shared windowed aggregates
+# (the multi-query sharing workload — repro_torch.multiquery)
+# ---------------------------------------------------------------------------
+
+def _dash_trend_up(fast, slow, thr):
+    return (fast.join(slow, lambda a, b: a - b, name="dash_diff")
+            .where(lambda d, t=thr: d > t, name=f"up_{thr}"))
+
+
+def _dash_trend_down(fast, slow, thr):
+    return (fast.join(slow, lambda a, b: a - b, name="dash_diff")
+            .where(lambda d, t=thr: d < -t, name=f"down_{thr}"))
+
+
+def _dash_breakout(s, slow, vol, k):
+    """Fraud-style band breakout: price above μ_long + k·σ_long."""
+    return (TStream.zip([s, slow, vol],
+                        lambda x, m, v, k=k: x - (m + k * v),
+                        name=f"excess_{k}")
+            .where(lambda e: e > 0, name="breakout"))
+
+
+def _dash_momentum(fast, slow, vol, scale):
+    """Projection head: volatility-normalized momentum (no threshold)."""
+    return TStream.zip([fast, slow, vol],
+                       lambda a, b, v, s=scale: s * (a - b)
+                       / torch.clamp_min(v, 1e-6),
+                       name=f"momentum_{scale}")
+
+
+def dashboard_queries(n: int = 16, short: int = 20, long: int = 50,
+                      keyed: bool = False) -> dict:
+    """``n`` concurrent dashboard variants over one source: every query
+    reads the same short/long sliding means and long sliding stddev and
+    differs only in its final threshold / projection head — the
+    serving-layer fan-out scenario where multi-query sharing collapses N
+    passes over the stream into one.
+
+    Returns ``{query_name: TStream}``.  Note the aggregates are deliberately
+    rebuilt *per query* — structural fingerprinting (ir.fingerprint), not
+    object sharing, is what the session relies on to deduplicate them.
+    """
+    out = {}
+    for i in range(n):
+        # fresh sub-expressions per query: sharing must be discovered
+        s = TStream.source("in", prec=1, keyed=keyed)
+        fast = s.window(short).mean()
+        slow = s.window(long).mean()
+        vol = s.window(long).stddev()
+        thr = 0.05 * (i // 4)
+        kind = i % 4
+        if kind == 0:
+            q = _dash_trend_up(fast, slow, thr)
+        elif kind == 1:
+            q = _dash_trend_down(fast, slow, thr)
+        elif kind == 2:
+            q = _dash_breakout(s, slow, vol, 1.0 + thr)
+        else:
+            q = _dash_momentum(fast, slow, vol, 1.0 + thr)
+        out[f"q{i:02d}"] = q
+    return out
+
+
+def dashboard_input(n_ticks: int, seed: int) -> dict:
+    """Random-walk price stream for the dashboard fan-out (unkeyed)."""
+    return {"in": _dense_input(_randwalk(n_ticks, seed))}
+
+
+def dashboard_keyed_input(n_keys: int, n_ticks: int, seed: int) -> dict:
+    """Per-symbol random walks, (K, T) — the keyed dashboard scenario."""
+    rng = np.random.default_rng(seed)
+    walks = 100.0 + np.cumsum(
+        rng.normal(0, 0.05, (n_keys, n_ticks)), axis=1)
+    return {"in": {"value": walks.astype(np.float64),
+                   "valid": np.ones((n_keys, n_ticks), bool)}}
+
+
+# ---------------------------------------------------------------------------
+# the four primitive temporal operations (Fig. 1 / Fig. 7a)
+# ---------------------------------------------------------------------------
+
+def temporal_op(name: str) -> App:
+    s = TStream.source("in", prec=1)
+    if name == "select":
+        q = s.select(lambda v: v + 1.0)
+        spe = es.Pipeline([(es.Select(lambda v: v + 1.0), ("in",), "out")])
+    elif name == "where":
+        q = s.where(lambda v: v % 2 == 0)
+        spe = es.Pipeline([(es.Where(lambda v: v % 2 == 0), ("in",), "out")])
+    elif name == "wsum":
+        q = s.window(10, stride=5).sum()
+        spe = es.Pipeline([(es.WindowAgg("sum", 10, 5), ("in",), "out")])
+    elif name == "join":
+        t = TStream.source("in2", prec=1)
+        q = s.join(t, lambda a, b: a + b)
+        spe = es.Pipeline([(es.Join(lambda a, b: a + b), ("in", "in2"), "out")])
+    else:  # pragma: no cover
+        raise KeyError(name)
+
+    def mk(n, seed):
+        rng = np.random.default_rng(seed)
+        d = {"in": _dense_input(np.floor(rng.random(n) * 100))}
+        if name == "join":
+            e = _dense_input(np.floor(rng.random(n) * 100))
+            e["valid"] = rng.random(n) > 0.3  # irregular second stream
+            d["in2"] = e
+        return d
+
+    return App(name, q, spe, mk, description=f"primitive op {name}")
+
+
+TEMPORAL_OPS = ("select", "where", "wsum", "join")

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -26,7 +26,7 @@ from ..device import resolve
 from .policy import ExecPolicy
 from .runner import Runner
 
-__all__ = ["KeyedEngine", "keyed_grid"]
+__all__ = ["KeyedEngine", "keyed_grid", "wrap_keyed_step"]
 
 
 def keyed_grid(value, valid, t0: int = 0, prec: int = 1,
@@ -43,6 +43,21 @@ def keyed_grid(value, valid, t0: int = 0, prec: int = 1,
 
     return SnapshotGrid(value=tree_map(put, value), valid=put(valid),
                         t0=t0, prec=prec)
+
+
+def wrap_keyed_step(step, mesh: Optional[object] = None,
+                    axis: str = "data"):
+    """Stage a ``(tails, chunks) -> (out, new_tails)`` step for keyed
+    execution.  The port runs eagerly, so with ``mesh=None`` the step is
+    returned as it is: its tensors already carry the key axis first.
+    Sharding the key axis over a mesh is not ported yet (ROADMAP A14).
+    Deprecated: the runner builds its own steps; kept for callers that
+    build custom keyed steps."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "wrap_keyed_step(mesh=...) (key-axis sharding) is not ported "
+            "yet: ROADMAP A14")
+    return step
 
 
 @dataclasses.dataclass

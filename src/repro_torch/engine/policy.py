@@ -10,12 +10,12 @@ axis                  values                  planning artifact
 ``body``              ``dense`` | ``sparse``  :class:`repro_torch.core.plan.ChangePlan`
 ``keys``              ``single`` | ``vmapped``  a leading key axis
 ``placement``         ``local`` | mesh(axis)  (ROADMAP A14: not ported)
-``dag``               ``solo`` | ``union``    (ROADMAP A11: not ported)
+``dag``               ``solo`` | ``union``    :func:`repro_torch.core.plan.plan_union`
 ====================  ======================  ===========================
 
-The port runs ``placement="local"`` and ``dag="solo"``; the other values
-are named by the policy (so ``describe()`` and validation match the
-reference) and raise ``NotImplementedError`` naming their ROADMAP item.
+The port runs ``placement="local"``; ``"mesh"`` is named by the policy (so
+validation matches the reference) and raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -48,10 +48,6 @@ class ExecPolicy:
             raise ValueError(f"keys={self.keys!r} not in {KEYS}")
         if self.dag not in DAGS:
             raise ValueError(f"dag={self.dag!r} not in {DAGS}")
-        if self.dag == "union":
-            raise NotImplementedError(
-                "dag='union' (multi-query union DAGs) is not ported yet: "
-                "ROADMAP A11")
         if self.placement not in PLACEMENTS:
             raise ValueError(f"placement={self.placement!r} not in "
                              f"{PLACEMENTS}")

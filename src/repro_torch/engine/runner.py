@@ -5,7 +5,7 @@ of ``repro.engine.runner``.
 evaluates the planned partition body over the chunk's segments, slices new
 tails off the buffer, advances a stream clock and checkpoints it all,
 under an :class:`repro_torch.engine.policy.ExecPolicy` at
-``placement="local"`` and ``dag="solo"``.
+``placement="local"``.
 
 Execution model (one ``step`` = one chunk):
 
@@ -21,6 +21,16 @@ Execution model (one ``step`` = one chunk):
 * Units ride the evaluator's leading axis: the unit windows are gathered
   into ``(U, L)`` grids and the compiled query runs once per chunk over
   all of them (the reference ``vmap``s the body over units instead).
+* ``dag='union'`` runs the union DAG of N queries (one
+  :class:`repro_torch.core.plan.UnionPlan`, see
+  :func:`repro_torch.multiquery.union_runner`) and returns one grid per
+  query; the merged :class:`~repro_torch.core.plan.ChangePlan` of the union
+  is the per-input union of the per-query dilations, so the sparse body
+  composes with multi-query sharing.
+* Late data: with :meth:`Runner.enable_revision` the runner keeps the
+  carried tails of its last chunks, and :meth:`Runner.revise` re-runs
+  sealed chunks on patched inputs, computing only the segments the late
+  change can reach (the compacted body, never a dense replay).
 
 The sparse body reads the chunk's dirty-unit count once (4 bytes,
 device→host) to pick the compaction bucket on the host — the port's one
@@ -44,15 +54,15 @@ Time is the last axis of every tensor: a tail is ``(K, left_halo)`` (value
 leaves may carry channel axes between the key axis and time).
 
 Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-item: late-data revision (A12), AOT serving (A13), the static-audit
-surface (A15); mesh placement and union DAGs are refused by
-:class:`ExecPolicy` (A14, A11).
+item: AOT serving (A13), the static-audit surface (A15); mesh placement is
+refused by :class:`ExecPolicy` (A14).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -79,7 +89,8 @@ class BodySpec:
     valid)}`` grids covering one segment plus halo (``input_specs``), with
     any number of units on a leading axis, it returns ``{out_name: (value,
     valid)}`` output grids of ``span // out_precs[name]`` ticks per unit.
-    Solo queries are the single-output case (``out_name == "__out"``).
+    Solo queries are the single-output case (``out_name == "__out"``);
+    union DAGs return one entry per query.
 
     ``step_cache`` holds the built chunk steps, keyed by execution
     geometry and device — share it across Runner instances over the same
@@ -150,9 +161,10 @@ class Runner:
     Parameters
     ----------
     exe_or_spec:
-        A :class:`~repro_torch.core.compile.CompiledQuery` (pass
-        ``sparse=True`` to :func:`~repro_torch.core.compile.compile_query`
-        for a sparse body) or a prebuilt solo :class:`BodySpec`.
+        A :class:`~repro_torch.core.compile.CompiledQuery` (``dag='solo'``;
+        pass ``sparse=True`` to :func:`~repro_torch.core.compile.
+        compile_query` for a sparse body) or a prebuilt :class:`BodySpec`
+        (the union path: see :func:`repro_torch.multiquery.union_runner`).
     policy:
         The execution policy.  ``keys='vmapped'`` requires ``n_keys``.
     segs_per_chunk:
@@ -172,10 +184,11 @@ class Runner:
                  metrics: Optional[Metrics] = None):
         spec = (exe_or_spec if isinstance(exe_or_spec, BodySpec)
                 else body_spec_of(exe_or_spec))
-        if not spec.solo:
-            raise NotImplementedError(
-                "union BodySpecs (multi-query DAGs) are not ported yet: "
-                "ROADMAP A11")
+        if policy.union != (not spec.solo):
+            raise ValueError(
+                f"policy dag={policy.dag!r} does not match the body "
+                f"(solo={spec.solo}); union runners need a union BodySpec "
+                "(see repro_torch.multiquery.union_runner)")
         if segs_per_chunk < 1:
             raise ValueError("segs_per_chunk must be >= 1")
         self.spec, self.policy = spec, policy
@@ -228,6 +241,9 @@ class Runner:
         self._total_units = 0
         self._chunks_run = 0
         self._mstate = None  # (dirty_total, bucket_picks, frac_counts)
+        # -- late-data revision ring (off unless enable_revision) -----------
+        self._rev_ring: Optional[collections.deque] = None
+        self.revision_horizon = 0
         self._obs_init(metrics)
 
     # -- telemetry -----------------------------------------------------------
@@ -249,6 +265,15 @@ class Runner:
             "runner.step_seconds", log_buckets(1e-5, 10.0, per_decade=3),
             "per-chunk step wall time (dispatch, not device completion)",
             "s", log_scale=True)
+        self._m_rev_runs = m.counter(
+            "runner.revision_runs", "late-data revision re-runs", "runs")
+        self._m_rev_chunks = m.counter(
+            "runner.revision_chunks",
+            "sealed chunks re-stepped by revisions", "chunks")
+        self._m_rev_units = m.counter(
+            "runner.revision_units",
+            "work units recomputed by revisions (ChangePlan-dilated dirty "
+            "segments only)", "units")
         # device-resident handles: fold any previous owner's device refs
         # into the host base before this runner's mstate takes over
         self._m_dirty = m.counter(
@@ -738,8 +763,9 @@ class Runner:
 
         Each chunk grid supplies ``segs_per_chunk · spec.core`` fresh ticks
         per input (leading key axis first when ``keys='vmapped'``).
-        Returns the output grid.  Carried state commits only after the step
-        succeeded, so a raise leaves the runner exactly as it was.
+        Returns one output grid (solo) or ``{query_name: grid}`` (union).
+        Carried state commits only after the step succeeded, so a raise
+        leaves the runner exactly as it was.
         """
         t0 = time.perf_counter()
         chunk_in = self._ingest(chunks)
@@ -747,6 +773,13 @@ class Runner:
         if dev != self._device:
             self._move_state(dev)
         self._init_missing_tails(chunk_in)
+        snap = None
+        if self._rev_ring is not None:
+            # pre-chunk tails for the revision ring: references, not
+            # copies — nothing updates carried tensors in place (each
+            # chunk makes new ones), so revisability costs no transfer
+            snap = {"chunk": self._t // (self.n_segs * self.spec.span),
+                    "tails": dict(self._tails)}
         if self.policy.sparse:
             outs, commit = self._sparse_chunk(chunk_in, dev)
         else:
@@ -760,6 +793,8 @@ class Runner:
             result[o] = SnapshotGrid(value=v, valid=m, t0=self._t,
                                      prec=self.spec.out_precs[o])
         commit()
+        if snap is not None:
+            self._rev_ring.append(snap)
         self._t += self.n_segs * self.spec.span
         if self.metrics.on:
             # host-side arithmetic only (perf_counter + numpy bisect):
@@ -767,7 +802,7 @@ class Runner:
             self._m_chunks.add(1)
             self._m_units.add(self._U)
             self._m_lat.observe(time.perf_counter() - t0)
-        return result["__out"]
+        return result["__out"] if self.spec.solo else result
 
     def run(self, inputs: Dict[str, SnapshotGrid], n_chunks: int):
         """Slice ``n_chunks`` chunks from full streams, step through them
@@ -785,11 +820,17 @@ class Runner:
                     valid=g.valid[..., lo:lo + n],
                     t0=g.t0 + lo * s.prec, prec=s.prec)
             outs.append(self.step(chunk))
-        value = _tm(lambda *xs: torch.cat(xs, dim=-1),
-                    *[p.value for p in outs])
-        valid = torch.cat([p.valid for p in outs], dim=-1)
-        return SnapshotGrid(value=value, valid=valid, t0=outs[0].t0,
-                            prec=outs[0].prec)
+
+        def stitch(parts):
+            value = _tm(lambda *xs: torch.cat(xs, dim=-1),
+                        *[p.value for p in parts])
+            valid = torch.cat([p.valid for p in parts], dim=-1)
+            return SnapshotGrid(value=value, valid=valid, t0=parts[0].t0,
+                                prec=parts[0].prec)
+
+        if self.spec.solo:
+            return stitch(outs)
+        return {o: stitch([c[o] for c in outs]) for o in outs[0]}
 
     def reset(self) -> None:
         """Drop carried state; the next step starts a fresh stream at t=0."""
@@ -802,6 +843,8 @@ class Runner:
         self._dirty_units = None
         self._total_units = 0
         self._chunks_run = 0
+        if self._rev_ring is not None:
+            self._rev_ring.clear()
         if self._mstate is not None:
             # preserve the registry's running totals (syncs — off-path),
             # then drop this runner's device accumulator state
@@ -826,35 +869,42 @@ class Runner:
                 "compact": dirty / self._total_units}
 
     # -- checkpointing (the one state/validate path) -------------------------
-    def _strip(self, tree):
-        """Host copies, without the internal K axis for single-key
-        runners: nothing a later step does can reach them."""
+    def _strip(self, tree, host: bool = True):
+        """Copies (numpy on the host, or tensors where they are), without
+        the internal K axis for single-key runners: nothing a later step
+        does can reach them."""
         def one(x):
-            x = x.detach().to("cpu", copy=True).numpy()
+            x = (x.detach().to("cpu", copy=True).numpy() if host
+                 else x.detach().clone())
             return x if self.policy.keyed else x[0]
         return _tm(one, tree)
 
     def _lift(self, tree):
-        """Tensors copied in from a checkpoint's arrays (on the CPU until
-        the next step puts them on the runner's device)."""
+        """Tensors copied in from a checkpoint's arrays or tensors (on the
+        CPU until the next step puts them on the runner's device, unless
+        they come as tensors on a device already)."""
         def one(x):
-            t = torch.from_numpy(np.array(x, copy=True))
+            t = (x.detach().clone() if torch.is_tensor(x)
+                 else torch.from_numpy(np.array(x, copy=True)))
             if self._device is not None:
                 t = t.to(self._device)
             return t if self.policy.keyed else t[None]
         return _tm(one, tree)
 
-    def state(self) -> Dict:
-        """Checkpointable runner state (host numpy copies); see the module
-        docstring for the pytree layout."""
-        out = {k: self._strip(v) for k, v in self._tails.items()}
+    def state(self, *, host: bool = True) -> Dict:
+        """Checkpointable runner state: host numpy copies, or with
+        ``host=False`` tensor copies on the runner's device (a re-fit that
+        stays on the card); see the module docstring for the pytree
+        layout."""
+        strip = lambda t: self._strip(t, host)  # noqa: E731
+        out = {k: strip(v) for k, v in self._tails.items()}
         out["__t"] = self._t
         if self._sparse is not None:
             st = self._sparse
             out["__sparse"] = {
-                "dirty": {k: self._strip(v) for k, v in st["dirty"].items()},
-                "prev": {k: self._strip(v) for k, v in st["prev"].items()},
-                "seed": {o: self._strip(v) for o, v in st["seed"].items()},
+                "dirty": {k: strip(v) for k, v in st["dirty"].items()},
+                "prev": {k: strip(v) for k, v in st["prev"].items()},
+                "seed": {o: strip(v) for o, v in st["seed"].items()},
                 "started": st["started"]}
         return out
 
@@ -953,6 +1003,12 @@ class Runner:
                     # pre-policy-runner checkpoints (old KeyedEngine format)
                     # stored the solo hold seed as a bare (value, valid)
                     # tuple rather than a per-output dict
+                    if not self.spec.solo:
+                        raise ValueError(
+                            "checkpoint hold seed is a bare tuple (single-"
+                            "output format) but this runner serves a union "
+                            "DAG with outputs "
+                            f"{sorted(self.spec.out_precs)}")
                     seed = {"__out": seed}
                 st["seed"] = {o: self._lift(v) for o, v in seed.items()
                               if o in self.spec.out_precs}
@@ -970,14 +1026,172 @@ class Runner:
                                     device=tm.device))
             self._sparse = st
 
+    # -- late-data revision processing ---------------------------------------
+    def enable_revision(self, horizon_chunks: int) -> None:
+        """Keep a ring of the carried tails before each of the last
+        ``horizon_chunks`` chunks, so sealed chunks inside the horizon can
+        be revised through :meth:`revise` when late data patches their
+        inputs (:meth:`repro_torch.core.plan.ChangePlan.
+        revision_horizon_chunks` sizes the ring for a maximum lateness).
+
+        The ring holds references to the carried tensors, which no step
+        updates in place, so a runner with revision enabled makes no more
+        transfers per chunk than one without (the reference copies its
+        donated state to the host every chunk instead)."""
+        if horizon_chunks < 1:
+            raise ValueError("horizon_chunks must be >= 1")
+        self._rev_ring = collections.deque(maxlen=int(horizon_chunks))
+        self.revision_horizon = int(horizon_chunks)
+
+    def _revision_step(self, dev: torch.device):
+        """The late-data revision step: ``step(tails, chunks, w, cap) ->
+        (outs, new_tails)``.
+
+        Like the sparse step, the compute is the compacted body of one
+        capacity (:meth:`_compute_local`), never a dense chunk replay; but
+        the dirty units ``w`` arrive as an argument (derived on the host
+        from :func:`repro_torch.core.sparse.retro_segment_mask` over the
+        patched tick times, so the bucket ``cap`` is known without a
+        device read) instead of being diffed on the device, and there is no
+        hold fill: ChangePlan dilation proves every output outside the
+        dirty segments unchanged, so only dirty segments' output ticks are
+        read back (clean segments carry scatter residue)."""
+        key = self._cache_key("revise", dev)
+        cache = self.spec.step_cache
+        if key in cache:
+            return cache[key]
+        self.metrics.tracer.record_compile(self._compile_label(key))
+        names = self._names()
+        K = self._K
+
+        def step(tails, chunks, w, cap):
+            bufs = {}
+            for name in names:
+                tv, tm = tails[name]
+                cv, cm = chunks[name]
+                bufs[name] = (_tm(_cat, tv, cv), _cat(tm, cm))
+            full = self._compute_local(cap, dev)(w, bufs)
+            outs = {o: (_tm(lambda x: _ticks(x.reshape(
+                            (K, self.n_segs) + x.shape[1:]), self.n_segs),
+                            fv),
+                        fm.reshape(K, -1))
+                    for o, (fv, fm) in full.items()}
+            return outs, self._new_tails(bufs)
+
+        cache[key] = step
+        return step
+
+    def revise(self, from_chunk: int, chunks, seg_dirty, *,
+               commit: bool = True) -> List:
+        """Re-run sealed chunks ``from_chunk .. from_chunk+len(chunks)-1``
+        on patched inputs, computing only the flagged segments.
+
+        ``chunks`` is one ``{input: SnapshotGrid}`` dict per revised chunk
+        (the patched sealed grids, full chunk layout exactly as for
+        :meth:`step`); ``seg_dirty`` one host bool mask per chunk, shaped
+        ``(n_segs,)`` (single) or ``(n_keys, n_segs)`` (vmapped) —
+        derived from :func:`repro_torch.core.sparse.retro_segment_mask`
+        over the patched tick times.  Returns one output result per chunk
+        in :meth:`step`'s layout; only ticks inside dirty segments are
+        meaningful (callers emit corrections for those segments only —
+        see :class:`repro_torch.ingest.IngestRunner`).
+
+        With ``commit=True`` (required to keep live state consistent) the
+        revision must extend through the newest stepped chunk; the
+        walked-forward tails then replace the live carried tails, the
+        change state goes conservative (all-dirty tails — a superset of
+        true dirtiness, still bit-exact by the sparse exactness
+        contract), and ring entries passed en route are refreshed with
+        the patched tails so later revisions restore patched history.
+        ``commit=False`` is a read-only what-if replay."""
+        if self._rev_ring is None:
+            raise ValueError(
+                "revision disabled — call enable_revision() first")
+        if len(chunks) != len(seg_dirty):
+            raise ValueError("one seg_dirty mask per revised chunk required")
+        span = self.n_segs * self.spec.span
+        cur = self._t // span
+        if commit and from_chunk + len(chunks) != cur:
+            raise ValueError(
+                f"commit=True revisions must extend through the newest "
+                f"stepped chunk {cur - 1} (got chunks {from_chunk}.."
+                f"{from_chunk + len(chunks) - 1})")
+        entry = next((e for e in self._rev_ring
+                      if e["chunk"] == from_chunk), None)
+        if entry is None:
+            have = sorted(e["chunk"] for e in self._rev_ring)
+            raise ValueError(
+                f"no state snapshot for chunk {from_chunk} in the revision "
+                f"ring (have {have}) — the patch is beyond the horizon")
+        K, U = self._K, self._U
+        tails = None
+        results = []
+        n_units = 0
+        last_in = last_sd = last_outs = None
+        for i, (ch, sd) in enumerate(zip(chunks, seg_dirty)):
+            chunk_in = self._ingest(ch)
+            dev = self._chunk_device(chunk_in)
+            if tails is None:
+                tails = {n: _tm(lambda x: x.to(dev), entry["tails"][n])
+                         for n in self._names()}
+            else:
+                # the ring entry for this chunk holds pre-patch tails —
+                # refresh it with the walked (patched) ones so a later
+                # revision restoring from here sees patched history
+                for e in self._rev_ring:
+                    if e["chunk"] == from_chunk + i:
+                        e["tails"] = dict(tails)
+            sd = np.asarray(sd, bool).reshape(K, self.n_segs)
+            cnt = int(sd.sum())
+            n_units += cnt
+            # the mask is host data: its count picks the bucket without a
+            # device read, and it reaches the card by an asynchronous copy
+            w = torch.from_numpy(sd.reshape(U).copy())
+            if dev.type == "cuda":
+                w = w.pin_memory().to(dev, non_blocking=True)
+            outs, tails = self._revision_step(dev)(
+                tails, chunk_in, w, sparse_mod.bucket_capacity(cnt, U))
+            last_in, last_sd, last_outs = chunk_in, w, outs
+            res = {}
+            for o, (v, m) in self._postprocess(outs).items():
+                res[o] = SnapshotGrid(value=v, valid=m,
+                                      t0=(from_chunk + i) * span,
+                                      prec=self.spec.out_precs[o])
+            results.append(res["__out"] if self.spec.solo else res)
+
+        if commit and chunks:
+            self._tails = tails
+            if self._sparse is not None:
+                st = self._sparse
+                ld = last_sd.reshape(K, self.n_segs)[:, -1]
+                for name in self._names():
+                    hl = self.spec.input_specs[name].left_halo
+                    if hl:
+                        # conservative: the patched tail is marked fully
+                        # dirty — dirtiness only ever widens, and extra
+                        # computed segments are bit-identical by the
+                        # sparse exactness contract
+                        st["dirty"][name] = torch.ones(
+                            (K, hl), dtype=torch.bool, device=ld.device)
+                    else:
+                        cv, cm = last_in[name]
+                        st["prev"][name] = (
+                            _tm(lambda x: x[..., -1:].clone(), cv),
+                            cm[:, -1:].clone())
+                for o, (sv, sm) in list(st["seed"].items()):
+                    ov, om = last_outs[o]
+                    st["seed"][o] = (
+                        _tm(lambda x, s: torch.where(_bc(ld, x[..., -1]),
+                                                     x[..., -1], s),
+                            ov, sv),
+                        torch.where(ld, om[:, -1], sm))
+        if self.metrics.on:
+            self._m_rev_runs.add(1)
+            self._m_rev_chunks.add(len(chunks))
+            self._m_rev_units.add(n_units)
+        return results
+
     # -- not ported yet ----------------------------------------------------
-    def enable_revision(self, *args, **kwargs):
-        raise NotImplementedError(
-            "late-data revision (enable_revision/revise) is not ported yet: "
-            "ROADMAP A12")
-
-    revise = enable_revision
-
     def staged_steps(self, *args, **kwargs):
         raise NotImplementedError(
             "AOT serving (staged_steps, chunk_fn, aot_keys, "

@@ -9,12 +9,14 @@
 //
 // The TPU kernel walks one segment per grid step over a padded copy of
 // each source's channel matrix, stacked per dtype.  Here every row is read
-// in place through its own pointer, key stride and dtype (f32, int32, or
-// bool bytes), passed by value as a table of 3 words per row (see Row), so
-// nothing is padded, stacked or cast.  Each thread compares 4 or 8
-// neighbouring ticks of each row with the tick before them (16-byte loads
-// where the row's alignment allows, 4-byte for bool rows, scalar loads
-// elsewhere; every row's loads in flight together), and the group that
+// in place through its own pointer, key stride and dtype, passed by value
+// as a table of 3 words per row (see Row), so nothing is padded, stacked
+// or cast on the host: a grid of any dtype the port's grids carry (f32,
+// f16, bf16, f64, int64, int32, int16, int8, uint8, bool) is read as it
+// lies.  Each thread compares 4 or 8 neighbouring ticks of each row with
+// the tick before them (vector loads of 4 ticks, or 2 for 8-byte types,
+// where the row's alignment allows, scalar loads elsewhere; every row's
+// loads in flight together), and the group that
 // owns a unit stops at the first round with a difference.  Two regimes,
 // by the unit's width (the result is exact, so the choice is free; the
 // wrapper's seg_dirty_plan makes it):
@@ -29,6 +31,9 @@
 //
 // The comparison is by value, as the reference's `!=`: NaN != NaN makes a
 // tick dirty and -0.0 == 0.0 keeps it clean (do not build with fast math).
+// Floats are compared as floats: f16 and bf16 widen exactly to f32 in
+// registers first, f64 stays f64.  Integers and bool compare by their bits,
+// which for them is the value: int64 keeps all 64 (no cast through f32).
 //
 // Bound: bytes.  A unit reads its width+1 ticks of every row once (units
 // of one key overlap by their dilation, which L1/L2 absorb); it writes one
@@ -37,6 +42,7 @@
 //
 // Every exported function launches on the given stream, allocates nothing
 // and returns cudaGetLastError().
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -50,7 +56,12 @@ constexpr int SD_WARPS = SD_THREADS / 32;
 constexpr int SD_MAX_ROWS = 16;
 constexpr unsigned FULL = 0xffffffffu;
 
-enum Dtype { DT_F32 = 0, DT_I32 = 1, DT_U8 = 2 };
+// Row dtype codes, as the wrapper's _DTYPES: integer types of one width
+// share a code (their bits are their value).
+enum Dtype {
+  DT_F32 = 0, DT_I32 = 1, DT_U8 = 2, DT_F16 = 3, DT_BF16 = 4, DT_F64 = 5,
+  DT_I64 = 6, DT_I16 = 7
+};
 
 // One row as the wrapper packs it: 3 int64 words (pointer to key 0, tick
 // 0; elements between keys; dtype code).
@@ -64,30 +75,87 @@ struct Rows {
   Row r[SD_MAX_ROWS];
 };
 
+// How a stored element becomes the value compared: itself, or a 16-bit
+// float widened (exactly) to f32.
+template <typename Raw>
+struct AsIs {
+  static __device__ __forceinline__ Raw get(Raw r) { return r; }
+};
+struct F16 {
+  static __device__ __forceinline__ float get(uint16_t r) {
+    return __half2float(__ushort_as_half(r));
+  }
+};
+struct BF16 {
+  static __device__ __forceinline__ float get(uint16_t r) {
+    return __uint_as_float((unsigned)r << 16);
+  }
+};
+
 // Does any of ticks [t0, t0 + n) differ from the tick before it?  t0 >= 1.
-template <int ITEMS, typename V, typename Vec>
-__device__ __forceinline__ int row_changes(const V* p, long long t0, int n) {
-  V prev = p[t0 - 1];
+// Vec is one aligned load of sizeof(Vec) / sizeof(Raw) ticks (4, or 2 for
+// 8-byte types); ITEMS is a multiple of that.
+template <int ITEMS, typename Raw, typename Vec, typename Get>
+__device__ __forceinline__ int row_changes(const Raw* p, long long t0,
+                                           int n) {
+  constexpr int VT = sizeof(Vec) / sizeof(Raw);
+  auto prev = Get::get(p[t0 - 1]);
   int d = 0;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(p + t0);
-  if (n == ITEMS && addr % sizeof(Vec) == 0) {  // Vec: 4 ticks
+  if (n == ITEMS && addr % sizeof(Vec) == 0) {
 #pragma unroll
-    for (int c = 0; c < ITEMS / 4; ++c) {
+    for (int c = 0; c < ITEMS / VT; ++c) {
       const Vec w = reinterpret_cast<const Vec*>(p + t0)[c];
-      V v[4];
+      Raw v[VT];
       memcpy(v, &w, sizeof(Vec));
-      d |= (v[0] != prev) | (v[1] != v[0]) | (v[2] != v[1]) |
-           (v[3] != v[2]);
-      prev = v[3];
+#pragma unroll
+      for (int j = 0; j < VT; ++j) {
+        const auto cur = Get::get(v[j]);
+        d |= cur != prev;
+        prev = cur;
+      }
     }
     return d;
   }
   for (int i = 0; i < n; ++i) {
-    const V cur = p[t0 + i];
+    const auto cur = Get::get(p[t0 + i]);
     d |= cur != prev;
     prev = cur;
   }
   return d;
+}
+
+// One row's ticks [t0, t0 + n) of key `key`, by the row's dtype code.
+template <int ITEMS>
+__device__ __forceinline__ int row_dirty(const Row& row, long long key,
+                                         long long t0, int n) {
+  const long long off = key * row.kstride;
+  switch (row.dtype) {
+    case DT_F32:
+      return row_changes<ITEMS, float, float4, AsIs<float>>(
+          static_cast<const float*>(row.ptr) + off, t0, n);
+    case DT_I32:
+      return row_changes<ITEMS, int32_t, int4, AsIs<int32_t>>(
+          static_cast<const int32_t*>(row.ptr) + off, t0, n);
+    case DT_U8:
+      return row_changes<ITEMS, uint8_t, uint32_t, AsIs<uint8_t>>(
+          static_cast<const uint8_t*>(row.ptr) + off, t0, n);
+    case DT_F16:
+      return row_changes<ITEMS, uint16_t, uint2, F16>(
+          static_cast<const uint16_t*>(row.ptr) + off, t0, n);
+    case DT_BF16:
+      return row_changes<ITEMS, uint16_t, uint2, BF16>(
+          static_cast<const uint16_t*>(row.ptr) + off, t0, n);
+    case DT_F64:
+      return row_changes<ITEMS, double, double2, AsIs<double>>(
+          static_cast<const double*>(row.ptr) + off, t0, n);
+    case DT_I64:
+      return row_changes<ITEMS, long long, longlong2, AsIs<long long>>(
+          static_cast<const long long*>(row.ptr) + off, t0, n);
+    default:  // DT_I16
+      return row_changes<ITEMS, uint16_t, uint2, AsIs<uint16_t>>(
+          static_cast<const uint16_t*>(row.ptr) + off, t0, n);
+  }
 }
 
 // GROUP threads own one unit: 32 (a warp) or SD_THREADS (the block).  A
@@ -119,19 +187,8 @@ seg_dirty_kernel(Rows rows, int n_rows, long long n_units, int n_segs,
       const int n = (int)min((long long)ITEMS, t_last - t0 + 1);
       // every row's loads go out before any compare waits on them
 #pragma unroll 2
-      for (int i = 0; i < n_rows; ++i) {
-        const Row& row = rows.r[i];
-        const long long off = key * row.kstride;
-        if (row.dtype == DT_F32)
-          d |= row_changes<ITEMS, float, float4>(
-              static_cast<const float*>(row.ptr) + off, t0, n);
-        else if (row.dtype == DT_I32)
-          d |= row_changes<ITEMS, int32_t, int4>(
-              static_cast<const int32_t*>(row.ptr) + off, t0, n);
-        else
-          d |= row_changes<ITEMS, uint8_t, uint32_t>(
-              static_cast<const uint8_t*>(row.ptr) + off, t0, n);
-      }
+      for (int i = 0; i < n_rows; ++i)
+        d |= row_dirty<ITEMS>(rows.r[i], key, t0, n);
     }
     dirty = GROUP == 32 ? __any_sync(FULL, d) : __syncthreads_or(d);
     if (dirty) break;

@@ -46,8 +46,12 @@ __all__ = ["grid_mats", "seg_dirty", "seg_dirty_plan", "pack_rows",
 
 launches = {"seg_dirty": 0}
 
-# kernel dtype codes: value compare for f32/int32, byte compare for bool
-_DTYPES = {torch.float32: 0, torch.int32: 1, torch.bool: 2}
+# kernel dtype codes (csrc/sparse_compact.cu, enum Dtype): floats compare
+# as values (f16/bf16 widened to f32 in registers), integers and bool by
+# their bits, one code per integer width
+_DTYPES = {torch.float32: 0, torch.int32: 1, torch.bool: 2, torch.uint8: 2,
+           torch.int8: 2, torch.float16: 3, torch.bfloat16: 4,
+           torch.float64: 5, torch.int64: 6, torch.int16: 7}
 
 # as in csrc/sparse_compact.cu (checked against the library at first use)
 LONG_UNIT = 256       # units wider than this many ticks get a block each
@@ -124,8 +128,9 @@ def seg_dirty(mats, geoms, n_segs: int) -> torch.Tensor:
     static ``(a0, step, width)`` lineage triples
     (:func:`repro_torch.core.plan.seg_range_affine`).  On CUDA the matrices
     sharing one triple and one ``T`` (one source) go to one launch (per
-    ``MAX_ROWS`` rows); the kernel takes f32, int32 and bool matrices and
-    raises on other dtypes.
+    ``MAX_ROWS`` rows); the kernel reads every dtype a grid carries (f32,
+    f16, bf16, f64, int64, int32, int16, int8, uint8, bool) in place and
+    raises ``TypeError`` on any other.
     """
     first = mats[0]
     if not first.is_cuda and all(x.device.type == "cpu" for x in mats):

@@ -343,7 +343,40 @@ def test_cuda_seg_dirty_edges(cuda):
     assert one.shape == (n_segs,) and one.cpu().tolist() == [
         False, False, True, False]
     with pytest.raises(TypeError):
-        sc.seg_dirty([a.double().to(cuda)], geoms[:1], n_segs)
+        sc.seg_dirty([a.to(torch.complex64).to(cuda)], geoms[:1], n_segs)
+
+
+_GRID_DTYPES = [torch.float32, torch.float16, torch.bfloat16, torch.float64,
+                torch.int64, torch.int32, torch.int16, torch.int8,
+                torch.uint8, torch.bool]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _GRID_DTYPES)
+@pytest.mark.parametrize("T,width,step,n_segs", [(300, 64, 32, 8),
+                                                 (3200, 577, 512, 6)])
+def test_cuda_seg_dirty_every_dtype(cuda, dtype, T, width, step, n_segs):
+    """Every dtype a grid carries, read in place, against the plain
+    version: warp units and block units, aligned rows and a row one element
+    off its vector grid, and for floats NaN (a change) and -0.0 (none)."""
+    # about one change per unit's width in a row, so some units stay clean
+    x = torch.from_numpy(_pw_rows((3, 2, T), T + n_segs,
+                                  rate=0.25 / width))
+    if dtype.is_floating_point:
+        x = x.to(dtype)
+        x[0, 0, 40:60] = -0.0
+        x[1, 1, T // 2:T // 2 + 3] = float("nan")
+    elif dtype == torch.int64:
+        x = x.to(dtype) + (1 << 40)       # beyond f32's exact integers
+        x[2, 0, T // 3] += 1
+    else:
+        x = (x > 25) if dtype == torch.bool else x.to(dtype)
+    geoms = [(-3, step, width)]
+    for mat in (x, x[..., 1:]):            # a view off the vector grid
+        got = sc.seg_dirty([mat.to(cuda)], geoms, n_segs)
+        want = ref.seg_dirty_fused_ref([mat], geoms, n_segs)
+        assert torch.equal(got.cpu(), want), dtype
+        assert want.any() and not want.all()
 
 
 @pytest.mark.cuda
@@ -549,3 +582,134 @@ def test_cuda_sparse_run_matches_partition_run(cuda):
     want = par.partition_run(exe, g, 0, 128)
     assert torch.equal(got.valid, want.valid)
     assert torch.equal(got.value[got.valid], want.value[want.valid])
+
+
+# ---------------------------------------------------------------------------
+# the union runner and late-data revision on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keyed", [False, True])
+def test_cuda_union_session_dense_sparse_and_cpu(cuda, keyed):
+    """Eight dashboard queries in one session: sparse ≡ dense bit for bit
+    on the card, both through ``seg_dirty`` (sparse) and the window kernels,
+    and within f32 rounding of the CPU."""
+    from repro_torch.multiquery import MultiQuerySession
+    n_keys, span, n_chunks = 32, 256, 5
+    qs = apps.dashboard_queries(8, keyed=keyed)
+    vals = (streams.keyed_activity(n_keys, span * n_chunks, 0.1, 3) if keyed
+            else streams.burst_stream(span * n_chunks, 0.05, 3))
+    ok = np.ones(vals.shape, bool)
+    outs = {}
+    for dev, sparse in ((cuda, False), (cuda, True), ("cpu", False)):
+        sess = MultiQuerySession(span, n_keys=n_keys if keyed else None,
+                                 sparse=sparse)
+        for name, q in qs.items():
+            sess.attach(name, q)
+        n0 = (sc.launches["seg_dirty"], wr.launches["sliding_assoc"])
+        outs[(str(dev), sparse)] = sess.run(
+            {"in": keyed_grid(vals, ok, device=dev)}, n_chunks)
+        if dev != "cpu":
+            assert wr.launches["sliding_assoc"] > n0[1]
+            assert (sc.launches["seg_dirty"] - n0[0]
+                    == (n_chunks if sparse else 0))
+    for name in qs:
+        d, s = outs[("cuda", False)][name], outs[("cuda", True)][name]
+        c = outs[("cpu", False)][name]
+        assert torch.equal(d.valid, s.valid)
+        assert torch.equal(d.value[d.valid], s.value[s.valid])
+        both = c.valid & d.valid.cpu()
+        assert float((c.value[both] - d.value.cpu()[both]).abs().max()) \
+            <= 1e-2
+        assert (c.valid != d.valid.cpu()).float().mean() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keyed", [False, True])
+def test_cuda_soe_session_matches_block_session(cuda, keyed):
+    """A ``sum_algo="soe"`` session takes its window sums through
+    ``prefix_scan``, the block one through ``sliding_assoc``; on integer
+    prices in [0, 16) both sums are exact, so the two are bit for bit on
+    the card, dense and sparse, and so are the CPU's mean-only heads; its
+    stddev heads agree within 1e-4."""
+    from repro_torch.multiquery import MultiQuerySession
+    n_keys, span, n_chunks = 32, 256, 4
+    qs = apps.dashboard_queries(8, keyed=keyed)
+    rng = np.random.default_rng(11)
+    shape = (n_keys, span * n_chunks) if keyed else (span * n_chunks,)
+    vals = np.floor(rng.random(shape) * 16).astype(np.float32)
+    ok = np.ones(shape, bool)
+    outs = {}
+    for dev, sparse, algo in ((cuda, False, "block"), (cuda, False, "soe"),
+                              (cuda, True, "soe"), ("cpu", False, "soe")):
+        sess = MultiQuerySession(span, n_keys=n_keys if keyed else None,
+                                 sparse=sparse, sum_algo=algo)
+        for name, q in qs.items():
+            sess.attach(name, q)
+        n0 = wr.launches["prefix_scan"]
+        outs[(str(dev), sparse, algo)] = sess.run(
+            {"in": keyed_grid(vals, ok, device=dev)}, n_chunks)
+        if dev != "cpu":
+            assert (wr.launches["prefix_scan"] > n0) == (algo == "soe")
+    for name in qs:
+        want = outs[("cuda", False, "block")][name]
+        wm, wv = want.valid.cpu(), want.value.cpu()
+        for k in (("cuda", False, "soe"), ("cuda", True, "soe"),
+                  ("cpu", False, "soe")):
+            got = outs[k][name]
+            gm, gv = got.valid.cpu(), got.value.cpu()
+            if k[0] == "cuda" or int(name[1:]) % 4 < 2:
+                assert torch.equal(gm, wm), k
+                assert torch.equal(gv[gm], wv[wm]), k
+                continue
+            # the stddev heads' sqrt and divisions on the CPU round an
+            # ulp apart from the card's
+            both = gm & wm
+            assert float((gv[both] - wv[both]).abs().max()) <= 1e-4, k
+            assert (wv[gm != wm].abs() <= 1e-4).all(), k
+
+
+@pytest.mark.cuda
+def test_cuda_revision_reads_nothing_from_the_card(cuda):
+    """A runner with its revision ring on makes the same one host read per
+    sparse chunk as without it, and ``revise`` makes none: the mask is
+    host data and reaches the card by an asynchronous copy."""
+    from repro_torch.core.sparse import retro_segment_mask
+    segs, span = 4, 256
+    vals = streams.burst_stream(4 * span, 0.05, 2)
+    chunks = [{"in": keyed_grid(vals[c * span:(c + 1) * span],
+                                np.ones(span, bool), t0=c * span)}
+              for c in range(4)]
+    _, r = _fraud_runners(False, 1, segs)
+    r.enable_revision(4)
+    r.step(chunks[0])
+    r.step(chunks[1])
+    assert _count_syncs(lambda: r.step(chunks[2])) == 1
+    r.step(chunks[3])
+    cp = r.spec.change_plan
+    sp = cp.specs["in"]
+    t_patch = 2 * span + 6          # tick 5 of chunk 2
+    masks = [retro_segment_mask(sp.lookback, sp.lookahead, sp.prec,
+                                c * span, cp.out_prec, cp.out_len, segs,
+                                [t_patch]) for c in (2, 3)]
+    patched = [{"in": g["in"].replace(value=g["in"].value.clone())}
+               for g in chunks[2:]]
+    patched[0]["in"].value[5] += 1.0
+    res = []
+    assert _count_syncs(lambda: res.extend(r.revise(2, patched, masks))) \
+        == 0
+    snap = r.metrics.snapshot()["counters"]
+    assert snap["runner.revision_units"]["value"] == sum(
+        int(m.sum()) for m in masks)
+    # the dirty segments equal a from-scratch sparse run on patched data
+    _, fresh = _fraud_runners(False, 1, segs)
+    full = np.concatenate([vals[:2 * span],
+                           patched[0]["in"].value.cpu().numpy(),
+                           vals[3 * span:]])
+    want = fresh.run({"in": keyed_grid(full, np.ones(full.shape, bool))}, 4)
+    for i, c in enumerate((2, 3)):
+        tick = torch.from_numpy(np.repeat(masks[i], span // segs)).to(cuda)
+        sl = slice(c * span, (c + 1) * span)
+        gm = res[i].valid[tick]
+        assert torch.equal(gm, want.valid[sl][tick])
+        assert torch.equal(res[i].value[tick][gm], want.value[sl][tick][gm])

@@ -112,8 +112,10 @@ def test_seg_dirty_plan(n_units, width, group, blocks):
     assert blocks * per_block >= n_units and blocks <= MAX_GRID
 
 
-@pytest.mark.parametrize("dtype,code", [(torch.float32, 0), (torch.int32, 1),
-                                        (torch.bool, 2)])
+@pytest.mark.parametrize("dtype,code", [
+    (torch.float32, 0), (torch.int32, 1), (torch.bool, 2), (torch.uint8, 2),
+    (torch.int8, 2), (torch.float16, 3), (torch.bfloat16, 4),
+    (torch.float64, 5), (torch.int64, 6), (torch.int16, 7)])
 def test_pack_rows_encodes_pointer_stride_and_dtype(dtype, code):
     """One int64 row (address of key 0 of the channel at tick 0, elements
     between keys, dtype code) per channel: the kernel's Row layout."""
@@ -127,6 +129,26 @@ def test_pack_rows_encodes_pointer_stride_and_dtype(dtype, code):
         assert table[c, 0] == base.data_ptr() + (1 + c) * 40 * es
         assert table[c, 1] == 3 * 40
         assert table[c, 2] == code
+
+
+def test_dtype_codes_match_the_kernel_enum():
+    """The wrapper's dtype codes are the .cu's ``enum Dtype``, and integer
+    dtypes of one width share a code (compared by their bits)."""
+    text = (CSRC / "sparse_compact.cu").read_text()
+    body = re.search(r"enum Dtype \{(.*?)\};", text, re.S).group(1)
+    enum = {n: int(v) for n, v in re.findall(r"(DT_\w+) = (\d+)", body)}
+    names = {torch.float32: "DT_F32", torch.int32: "DT_I32",
+             torch.bool: "DT_U8", torch.uint8: "DT_U8", torch.int8: "DT_U8",
+             torch.float16: "DT_F16", torch.bfloat16: "DT_BF16",
+             torch.float64: "DT_F64", torch.int64: "DT_I64",
+             torch.int16: "DT_I16"}
+    assert set(sc._DTYPES) == set(names)
+    for dt, name in names.items():
+        assert sc._DTYPES[dt] == enum[name], dt
+    for dt, code in sc._DTYPES.items():
+        same = [d for d, c in sc._DTYPES.items() if c == code]
+        assert len({torch.empty(0, dtype=d).element_size()
+                    for d in same}) == 1, same
 
 
 def test_pack_rows_keeps_the_matrices_order():

@@ -16,6 +16,7 @@ from repro_torch import convert
 from repro_torch.core import stream
 from repro_torch.data import apps, streams
 from repro_torch.engine import keyed_grid
+from repro_torch.ingest import IngestRunner, ReorderBuffer
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -55,6 +56,17 @@ def test_sources_import_neither_jax_nor_the_reference(path):
     assert not _FORBIDDEN.search(text), path
 
 
+def _ingest_runner(**kw):
+    """An IngestRunner over a sparse runner: its reorder buffers build the
+    sealed grids, so it takes the device."""
+    from repro_torch.core import compile as qc
+    from repro_torch.engine import ExecPolicy, Runner
+    exe = qc.compile_query(streams.fraud_query(16).node, out_len=32,
+                           sparse=True)
+    return IngestRunner(Runner(exe, ExecPolicy(body="sparse")), lateness=4,
+                        **kw)
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -71,7 +83,12 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch):
                  lambda **kw: streams.keyed_activity_grids(4, 16, 0.5, 0,
                                                            **kw),
                  lambda **kw: keyed_grid(np.zeros((2, 8), np.float32),
-                                         np.ones((2, 8), bool), **kw)):
+                                         np.ones((2, 8), bool), **kw),
+                 lambda **kw: ReorderBuffer(prec=1, chunk_ticks=8, **kw),
+                 lambda **kw: _ingest_runner(**kw),
+                 lambda **kw: convert.state_from_numpy(
+                     {"in": (np.zeros(4), np.ones(4, bool)), "__t": 0},
+                     **kw)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
         assert call(device="cpu") is not None
@@ -113,4 +130,27 @@ def test_runner_and_sparse_run_follow_their_inputs_device(monkeypatch):
     s = sparse.sparse_run(qc.compile_query(q, out_len=32, sparse=True),
                           grids, 0, 8)
     assert s.valid.device.type == "cpu"
+    assert sparse_compact.launches["seg_dirty"] == n0
+
+
+def test_ingest_and_sessions_follow_their_inputs_device(monkeypatch):
+    """Sealed chunks are born on the device the ingest runner was given; a
+    union session and a revision run where their chunks are."""
+    from repro_torch.core.stream import Event
+    from repro_torch.multiquery import MultiQuerySession
+    from repro_torch.kernels import sparse_compact
+    _no_cuda(monkeypatch)
+    n0 = sparse_compact.launches["seg_dirty"]
+    ing = _ingest_runner(device="cpu")
+    for t in range(0, 96, 4):
+        ing.push("in", Event(t, t + 4, float(t % 7)))
+    ing.push("in", Event(2, 3, 9.0))             # late: a revision
+    sealed, corr = ing.flush()
+    assert sealed and all(s.outputs.valid.device.type == "cpu"
+                          for s in sealed)
+    sess = MultiQuerySession(32, sparse=True)
+    for name, q in apps.dashboard_queries(4, short=4, long=8).items():
+        sess.attach(name, q)
+    out = sess.run(streams.burst_grids(64, 0.1, 0, device="cpu"), 2)
+    assert all(g.valid.device.type == "cpu" for g in out.values())
     assert sparse_compact.launches["seg_dirty"] == n0

@@ -30,7 +30,8 @@ from repro_torch.core.frontend import TStream
 from repro_torch.core.parallel import (SparseStreamRunner, StreamRunner,
                                        partition_run)
 from repro_torch.data import apps
-from repro_torch.engine import ExecPolicy, KeyedEngine, Runner, keyed_grid
+from repro_torch.engine import (ExecPolicy, KeyedEngine, Runner, keyed_grid,
+                                wrap_keyed_step)
 
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 
@@ -365,22 +366,32 @@ def test_policy_values_describe_and_out_of_scope_axes():
         ExecPolicy(placement="cloud")
     with pytest.raises(NotImplementedError, match="A14"):
         ExecPolicy(placement="mesh")
-    with pytest.raises(NotImplementedError, match="A11"):
-        ExecPolicy(dag="union")
     p = ExecPolicy(body="sparse", keys="vmapped")
     assert p.sparse and p.keyed and not p.union
+    assert ExecPolicy(dag="union").union       # ported: ROADMAP A11
     for body in ("dense", "sparse"):
         for keys in ("single", "vmapped"):
-            assert (ExecPolicy(body=body, keys=keys).describe()
-                    == RPolicy(body=body, keys=keys).describe())
+            for dag in ("solo", "union"):
+                assert (ExecPolicy(body=body, keys=keys, dag=dag).describe()
+                        == RPolicy(body=body, keys=keys,
+                                   dag=dag).describe())
     r = Runner(_exe(), ExecPolicy())
-    for call, item in ((r.enable_revision, "A12"), (r.revise, "A12"),
-                       (r.staged_steps, "A13"), (r.chunk_fn, "A13"),
+    # late-data revision is ported (ROADMAP A12): enabling it raises only
+    # on a bad horizon, and revise() only before it is enabled
+    with pytest.raises(ValueError, match="revision disabled"):
+        r.revise(0, [], [])
+    r.enable_revision(2)
+    assert r.revision_horizon == 2
+    for call, item in ((r.staged_steps, "A13"), (r.chunk_fn, "A13"),
                        (r.aot_keys, "A13"), (r.audit_example_chunks, "A15")):
         with pytest.raises(NotImplementedError, match=item):
             call()
     with pytest.raises(NotImplementedError, match="A14"):
         KeyedEngine(_exe(True), n_keys=4, mesh=object())
+    with pytest.raises(NotImplementedError, match="A14"):
+        wrap_keyed_step(lambda t, c: (t, c), mesh=object())
+    step = lambda t, c: (t, c)  # noqa: E731
+    assert wrap_keyed_step(step) is step
 
 
 def test_runner_validation():

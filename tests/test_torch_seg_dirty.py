@@ -8,7 +8,9 @@ geometries × {f32, int32}, NaN and several matrices of mixed dtypes), a
 leading key axis (the runner's ``(K, C, T)`` matrices), the value
 comparison's edges (NaN is always a change, -0.0 equals 0.0), and
 ``grid_mats``, which keeps leaves in place instead of stacking them per
-dtype but must give the reference's flags.
+dtype but must give the reference's flags, and every dtype a grid can carry
+(the kernel reads each in place on the card: ``tests/test_torch_cuda.py``
+holds it to this plain version per dtype).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -134,3 +136,57 @@ def test_plain_version_is_what_the_wrapper_runs_on_the_cpu():
     assert torch.equal(sc.seg_dirty([x], geoms, 4),
                        ref.seg_dirty_fused_ref([x], geoms, 4))
     assert sc.launches["seg_dirty"] == 0    # no kernel on the CPU
+
+
+# every dtype a grid can carry: the reference's oracle where jax holds the
+# dtype without x64 (f16, bf16, int16, int8, uint8), and a numpy oracle of
+# the value comparison for f64 and int64 (jax without x64 would narrow them)
+_JAX_DTYPES = [(torch.float16, jnp.float16), (torch.bfloat16, jnp.bfloat16),
+               (torch.int16, jnp.int16), (torch.int8, jnp.int8),
+               (torch.uint8, jnp.uint8)]
+
+
+@pytest.mark.parametrize("tdt,jdt", _JAX_DTYPES)
+@pytest.mark.parametrize("T,C,n_segs,a0,step,width", SEG_DIRTY_GEOMS[:4])
+def test_plain_seg_dirty_every_dtype_matches_reference(T, C, n_segs, a0,
+                                                       step, width, tdt,
+                                                       jdt):
+    x = _pw_rows(C, T, T * 7 + n_segs)
+    geoms = [(a0, step, width)]
+    got = sc.seg_dirty([torch.from_numpy(x).to(tdt)], geoms, n_segs)
+    want = np.asarray(rref.seg_dirty_fused_ref([jnp.asarray(x, jdt)], geoms,
+                                               n_segs))
+    assert np.array_equal(got.numpy(), want)
+
+
+def _numpy_seg_dirty(x, geom, n_segs):
+    a0, step, width = geom
+    T = x.shape[-1]
+    d = (x[..., 1:] != x[..., :-1]).any(axis=-2)       # d[t-1]: tick t
+    out = np.zeros(x.shape[:-2] + (n_segs,), bool)
+    for k in range(n_segs):
+        lo, hi = max(a0 + k * step, 1), min(a0 + k * step + width, T)
+        if hi > lo:
+            out[..., k] = d[..., lo - 1:hi - 1].any(axis=-1)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int64])
+def test_plain_seg_dirty_wide_dtypes(dtype):
+    """f64 and int64 compare as themselves: int64 values 2**40 + 1 and
+    2**40 differ (they would not after a cast through f32), f64 NaN is a
+    change and -0.0 is not."""
+    T, n_segs, geom = 128, 4, (0, 32, 32)
+    x = np.zeros((2, 1, T))
+    if dtype == torch.int64:
+        x = np.full((2, 1, T), 2 ** 40, np.int64)
+        x[0, 0, 50] += 1                  # one tick of 2**40 + 1
+    else:
+        x[0, 0, 10:20] = -0.0
+        x[0, 0, 50] = np.nan
+    x[1, 0, 100:] = 3
+    got = sc.seg_dirty([torch.from_numpy(x).to(dtype)], [geom], n_segs)
+    want = _numpy_seg_dirty(x, geom, n_segs)
+    assert np.array_equal(got.numpy(), want)
+    assert want[0].tolist() == [False, True, False, False]
+    assert want[1].tolist() == [False, False, False, True]
