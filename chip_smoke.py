@@ -48,10 +48,21 @@ Phases (each raises on failure; the script then exits non-zero):
    given (from the runner's own ``runner.*`` metrics, or the ``sparse.*``
    counters of the one-shot path), except where every unit is dirty by
    design, where every chunk must have picked the full-capacity bucket.
-   In phases 3-9 the launch counts are set to 0 just before each timed
+   In phases 3-10 the launch counts are set to 0 just before each timed
    main-path call and read just after it; the warm-up call before it and
    the ``torch.profiler`` run after it (one partition, batch or chunk:
-   device busy time, idle share, top kernels) are outside.
+   device busy time, idle share, top kernels) are outside.  From phase 5
+   on every chunk is a replay of a captured CUDA graph (the sparse one
+   picks its bucket on the device); a replay adds the launches its capture
+   recorded, so the windows count the same launches as eager steps did.
+   Each timed runner, session and ingestion runner has its steps captured
+   ahead in a window of its own (``serve.aot_capture``, as a served runner
+   is prepared), so its timed run excludes the first use of each step.
+   A steady chunk of every runner and session cell must make no
+   synchronizing call (PyTorch's sync debug mode).  For each sparse
+   runner and session one replay of its switched graph, then its parts
+   one by one, are profiled (``replay_check``), to see whether the
+   profiler's busy time holds the kernels of the conditional body.
 8. Multi-query sharing: the 16 ``dashboard_queries`` in one
    ``MultiQuerySession`` — unkeyed over ``dashboard_input``'s 2**24 ticks
    in 256 chunks of 65536 (dense), keyed over ``dashboard_keyed_input``'s
@@ -76,12 +87,25 @@ Phases (each raises on failure; the script then exits non-zero):
    with a 3-chunk horizon; then keyed, 64 keys x 8192 ticks.  After
    ``flush()`` the sealed outputs with every correction laid over them
    must equal an in-order ``Runner`` over the same events bit for bit.
-10. One JSON line with every kernel's launches on the main path (the sum
-   of the windows of phases 3-9), its error against its plain version, its
+10. Serving (``repro_torch.serve``), the steady state of every cell under
+   PyTorch's sync debug mode set to raise and with no graph captured after
+   warm-up: ``fig_latency``'s fraud query at per-call batches 1, 10, 100
+   and 1000 ticks (p50 and p99 per blocked call); cold and warm first
+   result, two fresh processes (``chip_smoke.py --first-result DIR``) over
+   one empty cache directory; keyed fraud served at phase 6's width
+   (16384 keys, sparse, 1% and 100% active), equal to ``Runner.run`` bit
+   for bit; the event path over phase 9's setup through the admission
+   ring, sealed chunks plus corrections equal to in-order execution.
+   Each cell's ``sliding_assoc`` shapes and ``seg_dirty`` geometries,
+   recorded from the wrappers while the service warms up (and captures
+   every step), are held against their plain versions; the served
+   latency results against the same requests served on the CPU.
+11. One JSON line with every kernel's launches on the main path (the sum
+   of the windows of phases 3-10), its error against its plain version, its
    times and its bound.  ``fused_trend`` has no caller on any path (nor in
    the reference), so its launches are 0; phase 2 holds it against its
    plain version.
-11. The last line: ``{"ok": true, "device": {...}}``.
+12. The last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 before printing any result.
 """
@@ -117,6 +141,9 @@ MQ_STD_TOL = 1e-4   # every head, card against CPU, on integer prices
 OOO_SEG, OOO_SPC, OOO_TICKS = 128, 8, 1 << 17             # phase 9
 OOO_POLL = 256
 OOO_KEYS, OOO_KEY_TICKS = 64, 8192
+SERVE_BATCHES = (1, 10, 100, 1000)                       # phase 10
+SERVE_EVENTS, SERVE_WARMUP, SERVE_WINDOW = 1_000_000, 2, 16
+FIRST_RESULT_BATCH = 100
 
 
 def log(*a):
@@ -751,25 +778,78 @@ def wrapper_host_parts(dev, mats, geoms, n_segs: int) -> dict:
     return out
 
 
-def record_sliding_shapes(fn) -> list:
-    """``[R, T, W, op, calls]`` of every ``sliding_assoc`` shape the
-    wrapper sees while ``fn()`` runs (its module attribute is swapped for a
-    recorder, so every caller through ``ops`` is seen)."""
+def record_shapes(fn) -> dict:
+    """Every ``sliding_assoc`` shape (``[R, T, W, op, calls]``) and every
+    ``seg_dirty`` geometry (``[[(shape, dtype) of each row matrix],
+    geoms, n_segs, calls]``) the wrappers see while ``fn()`` runs (their
+    module attributes are swapped for recorders, so every caller is
+    seen, a step being warmed up before its capture among them)."""
+    from repro_torch.kernels import sparse_compact as sc
     from repro_torch.kernels import window_reduce as wr
-    seen: dict = {}
-    orig = wr.sliding_assoc
+    slid, segs = {}, {}
+    orig_s, orig_d = wr.sliding_assoc, sc.seg_dirty
 
-    def recorder(x, window, op):
+    def sliding(x, window, op):
         key = (*x.shape, int(window), op)
-        seen[key] = seen.get(key, 0) + 1
-        return orig(x, window, op)
+        slid[key] = slid.get(key, 0) + 1
+        return orig_s(x, window, op)
 
-    wr.sliding_assoc = recorder
+    def seg_dirty(mats, geoms, n_segs):
+        key = (tuple((tuple(m.shape), m.dtype) for m in mats),
+               tuple(tuple(int(v) for v in g) for g in geoms), int(n_segs))
+        segs[key] = segs.get(key, 0) + 1
+        return orig_d(mats, geoms, n_segs)
+
+    wr.sliding_assoc, sc.seg_dirty = sliding, seg_dirty
     try:
         fn()
     finally:
-        wr.sliding_assoc = orig
-    return [[*k, n] for k, n in seen.items()]
+        wr.sliding_assoc, sc.seg_dirty = orig_s, orig_d
+    return {"sliding_assoc": [[*k, n] for k, n in slid.items()],
+            "seg_dirty": [[*k, n] for k, n in segs.items()]}
+
+
+def _changes(shape, dtype, gen):
+    """Piecewise-constant rows of ``shape``: about 2% of ticks change."""
+    import torch
+    steps = (torch.rand(shape, generator=gen) < 0.02).cumsum(-1)
+    if dtype == torch.bool:
+        return (steps % 2).bool()
+    return (steps % 3).to(dtype)
+
+
+def hold_shapes(dev, errs: dict, label: str, shapes: dict) -> None:
+    """Hold both change-path kernels at shapes recorded by
+    :func:`record_shapes` against their plain versions on the card:
+    ``sliding_assoc`` on N(100, 5) rows (sums within a few ulps of a
+    float64 sum, max/min exact), ``seg_dirty`` on piecewise-constant rows
+    of the recorded dtypes (exact)."""
+    import torch
+    from repro_torch.kernels import ref, sparse_compact as sc
+    from repro_torch.kernels import window_reduce as wr
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    for R, T, W, op, _calls in shapes["sliding_assoc"]:
+        x = (torch.randn(R, T, generator=gen) * 5 + 100).to(dev)
+        combine, ident, _ = wr.COMBINES[op]
+        got = wr.sliding_assoc(x, W, op)
+        plain = ref.sliding_assoc_block_ref(x, W, combine, ident)
+        what = f"sliding_assoc {label} ({R},{T}) W={W} {op}"
+        if op == "add":
+            e = sum_check(what, got, plain, ref.sliding_assoc_block_ref(
+                x.double(), W, torch.add, 0.0))
+        else:
+            e = exact_check(what, got, plain)
+        errs["sliding_assoc"] = max(errs["sliding_assoc"], e)
+    for mats, geoms, n_segs, _calls in shapes["seg_dirty"]:
+        rows = [_changes(shape, dtype, gen).to(dev) for shape, dtype in mats]
+        got = sc.seg_dirty(rows, list(geoms), n_segs)
+        want = ref.seg_dirty_fused_ref(rows, list(geoms), n_segs)
+        if not torch.equal(got, want):
+            raise AssertionError(f"seg_dirty {label} {geoms}: kernel != "
+                                 "plain")
+    log(f"{label}: sliding_assoc at {len(shapes['sliding_assoc'])} shapes "
+        f"and seg_dirty at {len(shapes['seg_dirty'])} geometries recorded "
+        "on the served path agree with their plain versions")
 
 
 def time_runner_shapes(dev, errs: dict, rows: dict, runners: dict):
@@ -862,8 +942,12 @@ def reset_launch_counts() -> None:
 def drive(main_launches: dict, fn):
     """One call on the main path: every launch count is set to 0 just
     before it and read just after, once the card has finished, and added
-    to ``main_launches``.  Returns the call's result and seconds."""
+    to ``main_launches``.  Returns the call's result and seconds.  Garbage
+    left by earlier calls (runners of finished cells, which hold graphs
+    and their memory pools) is collected first, outside the window."""
+    import gc
     import torch
+    gc.collect()
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -893,9 +977,7 @@ def device_profile(fn, wall_s: float) -> dict:
         if e.device_type != DeviceType.CUDA:
             continue
         spans.append((e.time_range.start, e.time_range.end))
-        short = e.name.replace("(anonymous namespace)::", "")
-        short = short.removeprefix("void ").split("<")[0].split("(")[0]
-        short = short.split("::")[-1].strip()[:40]
+        short = _kernel_name(e.name)
         per_kernel[short] = (per_kernel.get(short, 0.0)
                              + e.time_range.elapsed_us() / 1e3)
     if not spans:
@@ -911,6 +993,106 @@ def device_profile(fn, wall_s: float) -> dict:
     return {"device_ms": busy_ms,
             "idle_share": max(0.0, 1.0 - busy_ms / (wall_s * 1e3)),
             "top": [[k, v] for k, v in top], "per_kernel": per_kernel}
+
+
+def _kernel_name(raw: str) -> str:
+    """A device event's kernel name without its namespace, template and
+    parameters; a mangled name (``_Z...``, as CUPTI may report a kernel
+    inside a conditional graph body) is cut to its innermost
+    identifier."""
+    if raw.startswith("_Z"):
+        i, parts = (3 if raw.startswith("_ZN") else 2), []
+        while i < len(raw) and raw[i].isdigit():
+            j = i
+            while j < len(raw) and raw[j].isdigit():
+                j += 1
+            n = int(raw[i:j])
+            parts.append(raw[j:j + n])
+            i = j + n
+        if parts:
+            return parts[-1][:40]
+    short = raw.replace("(anonymous namespace)::", "")
+    short = short.removeprefix("void ").split("<")[0].split("(")[0]
+    return short.split("::")[-1].strip()[:40]
+
+
+def _replay_profile(fn) -> dict:
+    """One replay ``fn()`` timed two ways at once: ``torch.profiler``'s
+    busy time (union of the device events it reports), their count and
+    the kernels it names, and the CUDA-event span around it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+    spans, named = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        k = _kernel_name(e.name)
+        named[k] = named.get(k, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy, end = 0.0, -float("inf")
+    for lo, hi in sorted(spans):
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return {"busy_ms": busy / 1e3, "event_ms": a.elapsed_time(b),
+            "device_events": len(spans),
+            "sliding_ms": sum(v for k, v in named.items()
+                              if k.startswith("sliding")),
+            "top": sorted(([k, v] for k, v in named.items()),
+                          key=lambda kv: -kv[1])[:6]}
+
+
+def replay_check(runner) -> dict:
+    """Whether ``torch.profiler`` sees the kernels of a switched sparse
+    graph's conditional body.  One steady replay of the whole switched
+    graph (prefix, the picked body inside a conditional node, suffix; no
+    copy in or out), then its three parts replayed one by one as plain
+    graphs on the same buffers (the body the count picks); each profiled
+    and spanned by CUDA events (:func:`_replay_profile`).  If the whole
+    replay shows fewer device events than its parts (plus its one bucket
+    pick), the profiler dropped the body's kernels and a step's busy time
+    lacks them.  The runner is left mid-stream (its buffers are replayed
+    as they are): use one no longer needed."""
+    g = runner._work.graphs[("sparse", False)]
+    prefix, bodies, suffix, count, caps = g._parts
+    for _ in range(2):
+        g.replay()
+    whole = _replay_profile(g.replay)
+    pre = _replay_profile(prefix.replay)
+    n, ladder = int(count.item()), caps.tolist()
+    pick = next((i for i, c in enumerate(ladder) if c >= n),
+                len(ladder) - 1)
+    parts = {"prefix": pre, "body": _replay_profile(bodies[pick].replay),
+             "suffix": _replay_profile(suffix.replay)}
+    busy = sum(p["busy_ms"] for p in parts.values())
+    events = sum(p["device_events"] for p in parts.values())
+    return {"whole": whole, "parts": parts, "count": n,
+            "capacity": ladder[pick], "parts_busy_ms": busy,
+            "parts_events": events,
+            "parts_event_ms": sum(p["event_ms"] for p in parts.values()),
+            "body_dropped": whole["device_events"] < events + 1}
+
+
+def _replay_text(r: dict) -> str:
+    w, b = r["whole"], r["parts"]["body"]
+    return (f"switched replay: profiler busy {w['busy_ms']:.4f} ms over "
+            f"{w['device_events']} device events, CUDA-event span "
+            f"{w['event_ms']:.4f} ms, sliding {w['sliding_ms']:.4f} ms; its "
+            f"parts one by one (capacity {r['capacity']} for count "
+            f"{r['count']}): busy {r['parts_busy_ms']:.4f} ms over "
+            f"{r['parts_events']} events, spans {r['parts_event_ms']:.4f} "
+            f"ms; body alone {b['busy_ms']:.4f} ms over {b['device_events']} "
+            f"events, sliding {b['sliding_ms']:.4f} ms; body kernels dropped "
+            f"by the profiler: {r['body_dropped']}")
 
 
 def _profile_text(p: dict) -> str:
@@ -1063,6 +1245,7 @@ def run_runner(dev, main_launches: dict, label: str, query, grids: dict,
     runner on the CPU."""
     from repro_torch.core import compile as qc
     from repro_torch.engine import ExecPolicy, Runner
+    from repro_torch.serve import aot_capture
     keys = "vmapped" if n_keys > 1 else "single"
     kw = dict(n_keys=n_keys if n_keys > 1 else None, segs_per_chunk=spc)
     span = seg * spc
@@ -1072,10 +1255,13 @@ def run_runner(dev, main_launches: dict, label: str, query, grids: dict,
         exe = qc.compile_query(query, out_len=seg, sparse=body == "sparse")
         policy = ExecPolicy(body=body, keys=keys)
         # first use of every step; the kernel shapes of its two chunks
-        shapes = record_sliding_shapes(
-            lambda: Runner(exe, policy, **kw).run(grids, 2))
+        shapes = record_shapes(
+            lambda: Runner(exe, policy, **kw).run(grids, 2))["sliding_assoc"]
         r = Runner(exe, policy, **kw)
         launches = {}
+        # every step captured ahead, as a served runner's is: the timed run
+        # excludes the first use of each step (its launches still count)
+        drive(launches, lambda: aot_capture(r, chunks=_chunk(grids, 0, span)))
         res[body], dt = drive(launches,
                               lambda: r.run(grids, n_chunks))
         for k, n in launches.items():
@@ -1086,6 +1272,11 @@ def run_runner(dev, main_launches: dict, label: str, query, grids: dict,
         rp.step(_chunk(grids, 1, span))
         prof = device_profile(lambda: rp.step(_chunk(grids, 2, span)),
                               dt / n_chunks)
+        syncs = count_syncs(lambda: rp.step(_chunk(grids, 3, span)))
+        if syncs:
+            raise AssertionError(f"runner {label} {body}: a steady chunk "
+                                 f"made {syncs} synchronizing calls")
+        replay = replay_check(rp) if body == "sparse" else None
         cpu_kw = dict(kw, n_keys=CMP_KEYS) if n_keys > 1 else kw
         cpu = Runner(exe, policy, **cpu_kw).run(cpu_grids, CMP_CHUNKS)
         n_cmp = CMP_CHUNKS * span
@@ -1093,9 +1284,10 @@ def run_runner(dev, main_launches: dict, label: str, query, grids: dict,
                                    else 0), cpu)
         row = dict(stats, events_per_s=events / dt, seconds=dt,
                    ms_per_chunk=dt / n_chunks * 1e3, profile=prof,
+                   host_reads_per_chunk=syncs,
                    launches_per_chunk={k: n / n_chunks
                                        for k, n in launches.items()},
-                   chunks=n_chunks, metrics=snap,
+                   chunks=n_chunks, metrics=snap, replay=replay,
                    sliding_shapes_per_chunk=[[*k[:4], k[4] / 2]
                                              for k in shapes])
         if body == "sparse":
@@ -1108,12 +1300,14 @@ def run_runner(dev, main_launches: dict, label: str, query, grids: dict,
                  if body == "sparse" else "")
         log(f"runner {label} {body:6s}: {events / dt:.4g} events/s, "
             f"{dt / n_chunks * 1e3:.3f} ms per chunk{dirty}; launches per "
-            f"chunk: {per}; vs cpu max diff {stats['max_abs_diff']:.3g}, "
-            f"{stats['flips']} gate flips")
+            f"chunk: {per}; host reads per steady chunk {syncs}; vs cpu max "
+            f"diff {stats['max_abs_diff']:.3g}, {stats['flips']} gate flips")
         slid = sum(v for k, v in prof["per_kernel"].items()
                    if k.startswith("sliding"))
         log(f"  one chunk: {_profile_text(prof)}; sliding_assoc kernels "
             f"{slid:.4f} ms")
+        if replay is not None:
+            log(f"  {_replay_text(replay)}")
     if not _same_bits(res["dense"], res["sparse"]):
         raise AssertionError(f"runner {label}: sparse != dense")
     log(f"runner {label}: sparse output equals dense output bit for bit")
@@ -1422,6 +1616,7 @@ def run_session(dev, main_launches: dict, label: str, vals: np.ndarray,
     session().run(grids, 2)                      # first use of every shape
     sess = session()
     launches = {}
+    drive(launches, lambda: sess.prepare(_chunk(grids, 0, span)))
     res, dt = drive(launches, lambda: sess.run(grids, n_chunks))
     for k, n in launches.items():
         main_launches[k] = main_launches.get(k, 0) + n
@@ -1434,6 +1629,12 @@ def run_session(dev, main_launches: dict, label: str, vals: np.ndarray,
     prof = device_profile(lambda: rp.step(_chunk(grids, 2, span)),
                           dt / n_chunks)
     syncs = count_syncs(lambda: rp.step(_chunk(grids, 3, span)))
+    if syncs:
+        raise AssertionError(f"session {label}: a steady chunk made {syncs} "
+                             "synchronizing calls")
+    if sparse:
+        replay = replay_check(rp.runner)
+        prof["replay"] = replay
     events = MQ_QUERIES * n_keys * span * n_chunks
     row = dict(events_per_s=events / dt, seconds=dt,
                ms_per_chunk=dt / n_chunks * 1e3, profile=prof,
@@ -1484,6 +1685,8 @@ def run_session(dev, main_launches: dict, label: str, vals: np.ndarray,
         f"walk); all heads max diff {row['int_vs_cpu_max_diff']:.3g} "
         f"(integer prices)")
     log(f"  one chunk: {_profile_text(prof)}")
+    if sparse:
+        log(f"  {_replay_text(prof['replay'])}")
     return row, res, ints
 
 
@@ -1574,10 +1777,13 @@ def run_ingest_cell(dev, main_launches: dict, label: str, exe, vals,
     """One phase-9 cell: the arrivals into an ``IngestRunner`` with the
     ``revise`` policy, polled every ``OOO_POLL`` events; after ``flush()``
     the sealed outputs with every correction applied must equal an in-order
-    ``Runner`` over the same events, bit for bit on the card."""
+    ``Runner`` over the same events, bit for bit on the card.  The cell
+    runs again on a fresh runner under ``torch.profiler`` for its device
+    busy time and idle share."""
     import torch
     from repro_torch.engine import ExecPolicy, Runner
     from repro_torch.ingest import IngestRunner
+    from repro_torch.serve import aot_capture
     keyed = n_keys > 1
     chunk = OOO_SEG * OOO_SPC
     horizon = -(-(2 * chunk + chunk) // chunk)
@@ -1588,11 +1794,14 @@ def run_ingest_cell(dev, main_launches: dict, label: str, exe, vals,
                       n_keys=n_keys if keyed else None,
                       segs_per_chunk=OOO_SPC)
 
-    r = runner()
-    ing = IngestRunner(r, lateness=lateness, policy="revise",
-                       horizon_chunks=horizon, device=dev)
+    def ingest_runner(launches):
+        r = runner()
+        ing = IngestRunner(r, lateness=lateness, policy="revise",
+                           horizon_chunks=horizon, device=dev)
+        drive(launches, lambda: aot_capture(r, chunks=r.example_chunks(dev)))
+        return r, ing
 
-    def go():
+    def go(ing):
         sealed, corrections = [], []
         for i, (key, ev) in enumerate(arrivals):
             ing.push("in", ev, key=key)
@@ -1603,7 +1812,8 @@ def run_ingest_cell(dev, main_launches: dict, label: str, exe, vals,
         s, c = ing.flush()
         return sealed + s, corrections + c
 
-    (sealed, corrections), dt = drive(main_launches, go)
+    r, ing = ingest_runner(main_launches)
+    (sealed, corrections), dt = drive(main_launches, lambda: go(ing))
     got_v, got_m = _overlay(sealed, corrections)
     full = {"in": _grid(vals.astype(np.float32), dev)}
     want = runner().run(full, vals.shape[-1] // chunk)
@@ -1619,9 +1829,13 @@ def run_ingest_cell(dev, main_launches: dict, label: str, exe, vals,
         "ingest.sealed_chunks", "ingest.corrections",
         "runner.revision_runs", "runner.revision_chunks",
         "runner.revision_units", "runner.dirty_units", "runner.units")}
+    _, ing_p = ingest_runner({})
+    prof = device_profile(lambda: go(ing_p), dt)
     row.update(events=n_events, seconds=dt, events_per_s=n_events / dt,
+               ms_per_sealed_chunk=dt / len(sealed) * 1e3, profile=prof,
                horizon_chunks=horizon, lateness=lateness)
-    log(f"ingest {label}: {n_events / dt:.4g} events/s ({dt:.2f} s); "
+    log(f"ingest {label}: {n_events / dt:.4g} events/s ({dt:.2f} s, "
+        f"{dt / len(sealed) * 1e3:.3f} ms per sealed chunk); "
         f"late {row['late_events']}, revised {row['revised_events']}, "
         f"revision runs {row['revision_runs']}, chunks "
         f"{row['revision_chunks']}, units {row['revision_units']}, "
@@ -1630,6 +1844,7 @@ def run_ingest_cell(dev, main_launches: dict, label: str, exe, vals,
         f"{row['sealed_chunks']} chunks, dirty units {row['dirty_units']}/"
         f"{row['units']}: sealed + corrections equal in-order execution bit "
         "for bit")
+    log(f"  the whole cell: {_profile_text(prof)}")
     return row
 
 
@@ -1669,6 +1884,297 @@ def run_ingest(dev, main_launches: dict) -> dict:
             "lateness 16", exe, vals, [(k, ev) for _a, k, ev in tagged],
             16, OOO_KEYS)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: serving
+# ---------------------------------------------------------------------------
+
+def _serve_fraud(win: int = SERVE_WINDOW):
+    """``benchmarks/fig_latency.py``'s served query: trailing mean and
+    stddev, a threshold, the excess where it is positive."""
+    from repro_torch.core.frontend import TStream
+    s = TStream.source("in", prec=1)
+    mu = s.window(win).mean().shift(1)
+    sd = s.window(win).stddev().shift(1)
+    thr = mu.join(sd, lambda m, d: m + 3.0 * d)
+    return s.join(thr, lambda x, t: x - t).where(lambda e: e > 0)
+
+
+def _host_requests(vals: np.ndarray, n: int):
+    """Host numpy request grids of ``n`` ticks from ``vals`` (``(T,)`` or
+    ``(K, T)``): the serving loop's only input."""
+    from repro_torch.core.stream import SnapshotGrid
+    for c in range(vals.shape[-1] // n):
+        v = np.ascontiguousarray(vals[..., c * n:(c + 1) * n])
+        yield {"in": SnapshotGrid(value=v, valid=np.ones(v.shape, bool),
+                                  t0=c * n, prec=1)}
+
+
+def _steady(svc, gen, calls: int):
+    """``calls`` blocked results of the serving generator ``gen``, each
+    timed on the host clock, all under PyTorch's sync debug mode set to
+    raise on a synchronizing call; fails if a CUDA graph is captured
+    meanwhile."""
+    import torch
+    tracer = svc.runner.metrics.tracer
+    before = tracer.captures()
+    dts, outs = np.empty(calls), []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for j in range(calls):
+            t0 = time.perf_counter()
+            outs.append(next(gen))
+            dts[j] = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    late = {k: n - before.get(k, 0) for k, n in tracer.captures().items()
+            if n != before.get(k, 0)}
+    if late:
+        raise AssertionError(f"CUDA graphs captured in the steady state: "
+                             f"{late}")
+    return dts, outs
+
+
+def _joined(outs: list):
+    """One grid of a served run's per-call results, along time."""
+    import torch
+    return outs[0].replace(value=torch.cat([o.value for o in outs], -1),
+                           valid=torch.cat([o.valid for o in outs], -1))
+
+
+def serve_latency(dev, main_launches: dict, errs: dict, tmp: str) -> dict:
+    """``fig_latency``'s sweep: the served fraud query (sparse body) at
+    per-call batches 1, 10, 100 and 1000 ticks, p50 and p99 of the host
+    time per blocked call over its number of calls (warm-up calls
+    dropped).  The kernel shapes each batch's steps launch (recorded while
+    the service warms up, which captures every step) are held against
+    their plain versions, and every served result against the same
+    requests served on the CPU (``tolerance``'s fraud limits: the stddev's
+    sqrt and divisions may differ by an ulp between card and CPU)."""
+    from repro_torch.serve import build_service
+    out = {}
+    for batch in SERVE_BATCHES:
+        calls = int(np.clip(SERVE_EVENTS // (batch * 200), 10, 200))
+        box = {}
+        shapes = record_shapes(lambda: box.update(svc=build_service(
+            _serve_fraud(), out_len=batch, segs_per_chunk=1,
+            cache_dir=f"{tmp}/b{batch}")))
+        svc = box["svc"]
+        hold_shapes(dev, errs, f"serve fraud batch {batch}", shapes)
+        vals = np.random.default_rng(5).integers(
+            0, 100, batch * (calls + SERVE_WARMUP)).astype(np.float32)
+        gen = svc.serve(_host_requests(vals, batch))
+        served = [next(gen) for _ in range(SERVE_WARMUP)]
+        (dts, rest), dt = drive(main_launches,
+                                lambda: _steady(svc, gen, calls))
+        served += rest
+        cpu = build_service(_serve_fraud(), out_len=batch, segs_per_chunk=1,
+                            device="cpu")
+        want = [cpu.step(r) for r in _host_requests(vals, batch)]
+        stats = compare("fraud", _joined(served), _joined(want))
+        p50, p99 = np.percentile(dts, (50, 99))
+        out[f"batch_{batch}"] = {
+            "batch": batch, "calls": calls, "p50_ms": p50 * 1e3,
+            "p99_ms": p99 * 1e3, "events_per_s_p50": batch / p50,
+            "captures": svc.runner.metrics.tracer.captures(),
+            "vs_cpu": stats,
+            "held_shapes": {k: len(v) for k, v in shapes.items()}}
+        log(f"serve fraud batch {batch:4d}: p50 {p50 * 1e3:.4f} ms, p99 "
+            f"{p99 * 1e3:.4f} ms per call over {calls} calls "
+            f"({batch / p50:.4g} events/s at p50); steady state: no "
+            f"synchronizing call, no capture; {len(served)} results vs cpu "
+            f"max diff {stats['max_abs_diff']:.3g}, {stats['flips']} gate "
+            "flips")
+    return out
+
+
+def first_result_main(cache_dir: str) -> int:
+    """``--first-result DIR``: one fresh process building the served fraud
+    query over ``DIR`` and serving one request; prints the time from
+    construction to the first blocked result and the plan's source."""
+    t_start = time.perf_counter()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    from repro_torch.serve import build_service
+    t0 = time.perf_counter()
+    svc = build_service(_serve_fraud(), out_len=FIRST_RESULT_BATCH,
+                        segs_per_chunk=1, cache_dir=cache_dir)
+    vals = np.random.default_rng(5).integers(
+        0, 100, FIRST_RESULT_BATCH).astype(np.float32)
+    next(svc.serve(_host_requests(vals, FIRST_RESULT_BATCH)))
+    t1 = time.perf_counter()
+    print(json.dumps({"first_result_s": t1 - t0,
+                      "since_start_s": t1 - t_start,
+                      "plan": svc.plan_source,
+                      "captures": sum(svc.runner.metrics.tracer
+                                      .captures().values())}))
+    return 0
+
+
+def serve_first_result(tmp: str) -> dict:
+    """Cold and warm first result: two fresh subprocesses over one empty
+    cache directory, one after the other."""
+    out = {}
+    for want in ("cold", "warm"):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                              "--first-result", f"{tmp}/first"],
+                             capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"first-result process: {res.stderr}")
+        doc = json.loads(res.stdout.strip().splitlines()[-1])
+        if doc["plan"] != want:
+            raise AssertionError(f"expected a {want} start, got {doc}")
+        doc["process_s"] = wall
+        out[want] = doc
+        log(f"serve first result {want}: {doc['first_result_s']:.3f} s from "
+            f"construction ({doc['since_start_s']:.3f} s from the start of "
+            f"the process, {wall:.3f} s with the interpreter), "
+            f"plan={doc['plan']}, {doc['captures']} graphs captured")
+    return out
+
+
+def serve_keyed(dev, main_launches: dict, errs: dict) -> dict:
+    """Keyed fraud served at phase 6's full width (16384 keys, 64-tick
+    segments, 2 per chunk), sparse at 1% and 100% of the keys active: the
+    steady state makes no synchronizing call, and the served outputs equal
+    ``Runner.run`` on the same chunks bit for bit."""
+    import torch
+    from repro_torch.core import compile as qc
+    from repro_torch.data import streams
+    from repro_torch.engine import ExecPolicy, Runner
+    from repro_torch.serve import build_service
+    span, T = RK_SEG * RK_SPC, RK_SEG * RK_SPC * RK_CHUNKS
+    q = streams.fraud_query(FRAUD_WINDOW, keyed=True)
+    policy = ExecPolicy(body="sparse", keys="vmapped")
+    out = {}
+    for rate in (0.01, 1.0):
+        vals = streams.keyed_activity(RK_KEYS, T, rate, 0)
+        box = {}
+        shapes = record_shapes(lambda: box.update(svc=build_service(
+            q, out_len=RK_SEG, policy=policy, n_keys=RK_KEYS,
+            segs_per_chunk=RK_SPC)))
+        svc = box["svc"]
+        hold_shapes(dev, errs, f"serve keyed fraud {rate:.0%}", shapes)
+        gen = svc.serve(_host_requests(vals, span))
+        served = [next(gen) for _ in range(SERVE_WARMUP)]
+        (dts, rest), dt = drive(main_launches, lambda: _steady(
+            svc, gen, RK_CHUNKS - SERVE_WARMUP))
+        served += rest
+        want = Runner(qc.compile_query(q.node, out_len=RK_SEG, sparse=True),
+                      policy, n_keys=RK_KEYS, segs_per_chunk=RK_SPC).run(
+            {"in": _grid(vals, dev)}, RK_CHUNKS)
+        got = want.replace(value=torch.cat([o.value for o in served], -1),
+                           valid=torch.cat([o.valid for o in served], -1))
+        if not _same_bits(got, want):
+            raise AssertionError(f"served keyed fraud at {rate:.0%} != "
+                                 "Runner.run")
+        st = svc.runner.dirty_stats()
+        p50, p99 = np.percentile(dts, (50, 99))
+        out[f"rate_{rate:g}"] = {"p50_ms": p50 * 1e3, "p99_ms": p99 * 1e3,
+                                 "events_per_s_p50": RK_KEYS * span / p50,
+                                 "dirty_fraction": st["compact"]}
+        log(f"serve keyed fraud {RK_KEYS} keys, {rate:.0%} active: p50 "
+            f"{p50 * 1e3:.4f} ms, p99 {p99 * 1e3:.4f} ms per chunk "
+            f"({RK_KEYS * span / p50:.4g} events/s at p50), dirty fraction "
+            f"{st['compact']:.4f}; no synchronizing call, no capture in the "
+            "steady state; equal to Runner.run bit for bit")
+    return out
+
+
+def serve_events(dev, main_launches: dict, errs: dict) -> dict:
+    """The event path over phase 9's ``fig_ooo`` setup (late 0.1,
+    lateness 16, 3-chunk horizon, revise): every event offered to the
+    admission ring, pumped every ``OOO_POLL`` events, sealed and revised
+    chunks staged to the card by the loop; sealed outputs with the
+    corrections laid over them equal in-order execution bit for bit, and
+    no graph is captured after the loop warmed up."""
+    import torch
+    from repro_torch.core import compile as qc
+    from repro_torch.core.frontend import TStream
+    from repro_torch.data import streams
+    from repro_torch.engine import ExecPolicy, Runner
+    from repro_torch.serve import build_service
+    s = TStream.source("in", prec=1)
+    q = s.window(32).mean().join(s.window(64).mean(), lambda a, b: a - b)
+    vals = streams.burst_stream(OOO_TICKS, 0.05, 5)
+    arr = ooo_arrivals(vals, 0.1, 16, np.random.default_rng(17))
+    box = {}
+
+    def prepare():
+        svc = box["svc"] = build_service(q, out_len=OOO_SEG,
+                                         segs_per_chunk=OOO_SPC)
+        svc.attach_events(lateness=16, policy="revise",
+                          capacity=2 * OOO_POLL, horizon_chunks=3)
+        svc.warm()           # the revision buckets, ahead of the first
+
+    shapes = record_shapes(prepare)
+    svc = box["svc"]
+    hold_shapes(dev, errs, "serve events", shapes)
+    tracer = svc.runner.metrics.tracer
+    before = tracer.captures()
+
+    def go():
+        sealed, corrections = [], []
+        for i, (_key, ev) in enumerate(arr):
+            if not svc.offer("in", ev):
+                raise AssertionError("the admission ring shed an event")
+            if i % OOO_POLL == OOO_POLL - 1:
+                s_, c_ = svc.pump()
+                sealed += s_
+                corrections += c_
+        s_, c_ = svc.finish()
+        return sealed + s_, corrections + c_
+
+    (sealed, corrections), dt = drive(main_launches, go)
+    if tracer.captures() != before:
+        raise AssertionError("a graph was captured on the event path")
+    got_v, got_m = _overlay(sealed, corrections)
+    chunk = OOO_SEG * OOO_SPC
+    want = Runner(qc.compile_query(q.node, out_len=OOO_SEG, sparse=True),
+                  ExecPolicy(body="sparse"), segs_per_chunk=OOO_SPC).run(
+        {"in": _grid(vals, dev)}, OOO_TICKS // chunk)
+    if not (torch.equal(got_m, want.valid)
+            and torch.equal(got_v[got_m], want.value[want.valid])):
+        raise AssertionError("served events: sealed + corrections != "
+                             "in-order execution")
+    c = svc.runner.metrics.snapshot()
+    row = {"events": len(arr), "seconds": dt,
+           "events_per_s": len(arr) / dt,
+           "corrections": len(corrections), "sealed": len(sealed),
+           "admitted": c["counters"]["serve.admitted"]["value"],
+           "admit_to_result_p50_s": _quantile(
+               svc, "serve.admit_to_result_seconds", 0.5)}
+    log(f"serve events (late 0.1, lateness 16): {row['events_per_s']:.4g} "
+        f"events/s ({dt:.2f} s), {len(sealed)} sealed chunks, "
+        f"{len(corrections)} corrections, admission to sealed result p50 "
+        f"{row['admit_to_result_p50_s']}; sealed + corrections equal "
+        "in-order execution bit for bit; no capture after warm-up")
+    return row
+
+
+def _quantile(svc, name: str, q: float):
+    from repro_torch.obs import Histogram
+    h = svc.runner.metrics.get(name)
+    return h.quantile(q) if isinstance(h, Histogram) else None
+
+
+def run_serving(dev, main_launches: dict, errs: dict) -> dict:
+    """Phase 10: latency per call, cold and warm first result, keyed
+    serving at full width, the event path; each cell's kernel shapes held
+    against their plain versions."""
+    import tempfile
+    (ROOT / "out").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "out") as tmp:
+        return {"latency": serve_latency(dev, main_launches, errs, tmp),
+                "first_result": serve_first_result(tmp),
+                "keyed": serve_keyed(dev, main_launches, errs),
+                "events": serve_events(dev, main_launches, errs)}
 
 
 # ---------------------------------------------------------------------------
@@ -1722,16 +2228,19 @@ def main() -> int:
     session_launches, ingest_launches = {}, {}
     sessions = run_sessions(dev, session_launches)
     ingest = run_ingest(dev, ingest_launches)
+    serve_launches = {}
+    serving = run_serving(dev, serve_launches, errs)
     windows = {"partition_run": single, "batch_run": keyed_launches,
                "runner": runner_launches, "sparse_run": one_shot_launches,
-               "session": session_launches, "ingest": ingest_launches}
+               "session": session_launches, "ingest": ingest_launches,
+               "serve": serve_launches}
     launches = {k: sum(w.get(k, 0) for w in windows.values())
                 for k in KERNELS}
     for k in ("seg_dirty",):
         if not (runner_launches.get(k, 0) and one_shot_launches.get(k, 0)):
             raise AssertionError(f"{k} was never launched on the sparse "
                                  "runner or sparse_run path")
-    for w in ("session", "ingest"):
+    for w in ("session", "ingest", "serve"):
         for k in ("sliding_assoc", "seg_dirty"):
             if not windows[w].get(k, 0):
                 raise AssertionError(f"{k} was never launched in the {w} "
@@ -1745,7 +2254,7 @@ def main() -> int:
     Path("out").mkdir(exist_ok=True)
     detail = {"card": card, "apps": apps, "keyed": keyed,
               "runner": runners, "sparse_run": one_shot,
-              "session": sessions, "ingest": ingest,
+              "session": sessions, "ingest": ingest, "serve": serving,
               "kernels": {f"{k}/{lab}": v for (k, lab), v in rows.items()},
               "launches": dict(windows, total=launches)}
     Path("out/chip_smoke.json").write_text(json.dumps(detail,
@@ -1769,4 +2278,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--first-result":
+        sys.exit(first_result_main(sys.argv[2]))
     sys.exit(main())

@@ -37,7 +37,8 @@ from ..device import resolve
 from ..kernels import ops as kops
 from ..kernels import ref as kref
 
-__all__ = ["InputSpec", "CompiledQuery", "compile_query", "eval_op"]
+__all__ = ["InputSpec", "CompiledQuery", "compile_planned", "compile_query",
+           "eval_op"]
 
 
 def _const_dtype(c) -> torch.dtype:
@@ -215,6 +216,7 @@ class CompiledQuery:
     fn: Callable[[Dict[str, tuple]], tuple]
     _node_fns: list  # [(name, evaluator, arg node ids, node)]
     change_plan: Optional[ChangePlan] = None
+    sum_algo: str = "block"
 
     @property
     def out_len(self) -> int:
@@ -264,6 +266,17 @@ def compile_query(root: ir.Node, out_len: int, *, opt: bool = True,
         root = fusion.optimize(root)
     ir.validate(root)
     qp = plan_query(root, out_len)
+    return compile_planned(root, qp, sum_algo=sum_algo,
+                           change_plan=plan_change(qp) if sparse else None)
+
+
+def compile_planned(root: ir.Node, qp: QueryPlan, *, sum_algo: str = "block",
+                    change_plan: Optional[ChangePlan] = None
+                    ) -> CompiledQuery:
+    """The evaluator of an already optimized and planned query: what
+    :func:`compile_query` returns, without running the planner (a warm
+    serving start rebuilds ``qp`` from a persisted plan artifact, see
+    :mod:`repro_torch.serve.loop`)."""
 
     def eval_node(n: ir.Node, env_vals, memo, dev):
         if id(n) in memo:
@@ -283,4 +296,4 @@ def compile_query(root: ir.Node, out_len: int, *, opt: bool = True,
                  tuple(id(a) for a in n.args), n)
                 for n in ir.topo_order(root)]
     return CompiledQuery(root=root, plan=qp, fn=fn, _node_fns=node_fns,
-                         change_plan=plan_change(qp) if sparse else None)
+                         change_plan=change_plan, sum_algo=sum_algo)

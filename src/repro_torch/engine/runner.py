@@ -1,11 +1,10 @@
 """One chunked runner for the local execution policies (body × keys); port
 of ``repro.engine.runner``.
 
-:class:`Runner` concatenates carried halo tails with the fresh chunk,
-evaluates the planned partition body over the chunk's segments, slices new
-tails off the buffer, advances a stream clock and checkpoints it all,
-under an :class:`repro_torch.engine.policy.ExecPolicy` at
-``placement="local"``.
+:class:`Runner` evaluates the planned partition body over a chunk's
+segments with the carried halo tails in front of it, moves the new tails
+to the front, advances a stream clock and checkpoints it all, under an
+:class:`repro_torch.engine.policy.ExecPolicy` at ``placement="local"``.
 
 Execution model (one ``step`` = one chunk):
 
@@ -27,17 +26,28 @@ Execution model (one ``step`` = one chunk):
   query; the merged :class:`~repro_torch.core.plan.ChangePlan` of the union
   is the per-input union of the per-query dilations, so the sparse body
   composes with multi-query sharing.
-* Late data: with :meth:`Runner.enable_revision` the runner keeps the
-  carried tails of its last chunks, and :meth:`Runner.revise` re-runs
-  sealed chunks on patched inputs, computing only the segments the late
-  change can reach (the compacted body, never a dense replay).
+* Late data: with :meth:`Runner.enable_revision` the runner keeps copies
+  of the carried tails of its last chunks, and :meth:`Runner.revise`
+  re-runs sealed chunks on patched inputs, computing only the segments the
+  late change can reach (the compacted body, never a dense replay).
 
-The sparse body reads the chunk's dirty-unit count once (4 bytes,
-device→host) to pick the compaction bucket on the host — the port's one
-synchronizing call per sparse chunk; everything else a steady-state chunk
-does, the telemetry included, stays on the device.  State is not donated:
-each chunk makes new tensors for the carried state, and :meth:`state` /
-:meth:`restore` copy out and in.
+State lives in place.  A runner steps in buffers allocated once per
+geometry and chunk layout (:class:`_Work`): per input one buffer holds the
+carried tail followed by the chunk, so a chunk is copied in and nothing is
+concatenated; the sparse change state, the hold seeds and the device
+metric accumulators sit beside it.  A step writes its new state into these
+buffers at its end (after everything that can raise), which is what the
+reference's donated state does.  :meth:`state` and :meth:`restore` copy
+out of and into them.
+
+On a CUDA device every step is a captured CUDA graph
+(:mod:`repro_torch.engine.capture`): the first use of each (variant,
+bucket) key warms the step up on a side stream, captures it over the
+static buffers and keeps the graph; every later chunk copies its grids
+into the buffers and replays.  The sparse step picks its compaction
+bucket on the device (the count never leaves the card), so a steady chunk
+issues no synchronizing call and no per-op dispatch.  On the CPU the same
+step functions run eagerly, and the sparse body reads its count there.
 
 State pytree (the *only* cross-chunk state, host-roundtrippable through
 :meth:`Runner.state` / :meth:`Runner.restore` with one validation path)::
@@ -54,29 +64,35 @@ Time is the last axis of every tensor: a tail is ``(K, left_halo)`` (value
 leaves may carry channel axes between the key axis and time).
 
 Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-item: AOT serving (A13), the static-audit surface (A15); mesh placement is
-refused by :class:`ExecPolicy` (A14).
+item: the static-audit surface (A15); mesh placement is refused by
+:class:`ExecPolicy` (A14).
 """
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
+import functools
+import math
 import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.utils._pytree import tree_leaves, tree_map
+from torch.utils._pytree import (tree_flatten, tree_leaves, tree_map,
+                                 tree_unflatten)
 
 from ..core import ir
 from ..core import sparse as sparse_mod
-from ..core.plan import ChangePlan, InputSpec, seg_range_affine
+from ..core.plan import ChangePlan, InputSpec, QueryPlan, seg_range_affine
 from ..core.stream import SnapshotGrid
+from ..device import resolve
 from ..kernels import sparse_compact
 from ..obs import Metrics, log_buckets
+from . import capture
 from .policy import ExecPolicy
 
-__all__ = ["BodySpec", "Runner", "body_spec_of"]
+__all__ = ["BodySpec", "Runner", "ShapeDtype", "body_spec_of"]
 
 _tm = tree_map
 
@@ -94,7 +110,9 @@ class BodySpec:
 
     ``step_cache`` holds the built chunk steps, keyed by execution
     geometry and device — share it across Runner instances over the same
-    compiled query so fresh runners reuse them.
+    compiled query so fresh runners reuse them.  ``plan`` and ``sum_algo``
+    (solo bodies) are what a persisted plan artifact records
+    (:func:`repro_torch.serve.plan_artifact_of`).
     """
 
     input_specs: Dict[str, InputSpec]
@@ -106,6 +124,8 @@ class BodySpec:
     root: Optional[ir.Node] = None
     solo: bool = True
     step_cache: dict = dataclasses.field(default_factory=dict)
+    plan: Optional[QueryPlan] = None
+    sum_algo: str = "block"
 
     @property
     def span(self) -> int:
@@ -126,16 +146,30 @@ def body_spec_of(exe) -> BodySpec:
         out_prec=exe.out_prec, outs_fn=outs_fn,
         out_precs={"__out": exe.out_prec},
         change_plan=exe.change_plan, root=exe.root, solo=True,
-        step_cache=exe.__dict__.setdefault("_runner_step_cache", {}))
+        step_cache=exe.__dict__.setdefault("_runner_step_cache", {}),
+        plan=exe.plan, sum_algo=exe.sum_algo)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeDtype:
+    """Shape and dtype name of one hold-seed leaf: what a persisted seed
+    spec records (plain data, so a plan store can hold it)."""
+
+    shape: tuple
+    dtype: str
+
+    @classmethod
+    def of(cls, x: torch.Tensor) -> "ShapeDtype":
+        return cls(tuple(x.shape), str(x.dtype).removeprefix("torch."))
+
+    def zeros(self, device) -> torch.Tensor:
+        return torch.zeros(self.shape, dtype=getattr(torch, self.dtype),
+                           device=device)
 
 
 def _bc(mask, x):
     """Broadcast a leading-axes mask over the trailing dims of ``x``."""
     return mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim()))
-
-
-def _cat(a, b):
-    return torch.cat([a, b], dim=-1)
 
 
 def _windows(x: torch.Tensor, length: int, core: int) -> torch.Tensor:
@@ -153,6 +187,227 @@ def _ticks(x: torch.Tensor, n_segs: int) -> torch.Tensor:
 def _any_rows(neq: torch.Tensor) -> torch.Tensor:
     """OR a ``(K, ..., n)`` flag tensor over its channel axes → ``(K, n)``."""
     return neq.reshape(neq.shape[0], -1, neq.shape[-1]).any(dim=1)
+
+
+def _copy_tree(dst, src) -> None:
+    for d, s in zip(tree_leaves(dst), tree_leaves(src)):
+        d.copy_(s)
+
+
+def _zero_tree(dst) -> None:
+    for d in tree_leaves(dst):
+        d.zero_()
+
+
+def _pack(tree):
+    """Every tensor of ``tree`` copied into one flat tensor per dtype, and
+    the layout to take them apart again (:func:`_unpack`): a captured step
+    returns its outputs this way, so one copy per dtype hands a replay's
+    results to the caller.  The copy also keeps the outputs apart from the
+    buffers the step moves afterwards."""
+    leaves, spec = tree_flatten(tree)
+    groups: Dict[torch.dtype, list] = {}
+    layout = []
+    for x in leaves:
+        g = groups.setdefault(x.dtype, [])
+        layout.append((x.dtype, sum(t.numel() for t in g), tuple(x.shape)))
+        g.append(x.reshape(-1))
+    flats = {dt: (torch.cat(g) if len(g) > 1 else g[0].clone())
+             for dt, g in groups.items()}
+    return flats, (spec, layout)
+
+
+def _unpack(flats, packing):
+    spec, layout = packing
+    return tree_unflatten(
+        [flats[dt][o:o + math.prod(shape)].view(shape)
+         for dt, o, shape in layout], spec)
+
+
+def _units(specs, n_segs: int, bufs, ids=None):
+    """Unit windows of every input, units on the leading axis: all ``U``
+    units (``ids=None``, unit ``u = key·n_segs + segment``) or the ones
+    named by ``ids``."""
+    out = {}
+    for name, (fv, fm) in bufs.items():
+        L, core = specs[name].length, specs[name].core
+        if ids is None:
+            def take(x, L=L, core=core):
+                w = _windows(x, L, core)
+                return w.reshape((-1,) + w.shape[2:])
+        else:
+            k_ids, s_ids = ids // n_segs, ids % n_segs
+
+            def take(x, L=L, core=core, k_ids=k_ids, s_ids=s_ids):
+                return _windows(x, L, core)[k_ids, s_ids]
+        out[name] = (_tm(take, fv), take(fm))
+    return out
+
+
+def _per_key(full, K: int, n_segs: int):
+    """``(U, ..., S)`` unit outputs → ``(K, ..., n_segs·S)`` grids."""
+    return {o: (_tm(lambda x: _ticks(x.reshape((K, n_segs) + x.shape[1:]),
+                                     n_segs), fv),
+                fm.reshape(K, -1))
+            for o, (fv, fm) in full.items()}
+
+
+def _hold(full_outs, seg_dirty, seeds, ar, K: int, n_segs: int):
+    """Hold fill: clean units take the last tick of the nearest
+    preceding dirty segment of the same key, or the key's carried hold
+    seed; dirty units keep their computed results."""
+    prev_d = torch.cummax(torch.where(seg_dirty, ar[None, :], -1),
+                          dim=1).values
+    src = torch.clamp(prev_d, 0, n_segs - 1)            # (K, n_segs)
+    has = prev_d >= 0
+
+    def take_seg(x):                   # x (K, n_segs, ...) at src
+        idx = src.reshape(src.shape + (1,) * (x.dim() - 2))
+        return torch.gather(x, 1, idx.expand_as(x))
+
+    outs, new_seeds = {}, {}
+    for o, (fv, fm) in full_outs.items():       # fv (K, n_segs, ..., S)
+        sv, sm = seeds[o]
+
+        def hold_leaf(x, seed):
+            hx = take_seg(x[..., -1])            # (K, n_segs, ...)
+            hx = torch.where(_bc(has, hx), hx,
+                             seed.unsqueeze(1).to(x.dtype))
+            return torch.where(_bc(seg_dirty, x), x, hx.unsqueeze(-1))
+
+        ov = _tm(lambda x: _ticks(x, n_segs), _tm(hold_leaf, fv, sv))
+        hm = torch.where(has, take_seg(fm[..., -1]), sm[:, None])
+        om = torch.where(seg_dirty[:, :, None], fm,
+                         hm[:, :, None]).reshape(K, -1)
+        outs[o] = (ov, om)
+        new_seeds[o] = (_tm(lambda x: x[..., -1], ov), om[:, -1])
+    return outs, new_seeds
+
+
+class _Work:
+    """The buffers a runner steps in, allocated once per geometry and chunk
+    layout.
+
+    Per input one buffer ``(K, ..., left_halo + n)``: its first
+    ``left_halo`` ticks are the carried tail, the rest the chunk
+    (:meth:`load` copies a chunk in; :meth:`shift` moves the new tail to
+    the front in place).  A sparse runner's buffers also hold the change
+    state (dirty tails, 1-tick snapshots of halo-free inputs, hold seeds),
+    the step's scratch (next dirty tails, the segment mask, the dirty-unit
+    count, the compacted bodies' output) and the device metric
+    accumulators; a revision's buffers hold the host-made unit mask
+    instead.  On the card a runner's captured graphs read and write these
+    tensors and nothing else that outlives them, and live here
+    (``graphs``), in one memory pool.
+    """
+
+    def __init__(self, runner: "Runner", chunk_in: Dict[str, tuple],
+                 dev: torch.device, *, seeds=None, revision: bool = False):
+        K, n_segs, U = runner._K, runner.n_segs, runner._U
+        specs = runner.spec.input_specs
+        self.dev, self.layout = dev, _layout(chunk_in)
+        self.names = runner._names()
+        self.hl, self.n, self.bufs, self._chunk = {}, {}, {}, {}
+
+        def z(shape, dtype=torch.bool):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        for name in self.names:
+            s = specs[name]
+            hl, n = s.left_halo, s.core * n_segs
+            cv, _cm = chunk_in[name]
+            bv = _tm(lambda x: z(x.shape[:-1] + (hl + n,), x.dtype), cv)
+            bm = z((K, hl + n))
+            self.hl[name], self.n[name], self.bufs[name] = hl, n, (bv, bm)
+            self._chunk[name] = [x[..., hl:] for x in tree_leaves((bv, bm))]
+        self.sparse = seeds is not None
+        self._w = z((U,)) if revision else None
+        if self.sparse:
+            self.dirty = {nm: z((K, self.hl[nm])) for nm in self.names}
+            self.next_dirty = {nm: z((K, self.hl[nm])) for nm in self.names
+                               if self.hl[nm]}
+            self.prev = {nm: (_tm(lambda x: z(x.shape[:-1] + (1,), x.dtype),
+                                  chunk_in[nm][0]), z((K, 1)))
+                         for nm in self.names if self.hl[nm] == 0}
+            self.seed = {o: _tm(lambda a: z(a.shape, a.dtype), sd)
+                         for o, sd in seeds.items()}
+            span = runner.spec.span
+            self.full = {
+                o: (_tm(lambda a, S=span // runner.spec.out_precs[o]:
+                        z((U,) + tuple(a.shape[1:]) + (S,), a.dtype), sv),
+                    z((U, span // runner.spec.out_precs[o])))
+                for o, (sv, _sm) in seeds.items()}
+            self.seg = z((K, n_segs))
+            self.cnt = z((), torch.int32)
+            self.caps = torch.as_tensor(sparse_mod.capacity_ladder(U),
+                                        dtype=torch.int64, device=dev)
+            self.mstate = (z((), torch.int32),
+                           z((len(runner._obs_caps),), torch.int32),
+                           z((len(runner._obs_frac_edges) + 1,),
+                             torch.int32))
+        self.graphs: dict = {}
+        self.pool = (torch.cuda.graph_pool_handle() if dev.type == "cuda"
+                     else None)
+
+    @property
+    def w(self) -> torch.Tensor:
+        """The ``(U,)`` unit mask the compacted bodies read."""
+        return self.seg.reshape(-1) if self.sparse else self._w
+
+    def tails(self) -> Dict[str, tuple]:
+        """Views of the carried tails."""
+        return {nm: _tm(lambda x, hl=self.hl[nm]: x[..., :hl],
+                        self.bufs[nm]) for nm in self.names}
+
+    def load(self, chunk_in: Dict[str, tuple]) -> None:
+        """Copy a chunk's grids behind the carried tails."""
+        for name in self.names:
+            for dst, src in zip(self._chunk[name],
+                                tree_leaves(chunk_in[name])):
+                dst.copy_(src)
+
+    def chunk(self, name: str) -> tuple:
+        bv, bm = self.bufs[name]
+        hl = self.hl[name]
+        return _tm(lambda x: x[..., hl:], bv), bm[:, hl:]
+
+    def shift(self) -> None:
+        """The new tails (the buffers' last ``left_halo`` ticks) to the
+        front, in place."""
+        for name in self.names:
+            hl, n = self.hl[name], self.n[name]
+            if not hl:
+                continue
+            for x in tree_leaves(self.bufs[name]):
+                src = x[..., n:]
+                x[..., :hl].copy_(src if n >= hl else src.clone())
+
+    def clone(self) -> "_Work":
+        """A scratch copy of every tensor, for a warm-up run that must not
+        touch the live state."""
+        c = copy.copy(self)
+        cl = lambda t: _tm(lambda x: x.clone(), t)  # noqa: E731
+        c.bufs = cl(self.bufs)
+        c._chunk = {nm: [x[..., self.hl[nm]:] for x in tree_leaves(b)]
+                    for nm, b in c.bufs.items()}
+        c._w = None if self._w is None else self._w.clone()
+        if self.sparse:
+            for part in ("dirty", "next_dirty", "prev", "seed", "full",
+                         "seg", "cnt", "mstate"):
+                setattr(c, part, cl(getattr(self, part)))
+        c.graphs = {}
+        return c
+
+
+def _layout(chunk_in: Dict[str, tuple]) -> tuple:
+    """What a workspace is allocated for: every input's value structure,
+    leaf shapes (time excluded) and dtypes."""
+    out = []
+    for name in sorted(chunk_in):
+        leaves, spec = tree_flatten(chunk_in[name][0])
+        out.append((name, str(spec), tuple((tuple(x.shape[:-1]), x.dtype)
+                                           for x in leaves)))
+    return tuple(out)
 
 
 class Runner:
@@ -226,21 +481,23 @@ class Runner:
                     "query mixes keyed and unkeyed sources: "
                     f"keyed={keyed_inputs}, all={sorted(spec.input_specs)}")
 
-        # -- the state pytree -----------------------------------------------
+        # -- the state pytree: views into the live workspace once bound, or
+        # tensors a restore brought (copied in at the next step) ----------
         self._tails: Dict[str, tuple] = {}
         self._sparse: Optional[dict] = (
             {"dirty": {}, "prev": {}, "seed": {}, "started": False}
             if policy.sparse else None)
+        self._seeded: set = set()     # outputs whose hold seed is carried
         self._t = 0
-        self._device: Optional[torch.device] = None
+        self._work: Optional[_Work] = None
+        self._rwork: Optional[_Work] = None
+        self._bound = False
         self._zero_seed_cache = None
         # -- sparse-body diagnostics (device-resident: reading them via
         # dirty_stats() syncs, accumulating them does not) ------------------
         self.last_seg_dirty = None
-        self._dirty_units = None
         self._total_units = 0
         self._chunks_run = 0
-        self._mstate = None  # (dirty_total, bucket_picks, frac_counts)
         # -- late-data revision ring (off unless enable_revision) -----------
         self._rev_ring: Optional[collections.deque] = None
         self.revision_horizon = 0
@@ -249,10 +506,9 @@ class Runner:
     # -- telemetry -----------------------------------------------------------
     def _obs_init(self, metrics: Optional[Metrics]) -> None:
         """Create/bind the runner's metric handles.  Device-resident
-        metrics hold references into ``self._mstate``, the per-runner
-        device accumulators updated in place once per sparse chunk
-        (:meth:`_obs_sparse_chunk`); host metrics are plain Python
-        arithmetic."""
+        metrics hold references to the live workspace's accumulators
+        (``_Work.mstate``), which every sparse step updates in place on
+        the device; host metrics are plain Python arithmetic."""
         self.metrics = m = metrics if metrics is not None else Metrics()
         self._m_chunks = m.counter(
             "runner.chunks", "chunks stepped", "chunks")
@@ -275,7 +531,7 @@ class Runner:
             "work units recomputed by revisions (ChangePlan-dilated dirty "
             "segments only)", "units")
         # device-resident handles: fold any previous owner's device refs
-        # into the host base before this runner's mstate takes over
+        # into the host base before this runner's accumulators take over
         self._m_dirty = m.counter(
             "runner.dirty_units", "work units that actually computed",
             "units")
@@ -305,23 +561,34 @@ class Runner:
         m.register_collector("runner", self._obs_collect)
         m.register_warmup_reset("runner", self._obs_warmup_reset)
 
-    def _new_mstate(self, dev: torch.device):
-        z = lambda *shape: torch.zeros(shape, dtype=torch.int32,  # noqa: E731
-                                       device=dev)
-        return (z(), z(len(self._obs_caps)),
-                z(len(self._obs_frac_edges) + 1))
+    def _obs_bind(self) -> None:
+        """Point the device-resident metrics at the live accumulators (a
+        reference assignment: no launch, no read)."""
+        total, picks, frac = self._work.mstate
+        self._m_dirty.set_device(total)
+        self._m_picks.set_device(picks)
+        self._m_frac.set_device(frac)
+
+    def _obs_fold(self) -> None:
+        """Fold the live accumulators into the registry's host bases and
+        clear them (syncs — off the hot path)."""
+        if self._work is None or not self._work.sparse:
+            return
+        self._obs_bind()
+        self._m_dirty.fold_device()
+        self._m_picks.fold_device()
+        self._m_frac.fold_device()
+        _zero_tree(self._work.mstate)
 
     def _obs_warmup_reset(self) -> None:
         """Registry warmup-reset hook (:meth:`repro_torch.obs.Metrics.
-        reset_after_warmup`): re-base this runner's device accumulators and
-        compaction window; the stream state itself is untouched.  The fresh
-        accumulators are made here (off the hot path), on the runner's
-        device once it has one."""
-        if self.policy.sparse and self._device is not None:
-            self._mstate = self._new_mstate(self._device)
-        else:
-            self._mstate = None
-        self._dirty_units = None
+        reset_after_warmup`): re-base this runner's device accumulators
+        (in place: the captured steps hold their addresses) and compaction
+        window; the stream state itself is untouched."""
+        if self._work is not None and self._work.sparse:
+            _zero_tree(self._work.mstate)
+            if self.metrics.on:
+                self._obs_bind()
         self._total_units = 0
         self._chunks_run = 0
         self._m_keys.set(self.n_keys)
@@ -348,12 +615,11 @@ class Runner:
         edges = torch.as_tensor(self._obs_frac_edges, dtype=torch.float32,
                                 device=dev)
         one = torch.ones(1, dtype=torch.int32, device=dev)
-        U = self._U
+        U, top = self._U, len(self._obs_caps) - 1
 
         def accum(mstate, cnt):
             total, picks, frac = mstate
-            b = torch.clamp(torch.searchsorted(caps, cnt.reshape(1)), 0,
-                            len(self._obs_caps) - 1)
+            b = torch.clamp(torch.searchsorted(caps, cnt.reshape(1)), 0, top)
             fi = torch.searchsorted(edges, cnt.reshape(1).float() / U)
             total.add_(cnt)
             picks.scatter_add_(0, b, one)
@@ -361,19 +627,6 @@ class Runner:
 
         cache[key] = accum
         return accum
-
-    def _obs_sparse_chunk(self, cnt: torch.Tensor) -> None:
-        """Per-sparse-chunk device metric update: in-place accumulator
-        launches plus reference re-binds — no device→host transfer."""
-        if self._mstate is None:
-            self._mstate = self._new_mstate(cnt.device)
-        self._obs_accum(cnt.device)(self._mstate, cnt)
-        total, picks, frac = self._mstate
-        self._m_dirty.set_device(total)
-        self._m_picks.set_device(picks)
-        self._m_frac.set_device(frac)
-        # dirty_stats() reads the same accumulator (runner-local view)
-        self._dirty_units = total
 
     # -- geometry ------------------------------------------------------------
     @property
@@ -421,80 +674,105 @@ class Runner:
     def _chunk_device(self, chunk_in) -> torch.device:
         for _, m in chunk_in.values():
             return m.device
-        return self._device or torch.device("cpu")
+        return self._work.dev if self._work is not None else \
+            torch.device("cpu")
 
-    def _move_state(self, dev: torch.device) -> None:
-        """Put the carried state on ``dev`` (a restore, or the first chunk
-        on another device) — off the steady path."""
-        to = lambda t: _tm(lambda x: x.to(dev), t)  # noqa: E731
-        self._tails = {k: to(v) for k, v in self._tails.items()}
-        if self._sparse is not None:
-            st = self._sparse
-            for part in ("dirty", "prev", "seed"):
-                st[part] = {k: to(v) for k, v in st[part].items()}
-        if self._mstate is not None:
-            self._mstate = tuple(x.to(dev) for x in self._mstate)
-        self._dirty_units = (None if self._dirty_units is None
-                             else self._dirty_units.to(dev))
-        self._zero_seed_cache = None
-        self._device = dev
+    # -- the workspace and the state bound to it -----------------------------
+    def _live(self, chunk_in, dev: torch.device) -> _Work:
+        """The live workspace for this chunk's layout, with the carried
+        state in it.  Allocating a workspace, or copying restored state
+        into one, happens at the first chunk and after a restore, never
+        in a steady chunk."""
+        work = self._work
+        if work is None or work.layout != _layout(chunk_in) \
+                or work.dev != dev:
+            seeds = (self._zero_seeds(chunk_in, dev) if self.policy.sparse
+                     else None)
+            new = _Work(self, chunk_in, dev, seeds=seeds)
+            if work is not None and work.sparse:
+                _copy_tree(new.mstate, work.mstate)
+            self._work, self._bound = new, False
+            work = new
+        if not self._bound:
+            self._bind(work)
+        return work
 
-    def _init_missing_tails(self, chunk_in: Dict[str, tuple]) -> None:
-        K = self._K
-        for name in self._names():
-            if name in self._tails:
-                continue
-            hl = self.spec.input_specs[name].left_halo
-            cv, cm = chunk_in[name]
-            dev = cm.device
-            tv = _tm(lambda x: torch.zeros(x.shape[:-1] + (hl,),
-                                           dtype=x.dtype, device=dev), cv)
-            self._tails[name] = (tv, torch.zeros((K, hl), dtype=torch.bool,
-                                                 device=dev))
-            if self._sparse is not None and name not in self._sparse["dirty"]:
-                self._sparse["dirty"][name] = torch.zeros(
-                    (K, hl), dtype=torch.bool, device=dev)
-                if hl == 0:
-                    # the 1-tick snapshot is only ever read for halo-free
-                    # inputs (tick 0's diff partner); halo-carrying inputs
-                    # get their position-0 flag from the dirty tail
-                    self._sparse["prev"][name] = (
-                        _tm(lambda x: torch.zeros(x.shape[:-1] + (1,),
-                                                  dtype=x.dtype, device=dev),
-                            cv),
-                        torch.zeros((K, 1), dtype=torch.bool, device=dev))
-
-    def _new_tails(self, bufs) -> Dict[str, tuple]:
-        """The trailing ``left_halo`` ticks of every buffer (copies, so the
-        chunk buffers are not kept alive)."""
-        out = {}
-        for name, (fv, fm) in bufs.items():
-            s = self.spec.input_specs[name]
-            lo = s.core * self.n_segs
-            hl = s.left_halo
-            out[name] = (_tm(lambda x: x[..., lo:lo + hl].clone(), fv),
-                         fm[..., lo:lo + hl].clone())
-        return out
-
-    def _units(self, bufs, ids=None):
-        """Unit windows of every input, units on the leading axis: all
-        ``U`` units (``ids=None``, unit ``u = key·n_segs + segment``) or
-        the ones named by ``ids``."""
-        specs, n_segs = self.spec.input_specs, self.n_segs
-        out = {}
-        for name, (fv, fm) in bufs.items():
-            L, core = specs[name].length, specs[name].core
-            if ids is None:
-                def take(x, L=L, core=core):
-                    w = _windows(x, L, core)
-                    return w.reshape((-1,) + w.shape[2:])
+    def _bind(self, work: _Work) -> None:
+        """Copy the logical state (restored tensors, or another
+        workspace's views) into ``work`` — φ where it has none — and point
+        the state dicts at ``work``'s views."""
+        tails = work.tails()
+        for name, dst in tails.items():
+            src = self._tails.get(name)
+            if src is None:
+                _zero_tree(dst)
             else:
-                k_ids, s_ids = ids // n_segs, ids % n_segs
+                _copy_tree(dst, src)
+        self._tails = tails
+        if work.sparse:
+            st = self._sparse
+            for part, have in (("dirty", work.dirty), ("prev", work.prev),
+                               ("seed", work.seed)):
+                for key, dst in have.items():
+                    src = st[part].get(key)
+                    if src is None:
+                        _zero_tree(dst)
+                    else:
+                        _copy_tree(dst, src)
+            self._seeded = {o for o in st["seed"] if o in work.seed}
+            st["dirty"], st["prev"], st["seed"] = (work.dirty, work.prev,
+                                                   work.seed)
+            if self.metrics.on:
+                self._obs_bind()
+        self._bound = True
 
-                def take(x, L=L, core=core, k_ids=k_ids, s_ids=s_ids):
-                    return _windows(x, L, core)[k_ids, s_ids]
-            out[name] = (_tm(take, fv), take(fm))
-        return out
+    def _zero_seeds(self, chunk_in, dev):
+        """φ hold seeds shaped like one output tick per key (unread: any
+        output missing a carried seed forces its first segment dirty).
+        The shapes come from evaluating the body once on a zero input of
+        one unit, on the runner's device, unless a persisted seed spec
+        primed them (:meth:`prime_seed_shapes`)."""
+        if self._zero_seed_cache is not None:
+            return self._zero_seed_cache
+        zeros = {}
+        for name in self._names():
+            L = self.spec.input_specs[name].length
+            cv, cm = chunk_in[name]
+            zeros[name] = (
+                _tm(lambda x: torch.zeros((1,) + x.shape[1:-1] + (L,),
+                                          dtype=x.dtype, device=dev), cv),
+                torch.zeros((1, L), dtype=torch.bool, device=dev))
+        outs = self.spec.outs_fn(zeros)
+        K = self._K
+        self._zero_seed_cache = {
+            o: (_tm(lambda a: torch.zeros((K,) + a.shape[1:-1],
+                                          dtype=a.dtype, device=dev), ov),
+                torch.zeros((K,), dtype=torch.bool, device=dev))
+            for o, (ov, om) in outs.items()}
+        return self._zero_seed_cache
+
+    # -- running a step: eager on the CPU, captured on the card ------------
+    def _graph(self, work: _Work, key, cache_key, step):
+        """The graph of ``step`` over ``work`` under ``key``: warmed up and
+        captured at its first use (recorded under the label of the step's
+        ``cache_key``)."""
+        g = work.graphs.get(key)
+        if g is None:
+            self.metrics.tracer.record_capture(
+                self._compile_label(cache_key))
+            with capture.warm_up(work.dev):
+                step(work.clone())
+            g = work.graphs[key] = capture.record(lambda: step(work),
+                                                  work.pool)
+        return g
+
+    def _run(self, work: _Work, key, cache_key, step):
+        """``step(work)`` → packed results: eagerly on the CPU; on the card
+        a replay of the graph of ``key``, its results copied out."""
+        if work.dev.type != "cuda":
+            return step(work)
+        flats, packing = self._graph(work, key, cache_key, step).replay()
+        return {dt: f.clone() for dt, f in flats.items()}, packing
 
     # -- dense step ----------------------------------------------------------
     def _dense_step(self, dev: torch.device):
@@ -503,30 +781,26 @@ class Runner:
         if key in cache:
             return cache[key]
         self.metrics.tracer.record_compile(self._compile_label(key))
-        names, outs_fn = self._names(), self.spec.outs_fn
+        outs_fn, specs = self.spec.outs_fn, self.spec.input_specs
         K, n_segs = self._K, self.n_segs
 
-        def step(tails, chunks):
-            bufs = {}
-            for name in names:
-                tv, tm = tails[name]
-                cv, cm = chunks[name]
-                bufs[name] = (_tm(_cat, tv, cv), _cat(tm, cm))
-            outs = outs_fn(self._units(bufs))
-            outs = {o: (_tm(lambda x: _ticks(x.reshape(
-                            (K, n_segs) + x.shape[1:]), n_segs), ov),
-                        om.reshape(K, -1))
-                    for o, (ov, om) in outs.items()}
-            return outs, self._new_tails(bufs)
+        def step(work):
+            packed = _pack(_per_key(outs_fn(_units(specs, n_segs,
+                                                   work.bufs)), K, n_segs))
+            work.shift()
+            return packed
 
         cache[key] = step
         return step
 
     # -- sparse body -----------------------------------------------------------
     #
-    # One step per chunk: mask (fused change detection + carried flags),
-    # the one host read of the dirty count, the bucket's compacted compute,
-    # the hold fill.
+    # One step per chunk, in three parts: the prefix (fused change detection
+    # and carried flags → the segment mask and the dirty-unit count), the
+    # compacted compute of one capacity, and the suffix (hold fill, outputs,
+    # the state written in place).  On the CPU the count picks the capacity
+    # on the host; on the card the parts are captured and composed into one
+    # graph that picks it on the device (capture.Switched).
 
     def _compute_local(self, cap: int, dev: torch.device):
         """Compute body for one compaction capacity: resolve the dirty
@@ -538,7 +812,8 @@ class Runner:
         if key in cache:
             return cache[key]
         self.metrics.tracer.record_compile(self._compile_label(key))
-        outs_fn = self.spec.outs_fn
+        outs_fn, specs, n_segs = (self.spec.outs_fn, self.spec.input_specs,
+                                  self.n_segs)
 
         if cap == self._U:
             # full-capacity bucket (count > U/2): compaction saves nothing,
@@ -547,11 +822,11 @@ class Runner:
             # exactness contract), and the hold fill downstream still
             # overwrites clean units from the dirty chain.
             def local(w, bufs):
-                return outs_fn(self._units(bufs))
+                return outs_fn(_units(specs, n_segs, bufs))
         else:
             def local(w, bufs):
                 ids, pos = sparse_mod.compact_ids(w, cap)
-                outs = outs_fn(self._units(bufs, ids))      # (cap, ..., S)
+                outs = outs_fn(_units(specs, n_segs, bufs, ids))  # (cap, ...)
                 return {o: (_tm(lambda x: x.index_select(0, pos), ov),
                             om.index_select(0, pos))
                         for o, (ov, om) in outs.items()}    # (U, ..., S)
@@ -559,48 +834,14 @@ class Runner:
         cache[key] = local
         return local
 
-    def _hold(self, full_outs, seg_dirty, seeds, ar):
-        """Hold fill: clean units take the last tick of the nearest
-        preceding dirty segment of the same key, or the key's carried hold
-        seed; dirty units keep their computed results."""
-        K, n_segs = self._K, self.n_segs
-        prev_d = torch.cummax(torch.where(seg_dirty, ar[None, :], -1),
-                              dim=1).values
-        src = torch.clamp(prev_d, 0, n_segs - 1)            # (K, n_segs)
-        has = prev_d >= 0
-
-        def take_seg(x):                   # x (K, n_segs, ...) at src
-            idx = src.reshape(src.shape + (1,) * (x.dim() - 2))
-            return torch.gather(x, 1, idx.expand_as(x))
-
-        outs, new_seeds = {}, {}
-        for o, (fv, fm) in full_outs.items():       # fv (K, n_segs, ..., S)
-            sv, sm = seeds[o]
-
-            def hold_leaf(x, seed):
-                hx = take_seg(x[..., -1])            # (K, n_segs, ...)
-                hx = torch.where(_bc(has, hx), hx,
-                                 seed.unsqueeze(1).to(x.dtype))
-                return torch.where(_bc(seg_dirty, x), x, hx.unsqueeze(-1))
-
-            ov = _tm(lambda x: _ticks(x, n_segs), _tm(hold_leaf, fv, sv))
-            hm = torch.where(has, take_seg(fm[..., -1]), sm[:, None])
-            om = torch.where(seg_dirty[:, :, None], fm,
-                             hm[:, :, None]).reshape(K, -1)
-            outs[o] = (ov, om)
-            new_seeds[o] = (_tm(lambda x: x[..., -1], ov), om[:, -1])
-        return outs, new_seeds
-
     def _sparse_step(self, force_first: bool, dev: torch.device):
-        """The whole sparse chunk: mask → host bucket pick → compacted
-        compute → hold.
-
-        ``step(tails, dirty, prev, seeds, chunks)`` returns ``(outs,
-        new_tails, new_dirty, new_prev, new_seeds, seg_dirty, cnt)``, with
-        ``cnt`` the device count of dirty units.  Two variants per
-        geometry: ``force_first=True`` (stream start / missing hold seed:
-        segment 0 of every key is forced dirty) and the steady state.
-        """
+        """The prefix of a sparse chunk, ``prefix(work)``: per-segment
+        change detection (the ``seg_dirty`` kernel over every input's
+        buffer, plus the carried position-0 flags) into ``work.seg``, the
+        dirty-unit count into ``work.cnt`` and the next dirty tails into
+        ``work.next_dirty``.  Two variants per geometry: ``force_first=
+        True`` (stream start / missing hold seed: segment 0 of every key is
+        forced dirty) and the steady state."""
         key = self._cache_key("sparse_fused", dev, force_first)
         cache = self.spec.step_cache
         if key in cache:
@@ -609,7 +850,7 @@ class Runner:
         names, specs = self._names(), self.spec.input_specs
         cp = self.spec.change_plan
         S, q = self.spec.out_len, self.spec.out_prec
-        K, n_segs, U = self._K, self.n_segs, self._U
+        K, n_segs = self._K, self.n_segs
 
         # static per-input lineage geometry (the ChangePlan lowered to the
         # affine form the kernel consumes) + the segments a carried
@@ -627,7 +868,6 @@ class Runner:
             lo = a0 + ks * stp
             hits0[name] = torch.as_tensor((lo <= 0) & (lo + width > 0),
                                           device=dev)
-        ar = torch.arange(n_segs, device=dev)
 
         def tick0_diff(cv, cm, pv, pm):
             d = cm[:, 0] != pm[:, 0]
@@ -642,113 +882,139 @@ class Runner:
                 nd = nd | _any_rows(x[..., 1:] != x[..., :-1])
             return nd
 
-        def step(tails, dirty, prev, seeds, chunks):
-            bufs, new_dirty, new_prev = {}, {}, {}
-            seg_dirty = torch.zeros((K, n_segs), dtype=torch.bool,
-                                    device=dev)
+        def prefix(work):
+            seg = None
             for name in names:
-                s = specs[name]
-                hl = s.left_halo
-                tv, tm = tails[name]
-                cv, cm = chunks[name]
-                fv, fm = _tm(_cat, tv, cv), _cat(tm, cm)
-                bufs[name] = (fv, fm)
+                hl, n = work.hl[name], work.n[name]
+                fv, fm = work.bufs[name]
                 mats = sparse_compact.grid_mats(fv, fm)
                 sd = sparse_compact.seg_dirty(mats, [geom[name]] * len(mats),
                                               n_segs)           # (K, n_segs)
                 # buffer position 0: carried change flag (its diff partner
                 # is one tick before the buffer); with no tail the carried
                 # 1-tick snapshot supplies the partner
-                d0 = (dirty[name][:, 0] if hl
-                      else tick0_diff(cv, cm, *prev[name]))
-                seg_dirty = seg_dirty | sd | (d0[:, None] & hits0[name])
-                lo = s.core * n_segs
+                d0 = (work.dirty[name][:, 0] if hl
+                      else tick0_diff(*work.chunk(name), *work.prev[name]))
+                sd = sd | (d0[:, None] & hits0[name])
+                seg = sd if seg is None else seg | sd
                 if hl:
-                    # carried dirty tail = adjacent diffs of the buffer's
-                    # last hl+1 ticks (every tail position has its diff
-                    # partner in the buffer, since lo >= 1)
-                    new_dirty[name] = adj_diff(
-                        _tm(lambda x: x[..., lo - 1:lo + hl], fv),
-                        fm[..., lo - 1:lo + hl])
-                else:
-                    new_dirty[name] = dirty[name]
-                    new_prev[name] = (_tm(lambda x: x[..., -1:].clone(), cv),
-                                      cm[:, -1:].clone())
-            if not names:
-                seg_dirty = torch.ones((K, n_segs), dtype=torch.bool,
-                                       device=dev)      # input-free: dense
+                    # next dirty tail = adjacent diffs of the buffer's last
+                    # hl+1 ticks (every tail position has its diff partner
+                    # in the buffer, since n >= 1)
+                    work.next_dirty[name].copy_(adj_diff(
+                        _tm(lambda x: x[..., n - 1:n + hl], fv),
+                        fm[..., n - 1:n + hl]))
+            if seg is None:
+                seg = torch.ones((K, n_segs), dtype=torch.bool,
+                                 device=dev)    # input-free: dense
             if force_first:
-                seg_dirty[:, 0] = True
-            w = seg_dirty.reshape(U)
-            cnt = w.sum(dtype=torch.int32)
-            # the one synchronizing call of a sparse chunk: the 4-byte
-            # dirty count picks the compaction bucket on the host
-            cap = sparse_mod.bucket_capacity(int(cnt), U)
-            full = self._compute_local(cap, dev)(w, bufs)
-            full = {o: (_tm(lambda x: x.reshape((K, n_segs) + x.shape[1:]),
-                            fv),
-                        fm.reshape((K, n_segs) + fm.shape[1:]))
-                    for o, (fv, fm) in full.items()}
-            outs, new_seeds = self._hold(full, seg_dirty, seeds, ar)
-            return (outs, self._new_tails(bufs), new_dirty, new_prev,
-                    new_seeds, seg_dirty, cnt)
+                seg[:, 0] = True
+            work.seg.copy_(seg)
+            work.cnt.copy_(work.seg.sum(dtype=torch.int32))
 
-        cache[key] = step
-        return step
+        cache[key] = prefix
+        return prefix
 
-    def _zero_seeds(self, chunk_in):
-        """φ hold seeds shaped like one output tick per key (unread: any
-        output missing a carried seed forces its first segment dirty).
-        The shapes come from evaluating the body once on a zero input of
-        one unit, on the runner's device."""
-        if self._zero_seed_cache is not None:
-            return self._zero_seed_cache
-        zeros = {}
-        for name in self._names():
-            L = self.spec.input_specs[name].length
-            cv, cm = chunk_in[name]
-            zeros[name] = (
-                _tm(lambda x: torch.zeros((1,) + x.shape[1:-1] + (L,),
-                                          dtype=x.dtype, device=x.device),
-                    cv),
-                torch.zeros((1, L), dtype=torch.bool, device=cm.device))
-        outs = self.spec.outs_fn(zeros)
-        K = self._K
-        self._zero_seed_cache = {
-            o: (_tm(lambda a: torch.zeros((K,) + a.shape[1:-1],
-                                          dtype=a.dtype, device=a.device),
-                    ov),
-                torch.zeros((K,), dtype=torch.bool, device=om.device))
-            for o, (ov, om) in outs.items()}
-        return self._zero_seed_cache
+    def _sparse_body(self, cap: int, dev: torch.device):
+        """``body(work)``: the compacted compute of capacity ``cap`` over
+        ``work.w``, into ``work.full``."""
+        local = self._compute_local(cap, dev)
 
-    def _sparse_chunk(self, chunk_in, dev):
+        def body(work):
+            for o, res in local(work.w, work.bufs).items():
+                _copy_tree(work.full[o], res)
+
+        return body
+
+    def _sparse_suffix(self, dev: torch.device):
+        """The suffix of a sparse chunk, ``suffix(work)``: the hold fill
+        over ``work.full``, the outputs (and the segment mask) packed, then
+        the carried state written in place: hold seeds, dirty tails, 1-tick
+        snapshots, tails, and the metric accumulators."""
+        key = self._cache_key("sparse_hold", dev)
+        cache = self.spec.step_cache
+        if key in cache:
+            return cache[key]
+        self.metrics.tracer.record_compile(self._compile_label(key))
+        K, n_segs = self._K, self.n_segs
+        ar = torch.arange(n_segs, device=dev)
+        accum = self._obs_accum(dev)
+
+        def suffix(work):
+            full = {o: _tm(lambda x: x.reshape((K, n_segs) + x.shape[1:]),
+                           f) for o, f in work.full.items()}
+            outs, new_seeds = _hold(full, work.seg, work.seed, ar, K, n_segs)
+            packed = _pack((outs, work.seg))
+            for o, sd in new_seeds.items():
+                _copy_tree(work.seed[o], sd)
+            for name, nd in work.next_dirty.items():
+                work.dirty[name].copy_(nd)
+            for name, pv in work.prev.items():
+                _copy_tree(pv, _tm(lambda x: x[..., -1:], work.chunk(name)))
+            work.shift()
+            accum(work.mstate, work.cnt)
+            return packed
+
+        cache[key] = suffix
+        return suffix
+
+    def _switched(self, work: _Work, force_first: bool):
+        """The captured sparse step of one variant: its prefix, then every
+        capacity's body and the suffix (captured once per workspace,
+        shared by both variants), composed into one graph."""
+        dev = work.dev
+        prefix = self._sparse_step(force_first, dev)
+        caps = sparse_mod.capacity_ladder(self._U)
+        bodies = [self._sparse_body(c, dev) for c in caps]
+        suffix = self._sparse_suffix(dev)
+        self.metrics.tracer.record_capture(self._compile_label(
+            self._cache_key("sparse_fused", dev, force_first)))
+        with capture.warm_up(dev):
+            scratch = work.clone()
+            prefix(scratch)
+            for body in bodies:
+                body(scratch)
+            suffix(scratch)
+        pre = capture.record(lambda: prefix(work), work.pool, keep=True)
+        shared = work.graphs.get("sparse_parts")
+        if shared is None:
+            shared = work.graphs["sparse_parts"] = (
+                [capture.record(lambda b=b: b(work), work.pool, keep=True)
+                 for b in bodies],
+                capture.record(lambda: suffix(work), work.pool, keep=True))
+        g = work.graphs[("sparse", force_first)] = capture.Switched(
+            pre, shared[0], shared[1], work.cnt, work.caps)
+        return g
+
+    def _sparse_eager(self, work: _Work, force_first: bool):
+        """The sparse step's parts run one after another, without a graph:
+        the count is read on the host to pick the capacity (the CPU's
+        path; on the card only :meth:`staged_steps` runs it)."""
+        dev = work.dev
+        self._sparse_step(force_first, dev)(work)
+        cap = sparse_mod.bucket_capacity(int(work.cnt), self._U)
+        self._sparse_body(cap, dev)(work)
+        return self._sparse_suffix(dev)(work)
+
+    def _sparse_chunk(self, work: _Work):
         st = self._sparse
-        missing_seed = any(o not in st["seed"] for o in self.spec.out_precs)
-        force_first = (not st["started"]) or missing_seed
-        if force_first:
-            seeds = dict(self._zero_seeds(chunk_in))
-            seeds.update(st["seed"])
+        force_first = (not st["started"]) or len(self._seeded) < len(
+            self.spec.out_precs)
+        if work.dev.type != "cuda":
+            outs, seg = _unpack(*self._sparse_eager(work, force_first))
         else:
-            seeds = st["seed"]
-        (outs, new_tails, new_dirty, new_prev, new_seeds, seg_dirty,
-         cnt) = self._sparse_step(force_first, dev)(
-            self._tails, st["dirty"], st["prev"], seeds, chunk_in)
-        self.last_seg_dirty = seg_dirty
-        if self.metrics.on:
-            self._obs_sparse_chunk(cnt)
-        else:
-            self._dirty_units = (cnt if self._dirty_units is None
-                                 else self._dirty_units + cnt)
+            g = work.graphs.get(("sparse", force_first))
+            if g is None:
+                g = self._switched(work, force_first)
+            flats, packing = g.replay()
+            outs, seg = _unpack({dt: f.clone() for dt, f in flats.items()},
+                                packing)
+        self.last_seg_dirty = seg
+        st["started"] = True
+        self._seeded = set(self.spec.out_precs)
         self._total_units += self._U
         self._chunks_run += 1
-
-        def commit():
-            self._tails = new_tails
-            st["dirty"], st["prev"] = new_dirty, new_prev
-            st["seed"], st["started"] = new_seeds, True
-
-        return outs, commit
+        return outs
 
     def _postprocess(self, outs):
         """Drop the internal K axis for single-key runners (a view)."""
@@ -764,35 +1030,30 @@ class Runner:
         Each chunk grid supplies ``segs_per_chunk · spec.core`` fresh ticks
         per input (leading key axis first when ``keys='vmapped'``).
         Returns one output grid (solo) or ``{query_name: grid}`` (union).
-        Carried state commits only after the step succeeded, so a raise
-        leaves the runner exactly as it was.
+        The carried state is written only at the end of the step, after
+        everything that can raise, so a raise leaves the runner as it was.
         """
         t0 = time.perf_counter()
         chunk_in = self._ingest(chunks)
         dev = self._chunk_device(chunk_in)
-        if dev != self._device:
-            self._move_state(dev)
-        self._init_missing_tails(chunk_in)
+        work = self._live(chunk_in, dev)
         snap = None
         if self._rev_ring is not None:
-            # pre-chunk tails for the revision ring: references, not
-            # copies — nothing updates carried tensors in place (each
-            # chunk makes new ones), so revisability costs no transfer
+            # pre-chunk tails for the revision ring: copies on the device
+            # (the step rewrites the live tails in place)
             snap = {"chunk": self._t // (self.n_segs * self.spec.span),
-                    "tails": dict(self._tails)}
+                    "tails": _tm(lambda x: x.clone(), self._tails)}
+        work.load(chunk_in)
         if self.policy.sparse:
-            outs, commit = self._sparse_chunk(chunk_in, dev)
+            outs = self._sparse_chunk(work)
         else:
-            outs, new_tails = self._dense_step(dev)(self._tails, chunk_in)
-
-            def commit(new_tails=new_tails):
-                self._tails = new_tails
-
+            outs = _unpack(*self._run(work, ("dense",),
+                                      self._cache_key("dense", dev),
+                                      self._dense_step(dev)))
         result = {}
         for o, (v, m) in self._postprocess(outs).items():
             result[o] = SnapshotGrid(value=v, valid=m, t0=self._t,
                                      prec=self.spec.out_precs[o])
-        commit()
         if snap is not None:
             self._rev_ring.append(snap)
         self._t += self.n_segs * self.spec.span
@@ -833,26 +1094,29 @@ class Runner:
         return {o: stitch([c[o] for c in outs]) for o in outs[0]}
 
     def reset(self) -> None:
-        """Drop carried state; the next step starts a fresh stream at t=0."""
-        self._tails = {}
+        """Drop carried state; the next step starts a fresh stream at t=0.
+        The buffers (and any captured graph over them) are kept and
+        cleared in place."""
+        self._obs_fold()
+        if self._bound:
+            _zero_tree(self._tails)
+        else:
+            self._tails = {}
         if self._sparse is not None:
-            self._sparse = {"dirty": {}, "prev": {}, "seed": {},
-                            "started": False}
+            st = self._sparse
+            for part in ("dirty", "prev", "seed"):
+                if self._bound:
+                    _zero_tree(st[part])
+                else:
+                    st[part] = {}
+            st["started"] = False
+            self._seeded = set()
         self._t = 0
         self.last_seg_dirty = None
-        self._dirty_units = None
         self._total_units = 0
         self._chunks_run = 0
         if self._rev_ring is not None:
             self._rev_ring.clear()
-        if self._mstate is not None:
-            # preserve the registry's running totals (syncs — off-path),
-            # then drop this runner's device accumulator state
-            self._m_dirty.fold_device()
-            if self._m_picks is not None:
-                self._m_picks.fold_device()
-            self._m_frac.fold_device()
-            self._mstate = None
 
     def dirty_stats(self) -> Optional[Dict]:
         """Measured compaction of the sparse body since construction/reset:
@@ -863,7 +1127,7 @@ class Runner:
         counter — a diagnostic call, not part of the steady path."""
         if self._sparse is None or self._total_units == 0:
             return None
-        dirty = int(self._dirty_units)
+        dirty = int(self._work.mstate[0])
         return {"chunks": self._chunks_run, "units": self._total_units,
                 "dirty_units": dirty,
                 "compact": dirty / self._total_units}
@@ -880,14 +1144,11 @@ class Runner:
         return _tm(one, tree)
 
     def _lift(self, tree):
-        """Tensors copied in from a checkpoint's arrays or tensors (on the
-        CPU until the next step puts them on the runner's device, unless
-        they come as tensors on a device already)."""
+        """Tensors copied in from a checkpoint's arrays or tensors (kept
+        until the next step copies them into the runner's buffers)."""
         def one(x):
             t = (x.detach().clone() if torch.is_tensor(x)
                  else torch.from_numpy(np.array(x, copy=True)))
-            if self._device is not None:
-                t = t.to(self._device)
             return t if self.policy.keyed else t[None]
         return _tm(one, tree)
 
@@ -904,7 +1165,8 @@ class Runner:
             out["__sparse"] = {
                 "dirty": {k: strip(v) for k, v in st["dirty"].items()},
                 "prev": {k: strip(v) for k, v in st["prev"].items()},
-                "seed": {o: strip(v) for o, v in st["seed"].items()},
+                "seed": {o: strip(v) for o, v in st["seed"].items()
+                         if o in self._seeded or not self._bound},
                 "started": st["started"]}
         return out
 
@@ -918,7 +1180,7 @@ class Runner:
         sparse change state — raises a ``ValueError`` naming the mismatch.
         ``strict=False`` additionally tolerates inputs absent from the
         checkpoint (their tails re-initialize to φ).  The arrays are
-        copied in.
+        copied in (into the runner's buffers at the next step).
         """
         state = dict(state)
         if "__t" not in state:
@@ -987,6 +1249,7 @@ class Runner:
 
         self._t = int(t)
         self._tails = {k: self._lift(v) for k, v in state.items()}
+        self._bound = False
         if self._sparse is not None:
             st = {"dirty": {}, "prev": {}, "seed": {}, "started": True}
             if sparse_state is not None:
@@ -1020,11 +1283,10 @@ class Runner:
                 if specs[name].left_halo == 0 and name not in st["prev"]:
                     st["prev"][name] = (
                         _tm(lambda x: torch.zeros(x.shape[:-1] + (1,),
-                                                  dtype=x.dtype,
-                                                  device=x.device), tv),
-                        torch.zeros((tm.shape[0], 1), dtype=torch.bool,
-                                    device=tm.device))
+                                                  dtype=x.dtype), tv),
+                        torch.zeros((tm.shape[0], 1), dtype=torch.bool))
             self._sparse = st
+            self._seeded = set(st["seed"])
 
     # -- late-data revision processing ---------------------------------------
     def enable_revision(self, horizon_chunks: int) -> None:
@@ -1034,49 +1296,37 @@ class Runner:
         inputs (:meth:`repro_torch.core.plan.ChangePlan.
         revision_horizon_chunks` sizes the ring for a maximum lateness).
 
-        The ring holds references to the carried tensors, which no step
-        updates in place, so a runner with revision enabled makes no more
-        transfers per chunk than one without (the reference copies its
-        donated state to the host every chunk instead)."""
+        The ring holds copies made on the device (a step rewrites the live
+        tails in place), so a revisable runner reads nothing from the card
+        per chunk (the reference copies its donated state to the host
+        every chunk instead)."""
         if horizon_chunks < 1:
             raise ValueError("horizon_chunks must be >= 1")
         self._rev_ring = collections.deque(maxlen=int(horizon_chunks))
         self.revision_horizon = int(horizon_chunks)
 
     def _revision_step(self, dev: torch.device):
-        """The late-data revision step: ``step(tails, chunks, w, cap) ->
-        (outs, new_tails)``.
-
-        Like the sparse step, the compute is the compacted body of one
-        capacity (:meth:`_compute_local`), never a dense chunk replay; but
-        the dirty units ``w`` arrive as an argument (derived on the host
-        from :func:`repro_torch.core.sparse.retro_segment_mask` over the
-        patched tick times, so the bucket ``cap`` is known without a
-        device read) instead of being diffed on the device, and there is no
-        hold fill: ChangePlan dilation proves every output outside the
-        dirty segments unchanged, so only dirty segments' output ticks are
-        read back (clean segments carry scatter residue)."""
+        """The late-data revision step ``step(work, local)``: ``local`` is
+        the compacted body of one capacity (:meth:`_compute_local`), never
+        a dense chunk replay, over the unit mask ``work.w`` — derived on the
+        host from :func:`repro_torch.core.sparse.retro_segment_mask` over
+        the patched tick times, so its capacity is known without a device
+        read — and no hold fill: ChangePlan dilation proves every output
+        outside the dirty segments unchanged, so only dirty segments'
+        output ticks are read back (clean segments carry scatter residue).
+        The walked tails move to the front of the revision buffers in
+        place."""
         key = self._cache_key("revise", dev)
         cache = self.spec.step_cache
         if key in cache:
             return cache[key]
         self.metrics.tracer.record_compile(self._compile_label(key))
-        names = self._names()
-        K = self._K
+        K, n_segs = self._K, self.n_segs
 
-        def step(tails, chunks, w, cap):
-            bufs = {}
-            for name in names:
-                tv, tm = tails[name]
-                cv, cm = chunks[name]
-                bufs[name] = (_tm(_cat, tv, cv), _cat(tm, cm))
-            full = self._compute_local(cap, dev)(w, bufs)
-            outs = {o: (_tm(lambda x: _ticks(x.reshape(
-                            (K, self.n_segs) + x.shape[1:]), self.n_segs),
-                            fv),
-                        fm.reshape(K, -1))
-                    for o, (fv, fm) in full.items()}
-            return outs, self._new_tails(bufs)
+        def step(work, local):
+            packed = _pack(_per_key(local(work.w, work.bufs), K, n_segs))
+            work.shift()
+            return packed
 
         cache[key] = step
         return step
@@ -1103,7 +1353,8 @@ class Runner:
         true dirtiness, still bit-exact by the sparse exactness
         contract), and ring entries passed en route are refreshed with
         the patched tails so later revisions restore patched history.
-        ``commit=False`` is a read-only what-if replay."""
+        ``commit=False`` is a read-only what-if replay.  On the card each
+        capacity's revision step is a captured graph (one per bucket)."""
         if self._rev_ring is None:
             raise ValueError(
                 "revision disabled — call enable_revision() first")
@@ -1124,23 +1375,27 @@ class Runner:
                 f"no state snapshot for chunk {from_chunk} in the revision "
                 f"ring (have {have}) — the patch is beyond the horizon")
         K, U = self._K, self._U
-        tails = None
         results = []
         n_units = 0
-        last_in = last_sd = last_outs = None
+        rwork = last_outs = last_sd = None
         for i, (ch, sd) in enumerate(zip(chunks, seg_dirty)):
             chunk_in = self._ingest(ch)
             dev = self._chunk_device(chunk_in)
-            if tails is None:
-                tails = {n: _tm(lambda x: x.to(dev), entry["tails"][n])
-                         for n in self._names()}
+            if rwork is None:
+                rwork = self._rwork
+                if (rwork is None or rwork.layout != _layout(chunk_in)
+                        or rwork.dev != dev):
+                    rwork = self._rwork = _Work(self, chunk_in, dev,
+                                                revision=True)
+                for name, dst in rwork.tails().items():
+                    _copy_tree(dst, entry["tails"][name])
             else:
                 # the ring entry for this chunk holds pre-patch tails —
                 # refresh it with the walked (patched) ones so a later
                 # revision restoring from here sees patched history
                 for e in self._rev_ring:
                     if e["chunk"] == from_chunk + i:
-                        e["tails"] = dict(tails)
+                        e["tails"] = _tm(lambda x: x.clone(), rwork.tails())
             sd = np.asarray(sd, bool).reshape(K, self.n_segs)
             cnt = int(sd.sum())
             n_units += cnt
@@ -1148,10 +1403,16 @@ class Runner:
             # device read, and it reaches the card by an asynchronous copy
             w = torch.from_numpy(sd.reshape(U).copy())
             if dev.type == "cuda":
-                w = w.pin_memory().to(dev, non_blocking=True)
-            outs, tails = self._revision_step(dev)(
-                tails, chunk_in, w, sparse_mod.bucket_capacity(cnt, U))
-            last_in, last_sd, last_outs = chunk_in, w, outs
+                w = w.pin_memory()
+            rwork.w.copy_(w, non_blocking=True)
+            rwork.load(chunk_in)
+            cap = sparse_mod.bucket_capacity(cnt, U)
+            rstep = self._revision_step(dev)
+            local = self._compute_local(cap, dev)
+            outs = _unpack(*self._run(
+                rwork, ("revise", cap), self._cache_key("revise", dev, cap),
+                lambda wk: rstep(wk, local)))
+            last_outs, last_sd = outs, sd
             res = {}
             for o, (v, m) in self._postprocess(outs).items():
                 res[o] = SnapshotGrid(value=v, valid=m,
@@ -1160,46 +1421,216 @@ class Runner:
             results.append(res["__out"] if self.spec.solo else res)
 
         if commit and chunks:
-            self._tails = tails
+            for name, dst in self._tails.items():
+                _copy_tree(dst, rwork.tails()[name])
             if self._sparse is not None:
                 st = self._sparse
-                ld = last_sd.reshape(K, self.n_segs)[:, -1]
+                ld = torch.from_numpy(last_sd[:, -1].copy())
+                if rwork.dev.type == "cuda":
+                    ld = ld.pin_memory().to(rwork.dev, non_blocking=True)
                 for name in self._names():
-                    hl = self.spec.input_specs[name].left_halo
-                    if hl:
+                    if self.spec.input_specs[name].left_halo:
                         # conservative: the patched tail is marked fully
                         # dirty — dirtiness only ever widens, and extra
                         # computed segments are bit-identical by the
                         # sparse exactness contract
-                        st["dirty"][name] = torch.ones(
-                            (K, hl), dtype=torch.bool, device=ld.device)
+                        st["dirty"][name].fill_(True)
                     else:
-                        cv, cm = last_in[name]
-                        st["prev"][name] = (
-                            _tm(lambda x: x[..., -1:].clone(), cv),
-                            cm[:, -1:].clone())
-                for o, (sv, sm) in list(st["seed"].items()):
+                        _copy_tree(st["prev"][name], _tm(
+                            lambda x: x[..., -1:], rwork.chunk(name)))
+                for o in list(self._seeded):
                     ov, om = last_outs[o]
-                    st["seed"][o] = (
-                        _tm(lambda x, s: torch.where(_bc(ld, x[..., -1]),
-                                                     x[..., -1], s),
-                            ov, sv),
-                        torch.where(ld, om[:, -1], sm))
+                    sv, sm = st["seed"][o]
+                    _copy_tree(sv, _tm(
+                        lambda x, s: torch.where(_bc(ld, x[..., -1]),
+                                                 x[..., -1], s), ov, sv))
+                    sm.copy_(torch.where(ld, om[:, -1], sm))
         if self.metrics.on:
             self._m_rev_runs.add(1)
             self._m_rev_chunks.add(len(chunks))
             self._m_rev_units.add(n_units)
         return results
 
+    # -- ahead-of-time preparation (repro_torch.serve) -----------------------
+    def example_chunks(self, device=None) -> Dict[str, SnapshotGrid]:
+        """Zero-filled f32 chunks in the external :meth:`step` layout,
+        sized to this runner's geometry, on ``device`` (CUDA unless
+        ``"cpu"`` is asked for): what :meth:`install_executable` prepares
+        steps over when no real chunk is given."""
+        dev = resolve(device)
+        chunks = {}
+        for name in self._names():
+            s = self.spec.input_specs[name]
+            shape = ((self.n_keys, s.core * self.n_segs) if self.policy.keyed
+                     else (s.core * self.n_segs,))
+            chunks[name] = SnapshotGrid(
+                value=torch.zeros(shape, dtype=torch.float32, device=dev),
+                valid=torch.zeros(shape, dtype=torch.bool, device=dev),
+                t0=0, prec=s.prec)
+        return chunks
+
+    def aot_keys(self) -> List[tuple]:
+        """``(label, key)`` of every step one serving process runs at this
+        policy point: the variants of the chunk step, and with revision
+        enabled one revision step per capacity bucket.  Enumerable without
+        building anything, so a warm start can probe the persisted capture
+        manifest first (:mod:`repro_torch.serve.aot`)."""
+        if self.policy.sparse:
+            keys = [("sparse_fused(first)", ("sparse", True)),
+                    ("sparse_fused(steady)", ("sparse", False))]
+        else:
+            keys = [("dense", ("dense",))]
+        if self._rev_ring is not None:
+            keys += [(f"revise({c})", ("revise", c))
+                     for c in sparse_mod.capacity_ladder(self._U)]
+        return keys
+
+    def _prepare(self, work: _Work, key) -> str:
+        """Build the step of ``key`` over ``work`` and, on the card,
+        capture it (skipped when already captured)."""
+        dev = work.dev
+        kind = key[0]
+        if kind == "sparse":
+            if dev.type != "cuda":
+                self._sparse_step(key[1], dev)
+                for c in sparse_mod.capacity_ladder(self._U):
+                    self._sparse_body(c, dev)
+                self._sparse_suffix(dev)
+                return "eager"
+            if key not in work.graphs:
+                self._switched(work, key[1])
+            return "captured"
+        if kind == "dense":
+            step = self._dense_step(dev)
+            ckey = self._cache_key("dense", dev)
+        else:
+            cap = key[1]
+            rstep = self._revision_step(dev)
+            local = self._compute_local(cap, dev)
+            step = lambda wk: rstep(wk, local)  # noqa: E731
+            ckey = self._cache_key("revise", dev, cap)
+        if dev.type != "cuda":
+            return "eager"
+        self._graph(work, key, ckey, step)
+        return "captured"
+
+    def install_executable(self, key, *, label: str = "",
+                           chunks: Optional[Dict] = None) -> str:
+        """Prepare the step of ``key`` (one of :meth:`aot_keys`) before the
+        first chunk, over the runner's live buffers for the layout of
+        ``chunks`` (default :meth:`example_chunks` on CUDA): on the card
+        warm it up and capture its CUDA graph, which the first real chunk
+        then replays (``"captured"``); on the CPU build it
+        (``"eager"``).  A CUDA graph cannot be serialized, so unlike the
+        reference, which installs a deserialized executable here, the
+        graph is captured anew in every process."""
+        chunks = chunks if chunks is not None else self.example_chunks()
+        chunk_in = self._ingest(chunks)
+        dev = self._chunk_device(chunk_in)
+        if key[0] == "revise":
+            if self._rev_ring is None:
+                raise ValueError("revision disabled — call "
+                                 "enable_revision() first")
+            work = self._rwork
+            if work is None or work.layout != _layout(chunk_in) \
+                    or work.dev != dev:
+                work = self._rwork = _Work(self, chunk_in, dev,
+                                           revision=True)
+        else:
+            work = self._live(chunk_in, dev)
+        how = self._prepare(work, key)
+        self.metrics.tracer.record_aot(label or str(key), how)
+        return how
+
+    def staged_steps(self, chunks: Optional[Dict] = None) -> List[dict]:
+        """The steps one chunk runs, with concrete example arguments:
+        ``[{label, key, fn, args}]``, where ``fn(*args)`` runs the step
+        once, eagerly, over a scratch workspace for the layout of
+        ``chunks`` (default :meth:`example_chunks`) with fresh-stream
+        state, leaving the live stream untouched; it returns the step's
+        packed outputs.  A sparse step picks its capacity as the CPU's
+        chunk path does, from the count read on the host.  Building them
+        populates the shared step cache exactly as a first chunk would."""
+        chunks = chunks if chunks is not None else self.example_chunks()
+        chunk_in = self._ingest(chunks)
+        dev = self._chunk_device(chunk_in)
+        seeds = (self._zero_seeds(chunk_in, dev) if self.policy.sparse
+                 else None)
+        steps = []
+        for label, key in self.aot_keys():
+            if key[0] == "sparse":
+                work = _Work(self, chunk_in, dev, seeds=seeds)
+                work.load(chunk_in)
+                fn = functools.partial(self._sparse_eager,
+                                       force_first=key[1])
+            elif key[0] == "dense":
+                work = _Work(self, chunk_in, dev)
+                work.load(chunk_in)
+                fn = self._dense_step(dev)
+            else:
+                work = _Work(self, chunk_in, dev, revision=True)
+                work.load(chunk_in)
+                rstep = self._revision_step(dev)
+                fn = functools.partial(rstep,
+                                       local=self._compute_local(key[1], dev))
+            steps.append({"label": label, "key": key, "fn": fn,
+                          "args": (work,)})
+        return steps
+
+    def chunk_fn(self, variant: str = "steady",
+                 chunks: Optional[Dict] = None):
+        """A whole-chunk function plus concrete example args: one staged
+        step and the result assembly, as :meth:`step` composes them, over a
+        scratch workspace (:meth:`staged_steps`).  ``variant``:
+        ``"steady"`` / ``"first"`` (sparse bodies) or ``"dense"``."""
+        if self.policy.sparse:
+            if variant not in ("steady", "first"):
+                raise ValueError(
+                    f"sparse body has chunk variants 'steady'/'first', "
+                    f"not {variant!r}")
+            want = ("sparse", variant == "first")
+        else:
+            if variant not in ("steady", "dense"):
+                raise ValueError(
+                    f"dense body has chunk variant 'dense', not {variant!r}")
+            want = ("dense",)
+        step = next(s for s in self.staged_steps(chunks) if s["key"] == want)
+        staged = step["fn"]
+
+        def fn(work):
+            outs = _unpack(*staged(work))
+            if self.policy.sparse:
+                outs = outs[0]
+            return self._postprocess(outs)
+
+        return fn, step["args"]
+
+    def seed_shape_spec(self, device=None):
+        """:class:`ShapeDtype` tree of the φ hold seeds (sparse bodies;
+        ``None`` for dense) — plain data, so a persisted plan artifact or
+        capture manifest lets a fresh process :meth:`prime_seed_shapes`
+        and skip the one evaluation of the body that sizes them (run here
+        on ``device`` if no chunk has run it yet)."""
+        if not self.policy.sparse:
+            return None
+        if self._zero_seed_cache is None:
+            chunk_in = self._ingest(self.example_chunks(device))
+            self._zero_seeds(chunk_in, self._chunk_device(chunk_in))
+        return {o: (_tm(ShapeDtype.of, ov), ShapeDtype.of(om))
+                for o, (ov, om) in self._zero_seed_cache.items()}
+
+    def prime_seed_shapes(self, shapes) -> None:
+        """Install persisted seed shapes (:meth:`seed_shape_spec` of a
+        previous process), so the first sparse chunk does not evaluate the
+        body to size them (only their shapes and dtypes are read)."""
+        if shapes is None or not self.policy.sparse:
+            return
+        cpu = torch.device("cpu")
+        self._zero_seed_cache = {
+            o: (_tm(lambda a: a.zeros(cpu), ov), om.zeros(cpu))
+            for o, (ov, om) in shapes.items()}
+
     # -- not ported yet ----------------------------------------------------
-    def staged_steps(self, *args, **kwargs):
-        raise NotImplementedError(
-            "AOT serving (staged_steps, chunk_fn, aot_keys, "
-            "install_executable) is not ported yet: ROADMAP A13")
-
-    chunk_fn = aot_keys = install_executable = seed_shape_spec = \
-        staged_steps
-
     def audit_example_chunks(self, *args, **kwargs):
         raise NotImplementedError(
             "the static-audit surface is not ported yet: ROADMAP A15")

@@ -102,13 +102,30 @@ class IngestRunner:
         ``ChangePlan.revision_horizon_chunks(lateness, chunk_span)`` —
         the smallest ring that guarantees any in-bound late event is
         revisable.
+    watermark_keys:
+        Optional declared key universe for the watermark tracker
+        (strict mode — see :class:`WatermarkTracker`).
+    stage:
+        Optional chunk-staging hook ``{name: grid} -> handle``, applied
+        when a chunk's transfer may start — the serving loop passes its
+        pinned, side-stream copy to the card here (:class:`repro_torch.
+        serve.ServeLoop`).  When a poll seals several chunks at once the
+        next chunk is staged *before* the current one's step, so its
+        transfer overlaps that step (the double-buffered data path).
+        Default: identity.
+    ready:
+        Optional hook ``handle -> {name: grid}``, applied to a staged
+        chunk just before the step that reads it (the serving loop orders
+        its compute stream after that chunk's copy, and after no other).
+        Default: identity.
     device:
         Where sealed grids are built: CUDA unless ``"cpu"`` is asked for
         (raises without a CUDA device otherwise).
     """
 
     def __init__(self, runner, *, lateness: int, policy: str = "revise",
-                 horizon_chunks: Optional[int] = None, device=None):
+                 horizon_chunks: Optional[int] = None, watermark_keys=None,
+                 stage=None, ready=None, device=None):
         if policy not in _POLICIES:
             raise ValueError(
                 f"unknown lateness policy {policy!r} (one of {_POLICIES})")
@@ -128,7 +145,9 @@ class IngestRunner:
         self.horizon_chunks = int(horizon_chunks)
         if policy == "revise":
             runner.enable_revision(self.horizon_chunks)
-        self.tracker = WatermarkTracker(self.lateness)
+        self._stage = stage if stage is not None else (lambda c: c)
+        self._ready = ready if ready is not None else (lambda c: c)
+        self.tracker = WatermarkTracker(self.lateness, keys=watermark_keys)
         self._bufs = {
             name: ReorderBuffer(
                 prec=s.prec, chunk_ticks=s.core * runner.n_segs,
@@ -231,11 +250,21 @@ class IngestRunner:
 
     # -- execution -----------------------------------------------------------
     def _execute(self, rows, names) -> list:
-        """Step a batch of sealed chunk rows in order."""
+        """Step a batch of sealed chunk rows, double-buffered through the
+        staging hooks: chunk i+1 is staged (its copy to the card issued,
+        when the hooks are the serving loop's) before chunk i's step, and
+        chunk i's step waits for chunk i's copy only, so transfer and
+        compute overlap."""
+        def stage(row):
+            return self._stage({n: g for n, (_c, g) in zip(names, row)})
+
         sealed = []
-        for row in rows:
+        nxt = stage(rows[0]) if rows else None
+        for i, row in enumerate(rows):
             c = row[0][0]
-            out = self.runner.step({n: g for n, (_c, g) in zip(names, row)})
+            cur = nxt
+            nxt = stage(rows[i + 1]) if i + 1 < len(rows) else None
+            out = self.runner.step(self._ready(cur))
             sealed.append(SealedChunk(
                 chunk=c, t0=c * self.chunk_span, version=0, outputs=out))
         return sealed
@@ -297,8 +326,10 @@ class IngestRunner:
         c_first = min((t - 1) // span for t in all_times)
         chunks, masks = [], []
         for c in range(c_first, cur):
-            chunks.append({name: buf.sealed_grid(c)
-                           for name, buf in self._bufs.items()})
+            # the patched grids go through the staging hooks too, so a
+            # served runner revises on its own device
+            chunks.append(self._stage({name: buf.sealed_grid(c)
+                                       for name, buf in self._bufs.items()}))
             mask = np.zeros((K, n_segs), bool)
             for name, per_key in self._pending.items():
                 if cp is None:
@@ -311,7 +342,8 @@ class IngestRunner:
                         c * span, cp.out_prec, cp.out_len, n_segs,
                         sorted(ts))
             masks.append(mask if runner.policy.keyed else mask[0])
-        outs = runner.revise(c_first, chunks, masks, commit=True)
+        outs = runner.revise(c_first, [self._ready(ch) for ch in chunks],
+                             masks, commit=True)
         corrections = []
         for i, out in enumerate(outs):
             mk = np.asarray(masks[i]).reshape(K, n_segs)

@@ -30,6 +30,7 @@ _VOID = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _INT = ctypes.c_int
 _I64P = ctypes.POINTER(ctypes.c_longlong)
+_VOIDP = ctypes.POINTER(ctypes.c_void_p)
 _SIGNATURES = {
     "wr_prefix_tile": ([], _INT),
     "wr_max_window": ([], _LL),
@@ -47,6 +48,11 @@ _SIGNATURES = {
     "ft_max_window": ([], _LL),
     "ft_fused_trend": ([_VOID, _VOID, _VOID, _LL, _INT, _INT, _INT, _LL, _LL,
                         _INT, _VOID], _INT),
+    "gs_max_bodies": ([], _INT),
+    "gs_compose": ([_VOID, _VOIDP, _INT, _VOID, _VOID, _VOID, _INT, _VOID,
+                    _VOIDP], _INT),
+    "gs_launch": ([_VOID, _INT, _VOID], _INT),
+    "gs_destroy": ([_VOID], _INT),
 }
 
 

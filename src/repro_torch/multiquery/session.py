@@ -405,6 +405,20 @@ class MultiQuerySession:
             self._rebuild()
         return self._runner.step(chunks)
 
+    def prepare(self, chunks: Optional[Dict[str, SnapshotGrid]] = None
+                ) -> Dict[str, str]:
+        """Build the union runner of the current query set now and prepare
+        each of its steps ahead of the next chunk (``Runner.
+        install_executable``: captured as CUDA graphs on the card, built on
+        the CPU) over the layout of ``chunks`` (default: zero f32 chunks on
+        CUDA).  Returns ``{step label: "captured" | "eager"}``.  An attach
+        or detach rebuilds the runner, and its steps are captured again."""
+        if self._dirty:
+            self._rebuild()
+        return {label: self._runner.install_executable(key, label=label,
+                                                       chunks=chunks)
+                for label, key in self._runner.aot_keys()}
+
     def run(self, inputs: Dict[str, SnapshotGrid], n_chunks: int
             ) -> Dict[str, SnapshotGrid]:
         """Slice ``n_chunks`` chunks from full streams, step through them and

@@ -38,7 +38,7 @@ from typing import Dict, List, Optional, Sequence, Set
 
 from ..core import ir
 
-__all__ = ["SharedPlanCache", "SharingReport"]
+__all__ = ["SharedPlanCache", "SharingReport", "load_plain"]
 
 _PLAN_SCHEMA = "repro_torch.plans/v1"
 _SAFE_MODULES = ("repro_torch.", "numpy.", "builtins.", "collections.",
@@ -52,6 +52,13 @@ class _Unpickler(pickle.Unpickler):
         if not (module + ".").startswith(_SAFE_MODULES):
             raise pickle.UnpicklingError(f"plan store names {module}.{name}")
         return super().find_class(module, name)
+
+
+def load_plain(f):
+    """Unpickle a store of plain data from the open file ``f``: only
+    classes of this package, numpy's and Python's own resolve (the plan
+    store here, the capture manifests of :mod:`repro_torch.serve.aot`)."""
+    return _Unpickler(f).load()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,7 +96,7 @@ class SharedPlanCache:
         if persist and os.path.exists(persist):
             try:
                 with open(persist, "rb") as f:
-                    doc = _Unpickler(f).load()
+                    doc = load_plain(f)
                 if isinstance(doc, dict) and doc.get("schema") == _PLAN_SCHEMA:
                     self._plans = dict(doc["plans"])
             except Exception:

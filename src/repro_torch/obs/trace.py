@@ -14,6 +14,9 @@ miss in ``Runner``'s ``step_cache`` (one built step per (policy,
 geometry) point) calls :meth:`Tracer.record_compile` with the cache key.
 A key built **more than once** means the cache was dropped and rebuilt —
 an unexpected rebuild; :meth:`Tracer.retraces` surfaces exactly those.
+On the card a runner also captures each step's CUDA graph once, at its
+first use: :meth:`Tracer.record_capture` counts captures per label where
+the reference counts compiles, and a steady state records none.
 
 Optional passthrough: with ``REPRO_OBS_JAX_TRACE=1`` (the reference's
 switch, kept under its name), spans also open
@@ -44,6 +47,7 @@ class Tracer:
         self._stack: List[str] = []
         self._spans: Dict[str, Dict] = {}
         self._compiles: Dict[str, int] = {}
+        self._captures: Dict[str, int] = {}
         self._aot: Dict[str, str] = {}
 
     @contextlib.contextmanager
@@ -68,12 +72,18 @@ class Tracer:
         """Note a step-cache miss at a policy point (a step built)."""
         self._compiles[key] = self._compiles.get(key, 0) + 1
 
-    def record_aot(self, key: str, how: str = "loaded") -> None:
-        """Note an AOT executable installed under a staging key
-        (``how``: ``"loaded"`` from a persisted cache or ``"compiled"``
-        ahead of time).  The complement of :meth:`record_compile`: a warm
-        serving start shows AOT loads here and *no* compile records — the
-        tracer-verified zero-compile warm-start proof."""
+    def record_capture(self, key: str) -> None:
+        """Note a CUDA graph captured for a runner's step (its first use
+        on the card, or an ahead-of-time capture)."""
+        self._captures[key] = self._captures.get(key, 0) + 1
+
+    def captures(self) -> Dict[str, int]:
+        return dict(self._captures)
+
+    def record_aot(self, key: str, how: str = "captured") -> None:
+        """Note a step prepared ahead of the first chunk under its key
+        (``how``: ``"captured"`` for a CUDA graph, ``"eager"`` for a step
+        built to run eagerly on the CPU)."""
         self._aot[key] = how
 
     def aot_installs(self) -> Dict[str, str]:
@@ -110,5 +120,6 @@ class Tracer:
     def reset(self) -> None:
         self._spans.clear()
         self._compiles.clear()
+        self._captures.clear()
         self._aot.clear()
         self._stack.clear()

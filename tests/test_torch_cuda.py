@@ -549,10 +549,10 @@ def _count_syncs(fn):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("keyed", [False, True])
-def test_cuda_steady_chunk_synchronizes_once_sparse_never_dense(cuda,
-                                                                keyed):
-    """A steady-state sparse chunk reads the device once (the 4-byte dirty
-    count that picks the bucket); a dense chunk never."""
+def test_cuda_steady_chunk_never_synchronizes(cuda, keyed):
+    """A steady-state chunk is a graph replay: the sparse one picks its
+    bucket on the device, so neither it nor a dense chunk makes a
+    synchronizing call."""
     n_keys, segs = 16, 4
     span = 64 * segs
     vals = (streams.keyed_activity(n_keys, 4 * span, 0.25, 1) if keyed
@@ -564,7 +564,7 @@ def test_cuda_steady_chunk_synchronizes_once_sparse_never_dense(cuda,
     for r in (dense, sparse):
         r.step(chunks[0])
         r.step(chunks[1])
-    assert _count_syncs(lambda: sparse.step(chunks[2])) == 1
+    assert _count_syncs(lambda: sparse.step(chunks[2])) == 0
     assert _count_syncs(lambda: dense.step(chunks[2])) == 0
     snap = sparse.metrics.snapshot()            # the explicit read
     assert snap["counters"]["runner.chunks"]["value"] == 3
@@ -671,9 +671,10 @@ def test_cuda_soe_session_matches_block_session(cuda, keyed):
 
 @pytest.mark.cuda
 def test_cuda_revision_reads_nothing_from_the_card(cuda):
-    """A runner with its revision ring on makes the same one host read per
-    sparse chunk as without it, and ``revise`` makes none: the mask is
-    host data and reaches the card by an asynchronous copy."""
+    """A runner with its revision ring on makes no host read per sparse
+    chunk, as without it, and ``revise`` makes none: the mask is host data
+    and reaches the card by an asynchronous copy, and its bucket's graph
+    was captured ahead (a capture synchronizes; a replay does not)."""
     from repro_torch.core.sparse import retro_segment_mask
     segs, span = 4, 256
     vals = streams.burst_stream(4 * span, 0.05, 2)
@@ -682,9 +683,12 @@ def test_cuda_revision_reads_nothing_from_the_card(cuda):
               for c in range(4)]
     _, r = _fraud_runners(False, 1, segs)
     r.enable_revision(4)
+    for _label, key in r.aot_keys():
+        if key[0] == "revise":
+            assert r.install_executable(key, chunks=chunks[0]) == "captured"
     r.step(chunks[0])
     r.step(chunks[1])
-    assert _count_syncs(lambda: r.step(chunks[2])) == 1
+    assert _count_syncs(lambda: r.step(chunks[2])) == 0
     r.step(chunks[3])
     cp = r.spec.change_plan
     sp = cp.specs["in"]
@@ -713,3 +717,201 @@ def test_cuda_revision_reads_nothing_from_the_card(cuda):
         gm = res[i].valid[tick]
         assert torch.equal(gm, want.valid[sl][tick])
         assert torch.equal(res[i].value[tick][gm], want.value[sl][tick][gm])
+
+
+# ---------------------------------------------------------------------------
+# captured steps: the card's graphs against the CPU's eager steps
+# ---------------------------------------------------------------------------
+
+def _int_vals(shape, seed, rate=0.05):
+    """Piecewise-constant integer prices: exact in f32 in every order of
+    summation, so card and CPU agree bit for bit."""
+    rng = np.random.default_rng(seed)
+    n = shape[-1]
+    change = rng.random(shape) < rate
+    change[..., 0] = True
+    raw = np.floor(rng.random(shape) * 16).astype(np.float32)
+    idx = np.maximum.accumulate(np.where(change, np.arange(n), -1), axis=-1)
+    return np.take_along_axis(raw, idx, axis=-1)
+
+
+def _same(a, b):
+    a_m, b_m = a.valid.cpu(), b.valid.cpu()
+    assert torch.equal(a_m, b_m)
+    assert torch.equal(a.value.cpu()[a_m], b.value.cpu()[b_m])
+
+
+def _mean_runners(keyed, n_keys, segs, out_len=64):
+    """Dense and sparse runners of a short mean minus a long mean, gated
+    on its sign: on integer data its sums are exact and its one division
+    per mean is correctly rounded on both devices (the fraud query's
+    stddev is not: its sqrt and divisions differ by an ulp between card
+    and CPU)."""
+    from repro_torch.core.frontend import TStream
+    s = TStream.source("in", prec=1, keyed=keyed)
+    q = (s.window(16).mean().join(s.window(64).mean(), lambda a, b: a - b)
+         .where(lambda d: d > 0)).node
+    kw = dict(n_keys=n_keys if keyed else None, segs_per_chunk=segs)
+    keys = "vmapped" if keyed else "single"
+    return (Runner(qc.compile_query(q, out_len=out_len),
+                   ExecPolicy(keys=keys), **kw),
+            Runner(qc.compile_query(q, out_len=out_len, sparse=True),
+                   ExecPolicy(body="sparse", keys=keys), **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["dense", "sparse"])
+@pytest.mark.parametrize("keyed", [False, True])
+def test_cuda_captured_steps_equal_cpu_on_integer_data(cuda, body, keyed):
+    """Every chunk on the card is a graph replay (captured at the first
+    use of each variant); on integer data it equals the CPU's eager steps
+    bit for bit, and the sparse body equals the dense one."""
+    n_keys, segs, n_chunks = 24, 4, 6
+    span = 64 * segs
+    shape = (n_keys, span * n_chunks) if keyed else (span * n_chunks,)
+    vals = _int_vals(shape, 5, rate=0.002)   # some segments stay clean
+    ok = np.ones(shape, bool)
+    dense, sparse = _mean_runners(keyed, n_keys, segs)
+    r = sparse if body == "sparse" else dense
+    got = r.run({"in": keyed_grid(vals, ok)}, n_chunks)
+    caps = r.metrics.tracer.captures()
+    assert caps and all(n == 1 for n in caps.values()), caps
+    want = _mean_runners(keyed, n_keys, segs)[body == "sparse"].run(
+        {"in": keyed_grid(vals, ok, device="cpu")}, n_chunks)
+    _same(got, want)
+    if body == "sparse":
+        _same(got, dense.run({"in": keyed_grid(vals, ok)}, n_chunks))
+        assert r.dirty_stats()["dirty_units"] < r.dirty_stats()["units"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sparse", [False, True])
+def test_cuda_captured_union_session_equals_cpu(cuda, sparse):
+    """A keyed union session's chunks are graph replays that equal the
+    CPU's eager session bit for bit on integer prices (mean heads), with no
+    capture after the first two chunks."""
+    from repro_torch.multiquery import MultiQuerySession
+    n_keys, span, n_chunks = 16, 256, 5
+    qs = {k: q for k, q in apps.dashboard_queries(8, keyed=True).items()
+          if int(k[1:]) % 4 < 2}
+    vals = _int_vals((n_keys, span * n_chunks), 9)
+    ok = np.ones(vals.shape, bool)
+    outs = {}
+    for dev in (cuda, "cpu"):
+        sess = MultiQuerySession(span, n_keys=n_keys, sparse=sparse)
+        for name, q in qs.items():
+            sess.attach(name, q)
+        g = {"in": keyed_grid(vals, ok, device=dev)}
+        first = sess.run({"in": g["in"].replace(
+            value=g["in"].value[:, :2 * span],
+            valid=g["in"].valid[:, :2 * span])}, 2)
+        before = dict(sess.metrics.tracer.captures())
+        rest = sess.run({"in": g["in"].replace(
+            value=g["in"].value[:, 2 * span:],
+            valid=g["in"].valid[:, 2 * span:], t0=2 * span)}, n_chunks - 2)
+        assert sess.metrics.tracer.captures() == before
+        outs[str(dev)] = {q: (first[q], rest[q]) for q in qs}
+    for q in qs:
+        for a, b in zip(outs["cuda"][q], outs["cpu"][q]):
+            _same(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_captured_revision_equals_cpu(cuda):
+    """A revision on the card (one captured graph per bucket) returns the
+    CPU's revision bit for bit on integer data, and both commit the same
+    state: the next chunk agrees too."""
+    from repro_torch.core.sparse import retro_segment_mask
+    segs, span = 4, 256
+    vals = _int_vals((5 * span,), 13)
+
+    def chunks(dev):
+        return [{"in": keyed_grid(vals[c * span:(c + 1) * span],
+                                  np.ones(span, bool), t0=c * span,
+                                  device=dev)} for c in range(5)]
+
+    res = {}
+    for dev in (cuda, "cpu"):
+        cs = chunks(dev)
+        _, r = _mean_runners(False, 1, segs)
+        r.enable_revision(4)
+        for c in cs[:4]:
+            r.step(c)
+        cp = r.spec.change_plan
+        sp = cp.specs["in"]
+        t_patch = 2 * span + 6
+        masks = [retro_segment_mask(sp.lookback, sp.lookahead, sp.prec,
+                                    c * span, cp.out_prec, cp.out_len, segs,
+                                    [t_patch]) for c in (2, 3)]
+        patched = [{"in": g["in"].replace(value=g["in"].value.clone())}
+                   for g in cs[2:4]]
+        patched[0]["in"].value[5] += 3.0
+        rev = r.revise(2, patched, masks)
+        nxt = r.step(cs[4])
+        res[str(dev)] = (rev, masks, nxt)
+    (rc, masks, nc), (rp, _, np_) = res["cuda"], res["cpu"]
+    for i, m in enumerate(masks):
+        tick = torch.from_numpy(np.repeat(m, span // segs))
+        gm, wm = rc[i].valid.cpu()[tick], rp[i].valid[tick]
+        assert torch.equal(gm, wm)
+        assert torch.equal(rc[i].value.cpu()[tick][gm], rp[i].value[tick][wm])
+    _same(nc, np_)
+
+
+# ---------------------------------------------------------------------------
+# serving on the card
+# ---------------------------------------------------------------------------
+
+def _serve_query():
+    from repro_torch.core.frontend import TStream
+    s = TStream.source("in", prec=1)
+    mu = s.window(16).mean().shift(1)
+    return s.join(mu, lambda x, m: x - m).where(lambda e: e > 0)
+
+
+def _host_chunks(n, span, seed=3):
+    from repro_torch.core.stream import SnapshotGrid
+    rng = np.random.default_rng(seed)
+    return [{"in": SnapshotGrid(
+        value=rng.integers(0, 100, span).astype(np.float32),
+        valid=np.ones(span, bool), t0=i * span, prec=1)} for i in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["dense", "sparse"])
+def test_cuda_serve_steady_state_makes_no_synchronizing_call(cuda, tmp_path,
+                                                             body):
+    """A served runner captures every step while it warms up; serving host
+    chunks then records no capture, its steady tail runs under PyTorch's
+    sync debug mode set to raise, and the results are the CPU's bit for
+    bit; a second service over the same cache directory starts warm."""
+    from repro_torch.serve import build_service
+    seg, spc, n = 32, 2, 8
+    kw = dict(out_len=seg, segs_per_chunk=spc,
+              policy=ExecPolicy(body=body), cache_dir=str(tmp_path))
+    svc = build_service(_serve_query(), **kw)
+    assert svc.plan_source == "cold"
+    assert set(svc.aot_report.values()) == {"captured"}
+    caps = svc.runner.metrics.tracer.captures()
+    assert caps and all(c == 1 for c in caps.values())
+    chunks = _host_chunks(n, seg * spc)
+    gen = svc.serve(iter(chunks))
+    outs = [next(gen), next(gen)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs += list(gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(outs) == n
+    assert svc.runner.metrics.tracer.captures() == caps
+    cpu = build_service(_serve_query(), device="cpu",
+                        **dict(kw, cache_dir=None))
+    for got, chunk in zip(outs, chunks):
+        _same(got, cpu.step(chunk))
+    snap = svc.runner.metrics.snapshot()
+    assert snap["histograms"]["serve.call_seconds"]["count"] == n
+    warm = build_service(_serve_query(), **kw)
+    assert warm.plan_source == "warm"
+    assert set(warm.aot_report.values()) == {"captured"}
+    _same(warm.step(chunks[0]), outs[0])

@@ -18,6 +18,7 @@ nothing from the card: ``tests/test_torch_cuda.py`` counts it).
 
 Every comparison is exact: the data is integer-valued.
 """
+import jax
 import numpy as np
 import pytest
 import torch
@@ -217,6 +218,30 @@ def test_reorder_patch_precedence_and_horizon_refusal():
     assert float(buf.sealed_grid(3).value[0]) == 1.0
     with pytest.raises(KeyError):
         buf.sealed_grid(1)  # evicted
+
+
+@pytest.mark.parametrize("keyed", [False, True])
+def test_sealed_grid_does_not_alias_its_raster(keyed):
+    """A sealed grid is a copy: a late event that patches the raster
+    afterwards changes what ``sealed_grid`` rebuilds, never the grid the
+    runner was already handed (the reference hands its live validity
+    raster to the step, ROADMAP C9)."""
+    K = 2 if keyed else 1
+    buf = ReorderBuffer(prec=1, chunk_ticks=8, n_keys=K, keyed=keyed,
+                        horizon_chunks=2, device="cpu")
+    for k in range(K):
+        buf.push(Event(0, 3, 1.0), k)
+        buf.push(Event(5, 16, 2.0), k)
+    (c0, g0), (c1, _g1) = buf.seal_all()
+    assert (c0, c1) == (0, 1)
+    v0, m0 = g0.value.clone(), g0.valid.clone()
+    assert not bool(m0[..., 3:5].any())            # the hole before patching
+    times, beyond = buf.patch(Event(3, 5, 7.0), K - 1)
+    assert not beyond and list(times) == [4, 5]
+    assert torch.equal(g0.value, v0) and torch.equal(g0.valid, m0)
+    patched = buf.sealed_grid(0)
+    assert patched.valid[..., 3:5].reshape(K, 2)[K - 1].all()
+    assert patched.value[..., 3:5].reshape(K, 2)[K - 1].tolist() == [7., 7.]
 
 
 # ---------------------------------------------------------------------------
@@ -585,6 +610,19 @@ def test_property_bounded_disorder_is_invisible():
 # the port's IngestRunner against the reference's, one arrival sequence
 # ---------------------------------------------------------------------------
 
+def _settled(res):
+    """The reference's ``poll()``/``flush()`` result once the device work
+    behind it has finished.  Its reorder buffer hands the live numpy
+    validity raster to the jitted step without a copy (ROADMAP C9), so a
+    later ``push`` that patches the raster can race JAX's asynchronous
+    dispatch; waiting here, before the next push, takes the race out of
+    the comparison."""
+    sealed, corrections = res
+    jax.block_until_ready([(x.outputs.value, x.outputs.valid)
+                           for x in list(sealed) + list(corrections)])
+    return res
+
+
 @pytest.mark.parametrize("keyed", [False, True])
 def test_ingest_runner_matches_reference(keyed):
     """One arrival sequence, late events and all, into both packages'
@@ -613,10 +651,10 @@ def test_ingest_runner_matches_reference(keyed):
         key = k if keyed else None
         ing.push("in", ev, key=key)
         ring.push("in", REvent(ev.start, ev.end, ev.payload), key=key)
-        for acc, res in ((got, ing.poll()), (want, ring.poll())):
+        for acc, res in ((got, ing.poll()), (want, _settled(ring.poll()))):
             acc[0].extend(res[0])
             acc[1].extend(res[1])
-    for acc, res in ((got, ing.flush()), (want, ring.flush())):
+    for acc, res in ((got, ing.flush()), (want, _settled(ring.flush()))):
         acc[0].extend(res[0])
         acc[1].extend(res[1])
 
@@ -641,3 +679,90 @@ def test_ingest_runner_matches_reference(keyed):
                  "ingest.corrections", "runner.revision_units"):
         assert (ing.metrics.snapshot()["counters"][name]["value"]
                 == ring.metrics.snapshot()["counters"][name]["value"]), name
+
+
+@pytest.mark.parametrize("declared", [False, True])
+def test_watermark_keys_match_reference(declared):
+    """``watermark_keys=`` declares the watermark's key universe in both
+    packages: a key that has sent nothing holds every seal back (strict
+    mode), one that is not declared is refused.  One arrival sequence in
+    which key 2 starts late: the same chunks seal after the same pushes,
+    with the same outputs, bit for bit."""
+    K, n_chunks = 3, 4
+    rng = np.random.default_rng(23)
+    per_key = [_int_events(rng, n_chunks * CHUNK) for _ in range(K)]
+    first = [(k, ev) for k in (0, 1) for ev in per_key[k]]
+    order = (sorted(first, key=lambda kv: kv[1].start)
+             + [(2, ev) for ev in per_key[2]])
+    keys = [("in", k) for k in range(K)] if declared else None
+    rexe = rqc.compile_query(_query(RTStream, True).node, out_len=SEG,
+                             pallas=False, sparse=True)
+    ring = RIngestRunner(RRunner(rexe, RPolicy(body="sparse",
+                                               keys="vmapped"),
+                                 n_keys=K, segs_per_chunk=SPC),
+                         lateness=4, policy="revise", watermark_keys=keys)
+    ing = IngestRunner(_sparse_runner(True, K), lateness=4, policy="revise",
+                       watermark_keys=keys, device="cpu")
+    got, want = [], []
+    for i, (k, ev) in enumerate(order):
+        ing.push("in", ev, key=k)
+        ring.push("in", REvent(ev.start, ev.end, ev.payload), key=k)
+        got += [(i, s) for s in ing.poll()[0]]
+        want += [(i, s) for s in _settled(ring.poll())[0]]
+    assert [(i, s.chunk) for i, s in got] == [(i, s.chunk) for i, s in want]
+    n_first = len(first)
+    if declared:
+        assert got and got[0][0] >= n_first      # key 2 gated every seal
+    else:
+        assert got and got[0][0] < n_first
+    for (_i, g), (_j, w) in zip(got, want):
+        gm, wm = _np(g.outputs.valid), np.asarray(w.outputs.valid)
+        assert np.array_equal(gm, wm)
+        assert np.array_equal(_np(g.outputs.value)[gm],
+                              np.asarray(w.outputs.value)[wm])
+    if declared:
+        with pytest.raises(KeyError):
+            ing.push("in", Event(0, 1, 1.0), key=3)
+
+
+def test_staging_hooks_stage_ahead_and_ready_before_each_step():
+    """When one poll seals several chunks, ``stage`` is applied to chunk
+    i+1 before chunk i's step and ``ready`` to chunk i just before its
+    step (so a served step waits for its own copy only), and revision
+    chunks pass through both hooks before ``revise``."""
+    log = []
+    r = _sparse_runner()
+    step, revise = r.step, r.revise
+
+    def t0(chunks):
+        return chunks["in"].t0
+
+    def logged_step(chunks):
+        log.append(("step", t0(chunks)))
+        return step(chunks)
+
+    def logged_revise(c_first, chunks, masks, **kw):
+        log.append(("revise", [t0(c) for c in chunks]))
+        return revise(c_first, chunks, masks, **kw)
+
+    r.step, r.revise = logged_step, logged_revise
+    ing = IngestRunner(
+        r, lateness=0, policy="revise", horizon_chunks=4, device="cpu",
+        stage=lambda c: log.append(("stage", t0(c))) or ("handle", c),
+        ready=lambda h: log.append(("ready", t0(h[1]))) or h[1])
+    rng = np.random.default_rng(4)
+    events = _int_events(rng, 3 * CHUNK)
+    for ev in events:
+        ing.push("in", ev)
+    sealed, _ = ing.poll()
+    assert [s.chunk for s in sealed] == [0, 1, 2]
+    a, b = CHUNK, 2 * CHUNK
+    assert log == [("stage", 0), ("stage", a), ("ready", 0), ("step", 0),
+                   ("stage", b), ("ready", a), ("step", a), ("ready", b),
+                   ("step", b)]
+    log.clear()
+    ing.push("in", Event(2, 3, 99.0))          # late: patches chunk 0
+    _, corrections = ing.poll()
+    assert corrections
+    assert log == [("stage", 0), ("stage", a), ("stage", b), ("ready", 0),
+                   ("ready", a), ("ready", b), ("revise", [0, a, b])]

@@ -132,6 +132,32 @@ def test_session_matches_independent_runner_unkeyed(sparse):
 
 
 @pytest.mark.parametrize("sparse", [False, True])
+def test_prepared_session_matches_the_reference_session(sparse):
+    """A session whose union steps were prepared ahead (``prepare``, what
+    a served session does before its first chunk) computes the reference
+    session's bits: the mean-only heads exactly, the stddev heads within
+    ``STD_TOL``."""
+    vals, valid = _int_stream((K, SPAN * N_CHUNKS), seed=4, top=16)
+    sess = MultiQuerySession(SPAN, n_keys=K, sparse=sparse)
+    ref = RSession(SPAN, pallas=False, n_keys=K, sparse=sparse)
+    for (name, q), (_n, rq) in zip(_dash(True).items(),
+                                   _dash(True, pkg=RA).items()):
+        sess.attach(name, q)
+        ref.attach(name, rq)
+    assert sess.runner is None
+    first = {"in": _grid(vals[:, :SPAN], valid[:, :SPAN])}
+    report = sess.prepare(first)
+    assert report and set(report.values()) == {"eager"}
+    labels = {"sparse_fused(first)", "sparse_fused(steady)"} if sparse \
+        else {"dense"}
+    assert set(report) == labels
+    got = sess.run({"in": _grid(vals, valid)}, N_CHUNKS)
+    want = ref.run({"in": _rgrid(vals, valid)}, N_CHUNKS)
+    for name in got:
+        _assert_head(got[name], want[name], name, f"{name} sparse={sparse}")
+
+
+@pytest.mark.parametrize("sparse", [False, True])
 def test_session_matches_independent_keyed_runner(sparse):
     queries = _dash(keyed=True, n=6)
     vals, valid = _int_stream((K, SPAN * N_CHUNKS), seed=4, p_valid=0.85)

@@ -27,6 +27,17 @@ def _modules():
         repro_torch.__path__, "repro_torch."))
 
 
+def test_the_rules_cover_the_serving_package():
+    mods = set(_modules())
+    assert {"repro_torch.serve", "repro_torch.serve.aot",
+            "repro_torch.serve.loop", "repro_torch.serve.ring",
+            "repro_torch.serve.__main__",
+            "repro_torch.engine.capture"} <= mods
+    paths = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {"serve/aot.py", "serve/loop.py", "serve/ring.py",
+            "serve/__main__.py"} <= paths
+
+
 def test_importing_the_port_loads_no_jax_and_no_reference():
     code = ("import importlib, sys\n"
             f"for m in {_modules()!r}:\n"
@@ -67,6 +78,13 @@ def _ingest_runner(**kw):
                         **kw)
 
 
+def _service(**kw):
+    """A served runner: it prepares its steps on the device it is given."""
+    from repro_torch.serve import build_service
+    return build_service(streams.fraud_query(16), out_len=32,
+                         segs_per_chunk=2, **kw)
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -86,6 +104,7 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch):
                                          np.ones((2, 8), bool), **kw),
                  lambda **kw: ReorderBuffer(prec=1, chunk_ticks=8, **kw),
                  lambda **kw: _ingest_runner(**kw),
+                 lambda **kw: _service(**kw),
                  lambda **kw: convert.state_from_numpy(
                      {"in": (np.zeros(4), np.ones(4, bool)), "__t": 0},
                      **kw)):

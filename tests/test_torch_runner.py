@@ -382,10 +382,12 @@ def test_policy_values_describe_and_out_of_scope_axes():
         r.revise(0, [], [])
     r.enable_revision(2)
     assert r.revision_horizon == 2
-    for call, item in ((r.staged_steps, "A13"), (r.chunk_fn, "A13"),
-                       (r.aot_keys, "A13"), (r.audit_example_chunks, "A15")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    # the serving surface is ported (ROADMAP A13); the audit surface waits
+    # for A15
+    assert [label for label, _ in r.aot_keys()] == [
+        "dense", "revise(1)"]
+    with pytest.raises(NotImplementedError, match="A15"):
+        r.audit_example_chunks()
     with pytest.raises(NotImplementedError, match="A14"):
         KeyedEngine(_exe(True), n_keys=4, mesh=object())
     with pytest.raises(NotImplementedError, match="A14"):
