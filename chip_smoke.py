@@ -48,7 +48,7 @@ Phases (each raises on failure; the script then exits non-zero):
    given (from the runner's own ``runner.*`` metrics, or the ``sparse.*``
    counters of the one-shot path), except where every unit is dirty by
    design, where every chunk must have picked the full-capacity bucket.
-   In phases 3-10 the launch counts are set to 0 just before each timed
+   In phases 3-11 the launch counts are set to 0 just before each timed
    main-path call and read just after it; the warm-up call before it and
    the ``torch.profiler`` run after it (one partition, batch or chunk:
    device busy time, idle share, top kernels) are outside.  From phase 5
@@ -100,12 +100,38 @@ Phases (each raises on failure; the script then exits non-zero):
    recorded from the wrappers while the service warms up (and captures
    every step), are held against their plain versions; the served
    latency results against the same requests served on the CPU.
-11. One JSON line with every kernel's launches on the main path (the sum
-   of the windows of phases 3-10), its error against its plain version, its
+11. Mesh placement (``torch.distributed``) on the 1-rank NCCL mesh that
+   ``launch.mesh.make_local_mesh()`` starts on the card (NCCL refuses two
+   ranks on one card, so the multi-rank exchange is not exercised here):
+   ``shard_map_run`` of the trend app and the fraud query (and the fraud
+   query with the subtract-on-evict sum) over 2**24 ticks, dense and
+   sparse, against ``partition_run(..., n_parts=1)``; ``shard_union_run``
+   of phase 8's 16 dashboard queries over 2**24 ticks against the session;
+   ``Runner(placement=mesh_placement(mesh))`` in phase 6's keyed fraud
+   cells (16384 keys, 1% and 100% active, dense and sparse) and phase 5's
+   single-stream fraud sparse cell, against the local runner over the same
+   chunks, with no synchronizing call in a steady chunk and no capture
+   after warm-up; ``KeyedEngine(mesh=)`` at phase 6's width and phase 8's
+   keyed session (1% active, sparse) with ``mesh=``, both on integer
+   prices.  Every mesh result must equal its local counterpart bit for
+   bit; the inputs are phases 5-8's, made again from their seeds.  Both
+   sides run the same kernels at the same shapes, so every shape the
+   phase calls ``sliding_assoc``, ``seg_dirty`` and ``prefix_scan`` at
+   (recorded from the wrappers through every warm-up, capture and
+   launch-count window of the phase) is also held against the kernel's
+   plain version.  Each cell prints its ms per call or chunk beside the
+   local one's (an untimed mesh call in the launch-count window, then
+   local, mesh, mesh, local timed in turns), their difference, and the
+   runners' device busy time and idle share of one steady chunk; the
+   phase prints
+   its launches of ``sliding_assoc``, ``seg_dirty`` and ``prefix_scan``,
+   the NCCL version and the device count.
+12. One JSON line with every kernel's launches on the main path (the sum
+   of the windows of phases 3-11), its error against its plain version, its
    times and its bound.  ``fused_trend`` has no caller on any path (nor in
    the reference), so its launches are 0; phase 2 holds it against its
    plain version.
-12. The last line: ``{"ok": true, "device": {...}}``.
+13. The last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 before printing any result.
 """
@@ -778,16 +804,22 @@ def wrapper_host_parts(dev, mats, geoms, n_segs: int) -> dict:
     return out
 
 
-def record_shapes(fn) -> dict:
-    """Every ``sliding_assoc`` shape (``[R, T, W, op, calls]``) and every
+def record_shapes(fn, seen: dict = None) -> dict:
+    """Every ``sliding_assoc`` shape (``[R, T, W, op, calls]``), every
     ``seg_dirty`` geometry (``[[(shape, dtype) of each row matrix],
-    geoms, n_segs, calls]``) the wrappers see while ``fn()`` runs (their
-    module attributes are swapped for recorders, so every caller is
-    seen, a step being warmed up before its capture among them)."""
+    geoms, n_segs, calls]``) and every ``prefix_scan`` input
+    (``[R, T, dtype, 16-byte aligned, calls]``) the wrappers see while
+    ``fn()`` runs (their module attributes are swapped for recorders, so
+    every caller is seen, a step being warmed up before its capture among
+    them).  Given ``seen`` (kernel -> shape -> calls), the calls add into
+    it and the result covers every call recorded there."""
     from repro_torch.kernels import sparse_compact as sc
     from repro_torch.kernels import window_reduce as wr
-    slid, segs = {}, {}
-    orig_s, orig_d = wr.sliding_assoc, sc.seg_dirty
+    seen = {} if seen is None else seen
+    slid = seen.setdefault("sliding_assoc", {})
+    segs = seen.setdefault("seg_dirty", {})
+    pre = seen.setdefault("prefix_scan", {})
+    orig_s, orig_d, orig_p = wr.sliding_assoc, sc.seg_dirty, wr.prefix_scan
 
     def sliding(x, window, op):
         key = (*x.shape, int(window), op)
@@ -800,13 +832,29 @@ def record_shapes(fn) -> dict:
         segs[key] = segs.get(key, 0) + 1
         return orig_d(mats, geoms, n_segs)
 
+    def prefix(x):
+        key = (*x.shape, x.dtype, x.data_ptr() % 16 == 0)
+        pre[key] = pre.get(key, 0) + 1
+        return orig_p(x)
+
     wr.sliding_assoc, sc.seg_dirty = sliding, seg_dirty
+    wr.prefix_scan = prefix
     try:
         fn()
     finally:
         wr.sliding_assoc, sc.seg_dirty = orig_s, orig_d
-    return {"sliding_assoc": [[*k, n] for k, n in slid.items()],
-            "seg_dirty": [[*k, n] for k, n in segs.items()]}
+        wr.prefix_scan = orig_p
+    return {k: [[*key, n] for key, n in v.items()] for k, v in seen.items()}
+
+
+def recording(seen: dict, fn):
+    """``fn`` made to record its kernels' shapes into ``seen``
+    (:func:`record_shapes`) each time it is called; returns ``fn()``."""
+    def run():
+        box = []
+        record_shapes(lambda: box.append(fn()), seen)
+        return box[0]
+    return run
 
 
 def _changes(shape, dtype, gen):
@@ -819,11 +867,12 @@ def _changes(shape, dtype, gen):
 
 
 def hold_shapes(dev, errs: dict, label: str, shapes: dict) -> None:
-    """Hold both change-path kernels at shapes recorded by
-    :func:`record_shapes` against their plain versions on the card:
-    ``sliding_assoc`` on N(100, 5) rows (sums within a few ulps of a
-    float64 sum, max/min exact), ``seg_dirty`` on piecewise-constant rows
-    of the recorded dtypes (exact)."""
+    """Hold the kernels at shapes recorded by :func:`record_shapes`
+    against their plain versions on the card: ``sliding_assoc`` on
+    N(100, 5) rows (sums within a few ulps of a float64 sum, max/min
+    exact), ``seg_dirty`` on piecewise-constant rows of the recorded dtypes
+    (exact), ``prefix_scan`` on N(0, 1) rows of the recorded dtype and
+    alignment (as phase 2 holds it: against the float64 scan)."""
     import torch
     from repro_torch.kernels import ref, sparse_compact as sc
     from repro_torch.kernels import window_reduce as wr
@@ -847,9 +896,19 @@ def hold_shapes(dev, errs: dict, label: str, shapes: dict) -> None:
         if not torch.equal(got, want):
             raise AssertionError(f"seg_dirty {label} {geoms}: kernel != "
                                  "plain")
-    log(f"{label}: sliding_assoc at {len(shapes['sliding_assoc'])} shapes "
-        f"and seg_dirty at {len(shapes['seg_dirty'])} geometries recorded "
-        "on the served path agree with their plain versions")
+    prefix = shapes.get("prefix_scan", [])
+    for R, T, dtype, aligned, _calls in prefix:
+        x = torch.randn(R, T, generator=gen).to(dev).to(dtype).contiguous()
+        if not aligned:
+            x = misaligned(x)
+        e = sum_check(f"prefix_scan {label} ({R},{T}) {dtype}",
+                      wr.prefix_scan(x), ref.prefix_sum_ref(x.float()),
+                      torch.cumsum(x.double(), dim=-1))
+        errs["prefix_scan"] = max(errs["prefix_scan"], e)
+    log(f"{label}: sliding_assoc at {len(shapes['sliding_assoc'])} shapes, "
+        f"seg_dirty at {len(shapes['seg_dirty'])} geometries and "
+        f"prefix_scan at {len(prefix)} shapes recorded on the path agree "
+        "with their plain versions")
 
 
 def time_runner_shapes(dev, errs: dict, rows: dict, runners: dict):
@@ -2178,6 +2237,299 @@ def run_serving(dev, main_launches: dict, errs: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: mesh placement on a 1-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+def _timed(fn):
+    """``fn()`` and its seconds on the host clock, the card finished."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _in_turns(launches: dict, seen: dict, local_fn, mesh_fn) -> tuple:
+    """One mesh call inside a launch-count window, the shapes its kernels
+    are called at recorded into ``seen`` (not timed); then the local call
+    and the mesh call timed in turns (local, mesh, mesh, local).  Returns
+    both results and the smaller time of each."""
+    got, _ = drive(launches, recording(seen, mesh_fn))
+    want, tl1 = _timed(local_fn)
+    _, tm1 = _timed(mesh_fn)
+    _, tm2 = _timed(mesh_fn)
+    _, tl2 = _timed(local_fn)
+    return want, got, min(tl1, tl2), min(tm1, tm2)
+
+
+def mesh_one_shot(dev, mesh, launches: dict, seen: dict) -> dict:
+    """``shard_map_run`` against ``partition_run(..., n_parts=1)``."""
+    from repro_torch.core import compile as qc
+    from repro_torch.core.parallel import partition_run, shard_map_run
+    from repro_torch.data import apps as A
+    from repro_torch.data import streams
+    n = N_TICKS
+    trend = A.make_app("trend")
+    data = trend.make_input(n, 0)
+    for d in data.values():
+        d["value"] = np.floor(d["value"])        # integer prices
+    cells = [("trend", trend.query.node, A.make_grids(data, device=dev),
+              "block"),
+             ("fraud", streams.fraud_query(FRAUD_WINDOW).node,
+              streams.burst_grids(n, 0.01, 0, device=dev), "block"),
+             ("fraud soe", streams.fraud_query(FRAUD_WINDOW).node,
+              streams.burst_grids(n, 0.01, 0, device=dev), "soe")]
+    out = {}
+    for name, q, grids, algo in cells:
+        for sparse in (False, True):
+            exe = qc.compile_query(q, out_len=n, sparse=sparse,
+                                   sum_algo=algo)
+            # the first use of each is not timed
+            recording(seen, lambda: shard_map_run(exe, grids, mesh))()
+            partition_run(exe, grids, 0, 1)
+            want, got, tl, tm = _in_turns(
+                launches, seen, lambda: partition_run(exe, grids, 0, 1),
+                lambda: shard_map_run(exe, grids, mesh))
+            label = f"{name} {'sparse' if sparse else 'dense'}"
+            if not _same_bits(want, got):
+                raise AssertionError(f"mesh shard_map_run {label} != "
+                                     "partition_run")
+            out[label] = {"ms": tm * 1e3, "local_ms": tl * 1e3}
+            log(f"mesh shard_map_run {label} 2**24: {tm * 1e3:.3f} ms "
+                f"against partition_run {tl * 1e3:.3f} ms (mesh - local "
+                f"{(tm - tl) * 1e3:+.3f} ms); equal bit for bit")
+    return out
+
+
+def mesh_union(dev, mesh, launches: dict, seen: dict) -> dict:
+    """``shard_union_run`` of phase 8's dashboard queries against the
+    session over the same span, on integer prices."""
+    from repro_torch.data import apps as A
+    from repro_torch.multiquery import shard_union_run
+    rng = np.random.default_rng(7)
+    vals = np.floor(rng.random(MQ_TICKS) * 16).astype(np.float32)
+    grids = {"in": _grid(vals, dev)}
+    qs = A.dashboard_queries(MQ_QUERIES)
+    sess = _dash_session(qs, MQ_TICKS, 1, False)
+    sess.run(grids, 1)                                 # first use
+    recording(seen, lambda: shard_union_run(qs, MQ_TICKS, grids, mesh))()
+    want, got, tl, tm = _in_turns(
+        launches, seen, lambda: (sess.reset(), sess.run(grids, 1))[1],
+        lambda: shard_union_run(qs, MQ_TICKS, grids, mesh))
+    if not _same_heads(want, got):
+        raise AssertionError("mesh shard_union_run != session")
+    # the one-shot union runs eagerly, the session's chunk is one captured
+    # graph: the busy time and idle share say how much is dispatch
+    prof = device_profile(lambda: shard_union_run(qs, MQ_TICKS, grids, mesh),
+                          tm)
+    log(f"mesh shard_union_run, {MQ_QUERIES} dashboard queries over 2**24 "
+        f"ticks: {tm * 1e3:.3f} ms against the session's one chunk "
+        f"{tl * 1e3:.3f} ms (mesh - local {(tm - tl) * 1e3:+.3f} ms); "
+        f"every head equal bit for bit")
+    log(f"  one call: {_profile_text(prof)}")
+    return {"ms": tm * 1e3, "local_ms": tl * 1e3, "profile": prof}
+
+
+def mesh_runner_cell(dev, mesh, launches: dict, seen: dict, label: str,
+                     query, grids: dict, n_keys: int, seg: int, spc: int,
+                     n_chunks: int, body: str) -> dict:
+    """One runner cell at ``placement=mesh`` beside the local runner over
+    the same chunks: both captured ahead, timed in turns; equal bit for
+    bit; a steady mesh chunk makes no synchronizing call and captures
+    nothing; one steady chunk of each profiled."""
+    from repro_torch.core import compile as qc
+    from repro_torch.engine import ExecPolicy, Runner, mesh_placement
+    from repro_torch.serve import aot_capture
+    keys = "vmapped" if n_keys > 1 else "single"
+    kw = dict(n_keys=n_keys if n_keys > 1 else None, segs_per_chunk=spc)
+    span = seg * spc
+    exe = qc.compile_query(query, out_len=seg, sparse=body == "sparse")
+    local = Runner(exe, ExecPolicy(body=body, keys=keys), **kw)
+    meshr = Runner(exe, ExecPolicy(body=body, keys=keys,
+                                   placement=mesh_placement(mesh)), **kw)
+    aot_capture(local, chunks=_chunk(grids, 0, span))
+    drive(launches, recording(seen, lambda: aot_capture(
+        meshr, chunks=_chunk(grids, 0, span))))
+    caps = dict(meshr.metrics.tracer.captures())
+
+    def again(r):
+        r.reset()
+        return r.run(grids, n_chunks)
+
+    want, got, tl, tm = _in_turns(launches, seen, lambda: again(local),
+                                  lambda: again(meshr))
+    if not _same_bits(want, got):
+        raise AssertionError(f"mesh runner {label} {body} != local")
+    del want, got
+    prof = {}
+    for name, r in (("local", local), ("mesh", meshr)):
+        r.reset()
+        r.step(_chunk(grids, 0, span))
+        # a first profile of this runner's replays is thrown away (one
+        # such first profile on an H100 reported a replay without its
+        # kernels)
+        device_profile(lambda: r.step(_chunk(grids, 1, span)), 1.0)
+        prof[name] = device_profile(lambda: r.step(_chunk(grids, 2, span)),
+                                    (tl if name == "local" else tm)
+                                    / n_chunks)
+    syncs = count_syncs(lambda: meshr.step(_chunk(grids, 3, span)))
+    if syncs:
+        raise AssertionError(f"mesh runner {label} {body}: a steady chunk "
+                             f"made {syncs} synchronizing calls")
+    if meshr.metrics.tracer.captures() != caps:
+        raise AssertionError(f"mesh runner {label} {body}: captured after "
+                             f"warm-up ({caps} -> "
+                             f"{meshr.metrics.tracer.captures()})")
+    ms, ms_l = tm / n_chunks * 1e3, tl / n_chunks * 1e3
+    log(f"mesh runner {label} {body:6s}: {ms:.3f} ms per chunk against "
+        f"local {ms_l:.3f} ms (mesh - local {ms - ms_l:+.3f} ms); equal "
+        f"bit for bit; host reads per steady chunk {syncs}; no capture "
+        "after warm-up")
+    log(f"  one chunk, mesh: {_profile_text(prof['mesh'])}")
+    log(f"  one chunk, local: {_profile_text(prof['local'])}")
+    return {"ms_per_chunk": ms, "local_ms_per_chunk": ms_l,
+            "host_reads_per_chunk": syncs, "chunks": n_chunks,
+            "profile": prof["mesh"], "local_profile": prof["local"]}
+
+
+def mesh_runners(dev, mesh, launches: dict, seen: dict) -> dict:
+    from repro_torch.data import streams
+    out = {}
+    n = RUN_SEG * RUN_SPC * RUN_CHUNKS
+    grids = {"in": _grid(streams.burst_stream(n, 0.01, 0), dev)}
+    out["fraud_single_sparse"] = mesh_runner_cell(
+        dev, mesh, launches, seen, "fraud 2**24", streams.fraud_query(
+            FRAUD_WINDOW).node, grids, 1, RUN_SEG, RUN_SPC, RUN_CHUNKS,
+        "sparse")
+    del grids
+    T = RK_SEG * RK_SPC * RK_CHUNKS
+    for rate in (0.01, 1.0):
+        grids = {"in": _grid(streams.keyed_activity(RK_KEYS, T, rate, 0),
+                             dev)}
+        for body in ("dense", "sparse"):
+            out[f"fraud_keyed_{rate:g}_{body}"] = mesh_runner_cell(
+                dev, mesh, launches, seen, f"keyed fraud {RK_KEYS} keys, "
+                f"{rate:.0%} active", streams.fraud_query(
+                    FRAUD_WINDOW, keyed=True).node, grids, RK_KEYS, RK_SEG,
+                RK_SPC, RK_CHUNKS, body)
+        del grids
+    return out
+
+
+def mesh_keyed(dev, mesh, launches: dict, seen: dict) -> dict:
+    """``KeyedEngine(mesh=)`` at phase 6's width and phase 8's keyed
+    session with ``mesh=`` (1% active, sparse), on integer prices, against
+    their local counterparts."""
+    import warnings
+    from repro_torch.core import compile as qc
+    from repro_torch.data import apps as A
+    from repro_torch.data import streams
+    from repro_torch.engine import KeyedEngine
+    from repro_torch.multiquery import MultiQuerySession
+    out = {}
+    T = RK_SEG * RK_SPC * RK_CHUNKS
+    grids = {"in": _grid(streams.keyed_activity(RK_KEYS, T, 0.01, 0), dev)}
+    exe = qc.compile_query(streams.fraud_query(FRAUD_WINDOW,
+                                               keyed=True).node,
+                           out_len=RK_SEG * RK_SPC, sparse=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        local = KeyedEngine(exe, n_keys=RK_KEYS, sparse=True)
+        meshe = KeyedEngine(exe, n_keys=RK_KEYS, sparse=True, mesh=mesh)
+    n_parts = T // (RK_SEG * RK_SPC)
+    local.run(grids, n_parts)                    # first use
+    drive(launches, recording(seen, lambda: (meshe.run(grids, n_parts),
+                                             meshe.reset())))
+    want, got, tl, tm = _in_turns(
+        launches, seen,
+        lambda: (local.reset(), local.run(grids, n_parts))[1],
+        lambda: (meshe.reset(), meshe.run(grids, n_parts))[1])
+    if not _same_bits(want, got):
+        raise AssertionError("mesh KeyedEngine != local")
+    out["keyed_engine"] = {"ms_per_chunk": tm / n_parts * 1e3,
+                           "local_ms_per_chunk": tl / n_parts * 1e3}
+    log(f"mesh KeyedEngine {RK_KEYS} keys, 1% active, sparse: "
+        f"{tm / n_parts * 1e3:.3f} ms per chunk against local "
+        f"{tl / n_parts * 1e3:.3f} ms (mesh - local "
+        f"{(tm - tl) / n_parts * 1e3:+.3f} ms); equal bit for bit")
+    del grids, want, got
+    rng = np.random.default_rng(7)
+    vals = np.floor(rng.random((MQ_KEYS, MQ_KEY_TICKS)) * 16).astype(
+        np.float32)
+    vals = held_keys(vals, 0.01, 0)
+    grids = {"in": _grid(vals, dev)}
+    n_chunks = MQ_KEY_TICKS // MQ_KEY_SPAN
+    qs = A.dashboard_queries(MQ_QUERIES, keyed=True)
+    sessions = []
+    for m in (None, mesh):
+        sess = MultiQuerySession(MQ_KEY_SPAN, n_keys=MQ_KEYS, sparse=True,
+                                 mesh=m)
+        for name, q in qs.items():
+            sess.attach(name, q)
+        recording(seen, lambda: sess.prepare(_chunk(grids, 0,
+                                                    MQ_KEY_SPAN)))()
+        sessions.append(sess)
+    want, got, tl, tm = _in_turns(
+        launches, seen,
+        lambda: (sessions[0].reset(), sessions[0].run(grids, n_chunks))[1],
+        lambda: (sessions[1].reset(), sessions[1].run(grids, n_chunks))[1])
+    if not _same_heads(want, got):
+        raise AssertionError("mesh keyed session != local")
+    sessions[1].reset()
+    for c in range(2):
+        sessions[1].step(_chunk(grids, c, MQ_KEY_SPAN))
+    syncs = count_syncs(lambda: sessions[1].step(_chunk(grids, 2,
+                                                        MQ_KEY_SPAN)))
+    if syncs:
+        raise AssertionError(f"mesh keyed session: a steady chunk made "
+                             f"{syncs} synchronizing calls")
+    ms, ms_l = tm / n_chunks * 1e3, tl / n_chunks * 1e3
+    out["keyed_session"] = {"ms_per_chunk": ms, "local_ms_per_chunk": ms_l,
+                            "host_reads_per_chunk": syncs}
+    log(f"mesh keyed session {MQ_QUERIES} queries, {MQ_KEYS} keys, 1% "
+        f"active, sparse, integer prices: {ms:.3f} ms per chunk against "
+        f"local {ms_l:.3f} ms (mesh - local {ms - ms_l:+.3f} ms); every "
+        f"head equal bit for bit; host reads per steady chunk {syncs}")
+    return out
+
+
+def run_mesh(dev, main_launches: dict, errs: dict) -> dict:
+    """Phase 11: every mesh-placed entry point on the 1-rank NCCL mesh,
+    held against its local counterpart; every shape the phase called a
+    kernel at (warm-ups, captures and the launch-count windows recorded)
+    held against the kernel's plain version."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    t0 = time.perf_counter()
+    mesh = make_local_mesh()
+    made = time.perf_counter() - t0
+    nccl = ".".join(str(x) for x in torch.cuda.nccl.version())
+    log(f"mesh {mesh} over {dist.get_backend()} (NCCL {nccl}), "
+        f"{dist.get_world_size()} rank, torch.cuda.device_count() "
+        f"{torch.cuda.device_count()}; made and warmed in {made:.2f} s")
+    launches, seen = {}, {}
+    out = {"nccl": nccl, "device_count": torch.cuda.device_count(),
+           "mesh_seconds": made,
+           "one_shot": mesh_one_shot(dev, mesh, launches, seen),
+           "union": mesh_union(dev, mesh, launches, seen),
+           "runner": mesh_runners(dev, mesh, launches, seen)}
+    out.update(mesh_keyed(dev, mesh, launches, seen))
+    hold_shapes(dev, errs, "mesh", record_shapes(lambda: None, seen))
+    for k, n in launches.items():
+        main_launches[k] = main_launches.get(k, 0) + n
+    for k in ("sliding_assoc", "seg_dirty", "prefix_scan"):
+        if not launches.get(k, 0):
+            raise AssertionError(f"{k} was never launched in the mesh phase")
+    log("mesh phase launches: " + ", ".join(
+        f"{k} {n}" for k, n in launches.items() if n))
+    out["launches"] = launches
+    dist.destroy_process_group()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "prefix_scan": ("src/repro_torch/kernels/csrc/window_reduce.cu",
@@ -2228,12 +2580,13 @@ def main() -> int:
     session_launches, ingest_launches = {}, {}
     sessions = run_sessions(dev, session_launches)
     ingest = run_ingest(dev, ingest_launches)
-    serve_launches = {}
+    serve_launches, mesh_launches = {}, {}
     serving = run_serving(dev, serve_launches, errs)
+    mesh = run_mesh(dev, mesh_launches, errs)
     windows = {"partition_run": single, "batch_run": keyed_launches,
                "runner": runner_launches, "sparse_run": one_shot_launches,
                "session": session_launches, "ingest": ingest_launches,
-               "serve": serve_launches}
+               "serve": serve_launches, "mesh": mesh_launches}
     launches = {k: sum(w.get(k, 0) for w in windows.values())
                 for k in KERNELS}
     for k in ("seg_dirty",):
@@ -2255,6 +2608,7 @@ def main() -> int:
     detail = {"card": card, "apps": apps, "keyed": keyed,
               "runner": runners, "sparse_run": one_shot,
               "session": sessions, "ingest": ingest, "serve": serving,
+              "mesh": mesh,
               "kernels": {f"{k}/{lab}": v for (k, lab), v in rows.items()},
               "launches": dict(windows, total=launches)}
     Path("out/chip_smoke.json").write_text(json.dumps(detail,

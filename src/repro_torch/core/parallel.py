@@ -1,37 +1,55 @@
-"""Partitioned and keyed TiLT query execution (port of the one-shot half of
+"""Partitioned, time-sharded and keyed TiLT query execution (port of
 ``repro.core.parallel``).
 
 Boundary resolution gives a per-input halo contract; this module turns it
-into the two one-shot execution strategies:
+into the one-shot execution strategies:
 
 * :func:`partition_run` — host loop over time partitions (the paper's
   worker-thread model, one partition at a time), each fed its planned
   window of every input: ``left_halo`` lookback ticks, ``core`` fresh
   ticks, ``right_halo`` lookahead ticks, φ beyond the stream's ends.
+* :func:`shard_map_run` — SPMD execution over a mesh axis, one process per
+  rank: the timeline is sharded across the ranks, each keeps its own core
+  slab and assembles its lookback/lookahead halo through the multi-hop
+  chain planned in :mod:`.halo` (one ``batch_isend_irecv`` per hop, hop
+  ``k`` forwarding the slab ``k`` neighbours over), then runs the
+  partition body with no further communication — the paper's
+  "synchronization-free worker", recast as SPMD — and all-gathers the
+  output along the axis.
 * :func:`batch_run` — keyed streams: every input carries a leading key axis
   ``(K, T)`` and the query runs once over all keys, the key axis riding
   along every tensor (and folded into the kernels' row axis).
 
-Both run on the device the input tensors live on.  The chunked executors
-are :class:`repro_torch.engine.Runner`; :class:`StreamRunner` and
-:class:`SparseStreamRunner` survive here as its deprecated wrappers.  The
-time-sharded executor waits for the multi-device slice (ROADMAP A14).
+They run on the device the input tensors live on (``shard_map_run`` on
+the mesh's).  The chunked executors are :class:`repro_torch.engine.
+Runner`; :class:`StreamRunner` and :class:`SparseStreamRunner` survive
+here as its deprecated wrappers.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import math
 import warnings
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
-from torch.utils._pytree import tree_map
+from torch.utils._pytree import tree_leaves, tree_map
 
 from . import compile as qcompile
+from . import halo as halo_mod
+from ..launch.mesh import axis_comm
+from ..obs import default as _obs_default
 from .stream import SnapshotGrid
 
-__all__ = ["partition_run", "batch_run", "slice_grid", "StreamRunner",
-           "SparseStreamRunner"]
+__all__ = ["partition_run", "shard_map_run", "batch_run", "slice_grid",
+           "StreamRunner", "SparseStreamRunner", "check_single_hop_halo",
+           "place_core_inputs", "record_exchange"]
+
+# per-CompiledQuery bound on cached (mesh, axis) SPMD steps (see
+# shard_map_run)
+_SHARD_STEP_CACHE_MAX = 8
 
 
 def _slice_pad(value, valid, lo: int, hi: int):
@@ -95,6 +113,296 @@ def partition_run(exe: qcompile.CompiledQuery,
     valid = torch.cat(outs_m, dim=-1)
     return SnapshotGrid(value=value, valid=valid, t0=out_t0,
                         prec=exe.out_prec)
+
+
+def check_single_hop_halo(specs: Dict[str, "qcompile.InputSpec"],
+                          out_prec: int, n: int
+                          ) -> Dict[str, "halo_mod.HopReport"]:
+    """Report the halo/hop geometry of ``n`` time shards, per input: the
+    hops each side needs and the minimum per-shard ``out_len`` at which
+    the exchange collapses to a single hop.  The multi-hop chain in
+    :mod:`.halo` serves any halo, so nothing is rejected."""
+    report = {}
+    for name, s in specs.items():
+        halo = max(s.left_halo, s.right_halo)
+        # single-hop needs core = out_len*out_prec // s.prec >= halo ticks
+        min_out_len = -(-halo * s.prec // out_prec) if halo else 0
+        report[name] = halo_mod.HopReport(
+            left_hops=halo_mod.hop_count(s.left_halo, s.core) if n > 1 else 0,
+            right_hops=(halo_mod.hop_count(s.right_halo, s.core)
+                        if n > 1 else 0),
+            min_single_hop_out_len=min_out_len)
+    return report
+
+
+def place_core_inputs(specs: Dict[str, "qcompile.InputSpec"],
+                      inputs: Dict[str, SnapshotGrid], mesh,
+                      axis: str = "data"):
+    """Validate core-only input grids for time-sharded execution and keep
+    this rank's slab of each: every input supplies exactly its core region
+    (``n · core`` ticks, no halo) at a common origin — the global grid,
+    the same on every rank — and each rank keeps only its own ``core``
+    ticks, copied onto the mesh's device (the halo then comes over the hop
+    chain, never from this copy of the global grid).
+
+    ``mesh`` is a mesh (with the axis name ``axis``) or the axis's
+    :class:`repro_torch.launch.mesh.AxisComm`.  Returns ``(placed,
+    out_t0)``: the local ``(value, valid)`` slabs in sorted-name order and
+    the absolute output start.  Shared by :func:`shard_map_run` and
+    :func:`repro_torch.multiquery.shard_union_run` so the two SPMD entry
+    points cannot drift on the input contract.
+    """
+    comm = axis_comm(mesh, axis)
+    n, r = comm.n, comm.rank
+    names = sorted(specs)
+    t0s = {name: inputs[name].t0 for name in names}
+    if len(set(t0s.values())) > 1:
+        raise ValueError(
+            f"inputs disagree on the core-region origin: {t0s} — every "
+            "input supplies the same output-span window (P0, P0 + span]")
+    out_t0 = t0s[names[0]] if names else 0
+    placed = []
+    for name in names:
+        g, s = inputs[name], specs[name]
+        if g.prec != s.prec:
+            raise ValueError(
+                f"input {name}: grid precision {g.prec} != planned "
+                f"precision {s.prec}")
+        if g.valid.shape[-1] != s.core * n:
+            raise ValueError(
+                f"input {name}: expected core length {s.core * n}, "
+                f"got {g.valid.shape[-1]} — supply exactly the "
+                "output-span region")
+        lo, hi = r * s.core, (r + 1) * s.core
+
+        def mine(x, lo=lo, hi=hi):
+            return x[..., lo:hi].to(comm.device, copy=True).contiguous()
+
+        placed.append((tree_map(mine, g.value), mine(g.valid)))
+    return placed, out_t0
+
+
+def record_exchange(specs: Dict[str, "qcompile.InputSpec"], placed, mesh,
+                    axis: str = "data") -> None:
+    """Accumulate halo-exchange telemetry for one time-sharded run into
+    the default :class:`repro_torch.obs.Metrics` registry: hop counts and
+    moved ticks from the static :func:`repro_torch.core.halo.exchange_cost`
+    of every input's schedule, byte volume from the placed slabs' dtypes.
+    Pure host arithmetic over planning artifacts — never reads device
+    data.  Shared by :func:`shard_map_run` and
+    :func:`repro_torch.multiquery.shard_union_run`."""
+    m = _obs_default()
+    n = axis_comm(mesh, axis).n
+    hops = ticks = nbytes = 0
+    for (v, _mk), name in zip(placed, sorted(specs)):
+        cost = halo_mod.exchange_cost(specs[name].halo_schedule(), n)
+        # bytes per exchanged tick: every value leaf's per-tick elements
+        # plus the 1-byte validity flag
+        bpt = 1 + sum(x.element_size() * math.prod(x.shape[:-1])
+                      for x in tree_leaves(v))
+        hops += cost["hops"]
+        ticks += cost["ticks"]
+        nbytes += cost["ticks"] * bpt
+    m.counter("halo.runs", "time-sharded SPMD runs").add(1)
+    m.counter("halo.hops", "point-to-point hops issued", "hops").add(hops)
+    m.counter("halo.exchange_ticks", "halo ticks moved per shard",
+              "ticks").add(ticks)
+    m.counter("halo.exchange_bytes", "halo bytes moved per shard",
+              "bytes").add(nbytes)
+
+
+def _gather_outputs(out_specs, outs, comm):
+    """All-gather along time (the last axis) every leaf of ``outs`` whose
+    spec in ``out_specs`` is an axis name; a ``None`` spec keeps the leaf
+    local.  ``out_specs`` is a prefix of the output's structure (dicts and
+    tuples), as the reference's shard_map ``out_specs``."""
+    if out_specs is None or isinstance(out_specs, str):
+        if out_specs is None:
+            return outs
+        return tree_map(lambda x: comm.all_gather(x, -1), outs)
+    if isinstance(out_specs, dict):
+        return {k: _gather_outputs(out_specs[k], v, comm)
+                for k, v in outs.items()}
+    return type(outs)(_gather_outputs(sp, o, comm)
+                      for sp, o in zip(out_specs, outs))
+
+
+def stage_exchange_step(specs: Dict[str, "qcompile.InputSpec"], body,
+                        mesh, axis: str, out_specs):
+    """Build the SPMD step shared by both time-sharded entry points:
+    assemble every input's halo through its planned hop chain
+    (``InputSpec.halo_schedule`` → :func:`repro_torch.core.halo.exchange`),
+    run ``body`` on the full ``{name: (value, valid)}`` grids, then
+    all-gather each output leaf whose ``out_specs`` entry names the axis.
+    ``step(*placed)`` takes the slabs of :func:`place_core_inputs`; every
+    rank must call it (its hops and gathers are collective).  Keeping the
+    construction in one place means :func:`shard_map_run` and
+    :func:`repro_torch.multiquery.shard_union_run` cannot drift on it."""
+    comm = axis_comm(mesh, axis)
+    names = sorted(specs)
+    scheds = {name: specs[name].halo_schedule() for name in names}
+    _obs_default().counter(
+        "halo.stagings", "SPMD exchange steps staged").add(1)
+
+    def step(*flat):
+        full = {name: halo_mod.exchange(scheds[name], v, m, comm)
+                for name, (v, m) in zip(names, flat)}
+        return _gather_outputs(out_specs, body(full), comm)
+
+    return step
+
+
+def _hold_variant(exe: "qcompile.CompiledQuery") -> "qcompile.CompiledQuery":
+    """The minimal-``out_len`` recompile of ``exe`` used by the clean-shard
+    hold body: ``m`` is the smallest output count whose span is a multiple
+    of every input precision (so the variant's windows stay tick-aligned).
+    Because every input's left extent (``spec.t0``) is independent of
+    ``out_len``, the variant's windows are exact *prefixes* of the full
+    slab — same buffer origin, so the block decompositions associate
+    identically and output tick 0 is bit-identical to the full body's.
+    Cached on the CompiledQuery; raises ``ValueError`` when no smaller
+    variant exists."""
+    if "_hold_variant" not in exe.__dict__:
+        q = exe.out_prec
+        m = 1
+        for s in exe.input_specs.values():
+            need = s.prec // math.gcd(s.prec, q)
+            m = m * need // math.gcd(m, need)
+        if m >= exe.out_len:
+            raise ValueError(
+                f"hold variant out_len {m} is not smaller than {exe.out_len}")
+        exe.__dict__["_hold_variant"] = qcompile.compile_query(
+            exe.root, m, opt=False, sum_algo=exe.sum_algo)
+    return exe.__dict__["_hold_variant"]
+
+
+def _stage_sparse_step(exe: "qcompile.CompiledQuery",
+                       vexe: "qcompile.CompiledQuery", mesh, axis: str):
+    """The change-compressed SPMD step ``step(flag, *placed)``: the same
+    halo exchange as :func:`stage_exchange_step` (the hops stay
+    unconditional — every shard takes part in every hop), then this
+    shard's ``flag`` (a host bool) picks the body.  A dirty shard runs the
+    full partition body; a clean one the hold body — the minimal-
+    ``out_len`` variant on the slab prefix, tick 0 broadcast over the
+    shard's span (a clean shard's outputs provably all equal its first
+    output; see :mod:`repro_torch.core.sparse`).  The output is
+    all-gathered along time."""
+    comm = axis_comm(mesh, axis)
+    specs = exe.input_specs
+    names = sorted(specs)
+    scheds = {name: specs[name].halo_schedule() for name in names}
+    _obs_default().counter(
+        "halo.stagings", "SPMD exchange steps staged").add(1)
+    S = exe.out_len
+    vspecs = vexe.input_specs
+
+    def hold_body(full):
+        pref = {name: (tree_map(lambda x, L=vspecs[name].length:
+                                x[..., :L], v), m[..., :vspecs[name].length])
+                for name, (v, m) in full.items()}
+        ov, om = vexe.fn(pref)
+        return (tree_map(lambda x: x[..., :1].expand(x.shape[:-1] + (S,)),
+                         ov),
+                om[..., :1].expand(om.shape[:-1] + (S,)))
+
+    def step(flag: bool, *flat):
+        full = {name: halo_mod.exchange(scheds[name], v, m, comm)
+                for name, (v, m) in zip(names, flat)}
+        out = exe.fn(full) if flag else hold_body(full)
+        return _gather_outputs(axis, out, comm)
+
+    return step
+
+
+def lru_step_get(cache: "collections.OrderedDict", key, build,
+                 max_entries: int):
+    """Bounded staged-step cache: move-to-front on hit, build + evict the
+    least-recently-used entries past ``max_entries`` on miss, so
+    long-lived processes that re-shard across changing meshes / query sets
+    stay bounded."""
+    if key in cache:
+        cache.move_to_end(key)
+        return cache[key]
+    cache[key] = hit = build()
+    while len(cache) > max_entries:
+        cache.popitem(last=False)
+    return hit
+
+
+def shard_map_run(exe: qcompile.CompiledQuery,
+                  inputs: Dict[str, SnapshotGrid], mesh,
+                  axis: str = "data", sparse: bool = None) -> SnapshotGrid:
+    """SPMD partitioned execution: one partition per rank along ``axis``.
+
+    Every rank calls it with the same arguments: ``inputs`` are the global
+    core-only grids (no halo, one output span's worth of ticks per shard),
+    of which each rank keeps its own slab (:func:`place_core_inputs`);
+    every shard then assembles its full halo through the statically
+    planned hop chain (``InputSpec.halo_schedule`` →
+    :func:`repro_torch.core.halo.exchange`) and runs the compiled
+    partition body with no further communication.  ``exe`` must be
+    compiled with ``out_len == global_out_len // n``.  Returns the whole
+    output grid on every rank, all-gathered along the axis; it starts
+    where the inputs' core region starts (``inputs[*].t0``), so sharded
+    outputs stitch against :func:`partition_run` at any origin.
+
+    ``sparse`` selects the per-shard dirty fast path: shards whose dilated
+    input lineage saw no change (the per-shard flags of
+    :func:`repro_torch.core.sparse.segment_mask` through the ``seg_dirty``
+    kernel, resolved on the global grids and read on the host once per
+    call) skip the partition body and broadcast their locally computed
+    first output tick instead — bit-identical, since a clean shard's
+    outputs all equal its first output.  ``None`` (default) enables it for
+    queries compiled with ``sparse=True`` when a smaller hold variant
+    exists; ``True`` requires it (raising when it cannot be built);
+    ``False`` forces the dense body.
+    """
+    comm = axis_comm(mesh, axis)
+    specs = exe.input_specs
+    placed, out_t0 = place_core_inputs(specs, inputs, comm)
+    use_sparse = ((exe.change_plan is not None) if sparse is None
+                  else bool(sparse))
+    vexe = None
+    if use_sparse:
+        try:
+            from .sparse import _change_plan
+            _change_plan(exe)
+            vexe = _hold_variant(exe)
+        except ValueError:
+            if sparse:
+                raise
+            use_sparse = False
+
+    # the staged step depends only on (exe, mesh, axis, sparse) — cache it
+    # on the CompiledQuery so repeated calls reuse it
+    cache = exe.__dict__.setdefault("_shard_step_cache",
+                                    collections.OrderedDict())
+    geo = (comm.n, comm.rank, comm.serial, axis)
+    if not use_sparse:
+        step = lru_step_get(
+            cache, geo,
+            lambda: stage_exchange_step(specs, exe.fn, comm, axis,
+                                        (axis, axis)),
+            _SHARD_STEP_CACHE_MAX)
+        record_exchange(specs, placed, comm)
+        val, msk = step(*placed)
+        return SnapshotGrid(value=val, valid=msk, t0=out_t0,
+                            prec=exe.out_prec)
+
+    from .sparse import segment_mask
+    # per-shard flags resolve on the global grids (cross-shard lineage is
+    # just index arithmetic there, no communication) — no force_first: the
+    # hold body is locally self-sufficient
+    flags = segment_mask(exe, inputs, out_t0, comm.n, force_first=False,
+                         kernel=True)
+    flag = bool(flags[comm.rank])
+    step = lru_step_get(
+        cache, geo + ("sparse",),
+        lambda: _stage_sparse_step(exe, vexe, comm, axis),
+        _SHARD_STEP_CACHE_MAX)
+    record_exchange(specs, placed, comm)
+    val, msk = step(flag, *placed)
+    return SnapshotGrid(value=val, valid=msk, t0=out_t0, prec=exe.out_prec)
 
 
 def batch_run(exe: qcompile.CompiledQuery,

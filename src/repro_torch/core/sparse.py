@@ -115,19 +115,25 @@ def capacity_ladder(n_max: int) -> list:
     return caps
 
 
-def compact_ids(w: torch.Tensor, size: int):
+def compact_ids(w: torch.Tensor, size: int, base: int = 0):
     """The compaction of the 1-D mask ``w`` into ``size`` slots, without
     reading the device: ``ids`` is ``jnp.nonzero(w, size=size,
-    fill_value=0)[0]`` (the indices of the True entries in order,
-    0-filled) and ``pos[i]`` the slot entry ``i`` lands in, clipped to
-    ``[0, size)`` (the scatter-back map).  One cumsum serves both: True
-    entry ``i`` goes to slot ``cumsum(w)[i] - 1``; the rest go to a
-    discarded slot."""
+    fill_value=0)[0] + base`` (the indices of the True entries in order,
+    0-filled, offset by ``base``) and ``pos[i]`` the slot entry ``i``
+    lands in, clipped to ``[0, size)`` (the scatter-back map).  One cumsum
+    serves both: True entry ``i`` goes to slot ``cumsum(w)[i] - 1``; the
+    rest go to a discarded slot.
+
+    Per-shard compaction under a mesh: ``w`` is one shard's slice of the
+    unit mask, ``size`` a capacity of the per-shard ladder
+    (:func:`capacity_ladder` of ``U // n_shards``) and ``base`` the
+    shard's first unit (``rank · U_loc``), so the ids index the replicated
+    chunk buffer while the compaction stays on the shard's own units."""
     U = w.shape[0]
     pos = torch.cumsum(w, dim=0) - 1
     slot = torch.clamp(torch.where(w, pos, size), max=size)
-    ids = torch.zeros(size + 1, dtype=torch.int64, device=w.device)
-    ids.scatter_(0, slot, torch.arange(U, device=w.device))
+    ids = torch.full((size + 1,), base, dtype=torch.int64, device=w.device)
+    ids.scatter_(0, slot, torch.arange(base, base + U, device=w.device))
     return ids[:size], torch.clamp(pos, 0, size - 1)
 
 

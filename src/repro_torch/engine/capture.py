@@ -20,6 +20,12 @@ capture that fails raises (there is no eager fallback on the card).
   whose bucket is picked on the device (``csrc/graph_switch.cu``): a
   sparse chunk reads nothing on the host.
 
+Under a mesh (``placement=mesh``) a step ends with NCCL all-gathers of
+its results (``engine.runner._gather_packed``): they are captured in the
+graph like any kernel (PyTorch captures NCCL collectives), so a replay
+issues no collective from the host; the collector stays off during
+capture as for every step.
+
 Launch counts.  A replay runs no kernel wrapper, so the wrappers' launch
 counts (``window_reduce.launches`` and the others) would not move.  A
 capture therefore records the launches its step issued and every replay

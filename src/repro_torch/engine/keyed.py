@@ -1,9 +1,13 @@
 """Keyed multi-stream execution: K sub-streams × time partitions (paper
-§6.2); port of ``repro.engine.keyed`` at ``mesh=None``.
+§6.2); port of ``repro.engine.keyed``.
 
 .. deprecated::
     :class:`KeyedEngine` is a thin wrapper over the runner —
     ``Runner(exe, ExecPolicy(keys="vmapped", ...), n_keys=K)``.
+
+An optional mesh shards the key axis: each rank computes its own keys and
+carries their state (keys never communicate), and the results are
+all-gathered along the key axis, so every rank reads every key.
 
 Ingestion convention: every input grid carries a leading key axis — value
 leaves are ``(K, ..., T)``, validity is ``(K, T)`` (time last, as
@@ -23,7 +27,8 @@ from torch.utils._pytree import tree_map
 from ..core import compile as qcompile
 from ..core.stream import SnapshotGrid
 from ..device import resolve
-from .policy import ExecPolicy
+from ..launch.mesh import axis_comm
+from .policy import ExecPolicy, MeshPlacement
 from .runner import Runner
 
 __all__ = ["KeyedEngine", "keyed_grid", "wrap_keyed_step"]
@@ -48,16 +53,31 @@ def keyed_grid(value, valid, t0: int = 0, prec: int = 1,
 def wrap_keyed_step(step, mesh: Optional[object] = None,
                     axis: str = "data"):
     """Stage a ``(tails, chunks) -> (out, new_tails)`` step for keyed
-    execution.  The port runs eagerly, so with ``mesh=None`` the step is
-    returned as it is: its tensors already carry the key axis first.
-    Sharding the key axis over a mesh is not ported yet (ROADMAP A14).
-    Deprecated: the runner builds its own steps; kept for callers that
-    build custom keyed steps."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "wrap_keyed_step(mesh=...) (key-axis sharding) is not ported "
-            "yet: ROADMAP A14")
-    return step
+    execution over pytrees of tensors with the key axis first.  The port
+    runs eagerly, so with ``mesh=None`` the step is returned as it is.
+    With a mesh, the returned step shards the key axis along ``axis``:
+    every rank passes the global trees, runs ``step`` on its own
+    ``K / n`` keys (keys never communicate, so the body needs no
+    collective) and gets both results back all-gathered along the key
+    axis.  Deprecated: the runner builds its own steps; kept for callers
+    that build custom keyed steps."""
+    if mesh is None:
+        return step
+    comm = axis_comm(mesh, axis)
+
+    def mine(x):
+        k = x.shape[0] // comm.n
+        return x[comm.rank * k:(comm.rank + 1) * k]
+
+    def sharded(tails, chunks):
+        out, new_tails = step(tree_map(mine, tails), tree_map(mine, chunks))
+
+        def gather(t):
+            return tree_map(lambda x: comm.all_gather(x, 0), t)
+
+        return gather(out), gather(new_tails)
+
+    return sharded
 
 
 @dataclasses.dataclass
@@ -66,10 +86,12 @@ class KeyedEngine:
     (deprecated alias for ``Runner(exe, ExecPolicy(keys='vmapped'))``).
 
     ``exe`` must be compiled for the per-partition ``out_len``; queries
-    must be lookback-only.  ``sparse=True`` (requires
-    ``compile_query(..., sparse=True)``) computes only the keys whose
-    inputs changed; idle keys hold their previous output tick.  ``mesh``
-    placement is not ported (ROADMAP A14).
+    must be lookback-only.  ``mesh`` (optional) shards the key axis along
+    ``axis``; ``n_keys`` must then be divisible by the axis size.
+    ``sparse=True`` (requires ``compile_query(..., sparse=True)``)
+    computes only the keys whose inputs changed; idle keys hold their
+    previous output tick.  It composes with ``mesh``: the compaction is
+    resolved per shard, so the gather never crosses ranks.
     """
 
     exe: qcompile.CompiledQuery
@@ -84,12 +106,10 @@ class KeyedEngine:
             "KeyedEngine is deprecated; use repro_torch.engine.Runner with "
             "ExecPolicy(keys='vmapped', ...)", DeprecationWarning,
             stacklevel=3)
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "KeyedEngine(mesh=...) (mesh placement) is not ported yet: "
-                "ROADMAP A14")
-        policy = ExecPolicy(body="sparse" if self.sparse else "dense",
-                            keys="vmapped")
+        policy = ExecPolicy(
+            body="sparse" if self.sparse else "dense", keys="vmapped",
+            placement=(MeshPlacement(self.mesh, self.axis)
+                       if self.mesh is not None else "local"))
         self._runner = Runner(self.exe, policy, n_keys=self.n_keys)
 
     # -- public API ----------------------------------------------------------

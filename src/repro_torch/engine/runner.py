@@ -1,10 +1,10 @@
-"""One chunked runner for the local execution policies (body × keys); port
-of ``repro.engine.runner``.
+"""One chunked runner for every execution policy (body × keys × placement
+× dag); port of ``repro.engine.runner``.
 
 :class:`Runner` evaluates the planned partition body over a chunk's
 segments with the carried halo tails in front of it, moves the new tails
 to the front, advances a stream clock and checkpoints it all, under an
-:class:`repro_torch.engine.policy.ExecPolicy` at ``placement="local"``.
+:class:`repro_torch.engine.policy.ExecPolicy`.
 
 Execution model (one ``step`` = one chunk):
 
@@ -17,6 +17,23 @@ Execution model (one ``step`` = one chunk):
 * ``keys='vmapped'`` adds a leading key axis to every grid; internally the
   runner always carries the key axis (``K=1`` for ``keys='single'``), so
   there is exactly one code path.
+* ``placement=mesh(axis)`` shards the *work-unit* axis over one axis of a
+  device mesh, one process per rank, every rank stepping the same global
+  chunks: whole keys when keyed (rank ``r`` owns keys ``[r·K/n,
+  (r+1)·K/n)`` and their carried state; keys never communicate), segments
+  when single-keyed (the chunk buffer and the carried state are
+  replicated, and rank ``r`` computes segments ``[r·S/n, (r+1)·S/n)``).
+  Sparse compaction is **per shard**: each rank compacts its own dirty
+  units into a capacity bucket of the per-shard ladder (``U // n``), so
+  the gather never crosses ranks.  :meth:`Runner.step` returns the whole
+  (all-gathered) grid on every rank: one all-gather per output dtype at
+  the end of the step (keyed: along the key axis; single-keyed: along
+  time; the single-keyed sparse body gathers the compacted outputs
+  before its hold fill, which reads the neighbours' segments).  On the
+  card the gathers are NCCL collectives captured in the step's graphs
+  (a keyed sparse step replays one more graph, the gather, after its
+  switched graph), so a steady chunk still reads nothing on the host
+  and dispatches no collective of its own.
 * Units ride the evaluator's leading axis: the unit windows are gathered
   into ``(U, L)`` grids and the compiled query runs once per chunk over
   all of them (the reference ``vmap``s the body over units instead).
@@ -63,9 +80,8 @@ State pytree (the *only* cross-chunk state, host-roundtrippable through
 Time is the last axis of every tensor: a tail is ``(K, left_halo)`` (value
 leaves may carry channel axes between the key axis and time).
 
-Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-item: the static-audit surface (A15); mesh placement is refused by
-:class:`ExecPolicy` (A14).
+Not ported yet, and raising ``NotImplementedError`` naming its ROADMAP
+item: the static-audit surface (A15).
 """
 from __future__ import annotations
 
@@ -88,6 +104,7 @@ from ..core.plan import ChangePlan, InputSpec, QueryPlan, seg_range_affine
 from ..core.stream import SnapshotGrid
 from ..device import resolve
 from ..kernels import sparse_compact
+from ..launch.mesh import axis_comm, merge_ranks
 from ..obs import Metrics, log_buckets
 from . import capture
 from .policy import ExecPolicy
@@ -224,16 +241,55 @@ def _unpack(flats, packing):
          for dt, o, shape in layout], spec)
 
 
-def _units(specs, n_segs: int, bufs, ids=None):
+def _unpack_merged(gflats, packing, dim: int):
+    """:func:`_unpack` of every rank's packed tensors, ``gflats[dtype]`` of
+    shape ``(n, numel)`` (an all-gather of the flats), each leaf's parts
+    concatenated in rank order along ``dim``."""
+    spec, layout = packing
+    return tree_unflatten(
+        [merge_ranks(gflats[dt][:, o:o + math.prod(shape)].reshape(
+            (gflats[dt].shape[0],) + shape), dim)
+         for dt, o, shape in layout], spec)
+
+
+def _gather_packed(comm, dim: int, packed):
+    """Every rank's packed results (:func:`_pack`) all-gathered — one
+    collective per dtype — as the global results packed: each leaf's parts
+    joined in rank order along ``dim`` (0: keys; -1: time), in the layout
+    the caller unpacks as a local step's.  Where the rank-major gather is
+    that layout already (one rank; or one leaf per dtype, gathered along
+    its outermost non-unit axis) it is returned as it is, otherwise the
+    leaves are joined and packed again (one more copy)."""
+    flats, (spec, layout) = packed
+    n = comm.n
+    gflats = {dt: comm.gather_flat(f) for dt, f in flats.items()}
+    per_dtype = collections.Counter(dt for dt, _o, _s in layout)
+    if n > 1 and not all(
+            per_dtype[dt] == 1 and math.prod(shape[:dim % len(shape)]) == 1
+            for dt, _o, shape in layout):
+        return _pack(_unpack_merged(gflats, (spec, layout), dim))
+
+    def joined(shape):
+        d = dim % len(shape)
+        return shape[:d] + (shape[d] * n,) + shape[d + 1:]
+
+    return ({dt: g.view(-1) for dt, g in gflats.items()},
+            (spec, [(dt, o * n, joined(shape)) for dt, o, shape in layout]))
+
+
+def _units(specs, n_segs: int, bufs, ids=None, segs=None):
     """Unit windows of every input, units on the leading axis: all ``U``
-    units (``ids=None``, unit ``u = key·n_segs + segment``) or the ones
-    named by ``ids``."""
+    units (``ids=None``, unit ``u = key·n_segs + segment``; only the
+    segments of the range ``segs`` when given) or the ones named by
+    ``ids``."""
     out = {}
     for name, (fv, fm) in bufs.items():
         L, core = specs[name].length, specs[name].core
         if ids is None:
             def take(x, L=L, core=core):
                 w = _windows(x, L, core)
+                if segs is not None:
+                    w = w[:, segs[0]:segs[1]]
                 return w.reshape((-1,) + w.shape[2:])
         else:
             k_ids, s_ids = ids // n_segs, ids % n_segs
@@ -299,11 +355,18 @@ class _Work:
     instead.  On the card a runner's captured graphs read and write these
     tensors and nothing else that outlives them, and live here
     (``graphs``), in one memory pool.
+
+    Under a mesh the buffers hold this rank's keys (keyed) or the whole
+    replicated chunk (single-keyed), and the compacted outputs ``full``
+    this rank's computed units only; ``full`` is a set of views into one
+    flat tensor per dtype, so a single-keyed sparse step all-gathers it
+    into ``gfull`` with one collective per dtype.
     """
 
     def __init__(self, runner: "Runner", chunk_in: Dict[str, tuple],
                  dev: torch.device, *, seeds=None, revision: bool = False):
-        K, n_segs, U = runner._K, runner.n_segs, runner._U
+        K, n_segs, Uc = runner._K, runner.n_segs, runner._Uc
+        self.u0, self.uc = runner._u0, Uc
         specs = runner.spec.input_specs
         self.dev, self.layout = dev, _layout(chunk_in)
         self.names = runner._names()
@@ -321,7 +384,7 @@ class _Work:
             self.hl[name], self.n[name], self.bufs[name] = hl, n, (bv, bm)
             self._chunk[name] = [x[..., hl:] for x in tree_leaves((bv, bm))]
         self.sparse = seeds is not None
-        self._w = z((U,)) if revision else None
+        self._w = z((Uc,)) if revision else None
         if self.sparse:
             self.dirty = {nm: z((K, self.hl[nm])) for nm in self.names}
             self.next_dirty = {nm: z((K, self.hl[nm])) for nm in self.names
@@ -332,14 +395,22 @@ class _Work:
             self.seed = {o: _tm(lambda a: z(a.shape, a.dtype), sd)
                          for o, sd in seeds.items()}
             span = runner.spec.span
-            self.full = {
+            self.full_flats, self.full_packing = _pack({
                 o: (_tm(lambda a, S=span // runner.spec.out_precs[o]:
-                        z((U,) + tuple(a.shape[1:]) + (S,), a.dtype), sv),
-                    z((U, span // runner.spec.out_precs[o])))
-                for o, (sv, _sm) in seeds.items()}
+                        z((Uc,) + tuple(a.shape[1:]) + (S,), a.dtype), sv),
+                    z((Uc, span // runner.spec.out_precs[o])))
+                for o, (sv, _sm) in seeds.items()})
+            self.full = _unpack(self.full_flats, self.full_packing)
+            self.gfull_flats = (
+                {dt: z((runner._n,) + tuple(f.shape), dt)
+                 for dt, f in self.full_flats.items()}
+                if runner._seg_mesh else None)
             self.seg = z((K, n_segs))
             self.cnt = z((), torch.int32)
-            self.caps = torch.as_tensor(sparse_mod.capacity_ladder(U),
+            # the dirty-unit total: the shard's own count but for
+            # single-keyed mesh runners, whose mask covers every segment
+            self.tot = z((), torch.int32) if runner._seg_mesh else self.cnt
+            self.caps = torch.as_tensor(sparse_mod.capacity_ladder(Uc),
                                         dtype=torch.int64, device=dev)
             self.mstate = (z((), torch.int32),
                            z((len(runner._obs_caps),), torch.int32),
@@ -351,8 +422,12 @@ class _Work:
 
     @property
     def w(self) -> torch.Tensor:
-        """The ``(U,)`` unit mask the compacted bodies read."""
-        return self.seg.reshape(-1) if self.sparse else self._w
+        """The unit mask the compacted bodies read: this rank's ``(Uc,)``
+        slice of the segment mask (all of it unless single-keyed on a
+        mesh), or a revision's host-made mask."""
+        if not self.sparse:
+            return self._w
+        return self.seg.reshape(-1)[self.u0:self.u0 + self.uc]
 
     def tails(self) -> Dict[str, tuple]:
         """Views of the carried tails."""
@@ -392,9 +467,13 @@ class _Work:
                     for nm, b in c.bufs.items()}
         c._w = None if self._w is None else self._w.clone()
         if self.sparse:
-            for part in ("dirty", "next_dirty", "prev", "seed", "full",
-                         "seg", "cnt", "mstate"):
+            for part in ("dirty", "next_dirty", "prev", "seed", "seg",
+                         "cnt", "mstate", "full_flats"):
                 setattr(c, part, cl(getattr(self, part)))
+            if self.gfull_flats is not None:
+                c.gfull_flats = cl(self.gfull_flats)
+            c.tot = c.cnt if self.tot is self.cnt else self.tot.clone()
+            c.full = _unpack(c.full_flats, c.full_packing)
         c.graphs = {}
         return c
 
@@ -421,7 +500,9 @@ class Runner:
         compile_query` for a sparse body) or a prebuilt :class:`BodySpec`
         (the union path: see :func:`repro_torch.multiquery.union_runner`).
     policy:
-        The execution policy.  ``keys='vmapped'`` requires ``n_keys``.
+        The execution policy.  ``keys='vmapped'`` requires ``n_keys``;
+        ``placement=mesh`` shards keys (vmapped) or segments (single) and
+        requires the respective count to divide the mesh axis size.
     segs_per_chunk:
         Segments consumed per :meth:`step`; each chunk supplies
         ``segs_per_chunk · spec.core`` fresh ticks per input.
@@ -431,7 +512,9 @@ class Runner:
         private registry on ``self.metrics``.
 
     The runner runs on the device of the chunks it is given; restored
-    state moves there at the next step.
+    state moves there at the next step.  Under a mesh every rank builds
+    the runner with the same arguments and steps it with the same global
+    chunks (each rank keeps what it owns), on the mesh's device.
     """
 
     def __init__(self, exe_or_spec, policy: ExecPolicy = ExecPolicy(), *,
@@ -480,6 +563,29 @@ class Runner:
                 raise ValueError(
                     "query mixes keyed and unkeyed sources: "
                     f"keyed={keyed_inputs}, all={sorted(spec.input_specs)}")
+        n = policy.n_shards
+        if policy.mesh is not None:
+            if policy.keyed and self.n_keys % n:
+                raise ValueError(
+                    f"n_keys={self.n_keys} not divisible by mesh axis "
+                    f"'{policy.axis}' of size {n}")
+            if not policy.keyed and self.n_segs % n:
+                raise ValueError(
+                    f"segs_per_chunk={self.n_segs} not divisible by mesh "
+                    f"axis '{policy.axis}' of size {n}")
+        # -- geometry: this rank's keys (_K from _k0) and the units its
+        # buffers and segment mask cover (_U = _K·n_segs); the units it
+        # computes (_Uc from _u0: a slice of the segments when single-keyed
+        # on a mesh, all of _U otherwise)
+        self._n, self._rank = n, policy.rank
+        self._comm = (axis_comm(policy.mesh, policy.axis)
+                      if policy.mesh is not None else None)
+        self._seg_mesh = policy.mesh is not None and not policy.keyed
+        self._K = self.n_keys // n if policy.keyed else 1
+        self._U = self._K * self.n_segs
+        self._Uc = self._U // n if self._seg_mesh else self._U
+        self._u0 = self._rank * self._Uc if self._seg_mesh else 0
+        self._k0 = self._rank * self._K if policy.keyed else 0
 
         # -- the state pytree: views into the live workspace once bound, or
         # tensors a restore brought (copied in at the next step) ----------
@@ -536,7 +642,7 @@ class Runner:
             "runner.dirty_units", "work units that actually computed",
             "units")
         self._m_dirty.fold_device()
-        ladder = (sparse_mod.capacity_ladder(self._U)
+        ladder = (sparse_mod.capacity_ladder(self._Uc)
                   if self.policy.sparse else [])
         self._obs_caps = np.asarray(ladder, np.int32)
         if ladder:
@@ -605,7 +711,11 @@ class Runner:
         """The per-chunk device metric accumulator: folds the chunk's
         dirty count into the running total, the bucket-pick counts and the
         dirty-fraction histogram, in place, with ``searchsorted`` and
-        ``scatter_add_`` — no host read, no bincount, no mask indexing."""
+        ``scatter_add_`` — no host read, no bincount, no mask indexing.
+        Under a mesh the picks are this rank's (per-shard buckets); the
+        total and the fraction are over the units its mask covers (every
+        segment when single-keyed, its own keys' when keyed), as are the
+        ``runner.units`` counter and :meth:`dirty_stats`."""
         key = self._cache_key("obs_accum", dev)
         cache = self.spec.step_cache
         if key in cache:
@@ -617,11 +727,11 @@ class Runner:
         one = torch.ones(1, dtype=torch.int32, device=dev)
         U, top = self._U, len(self._obs_caps) - 1
 
-        def accum(mstate, cnt):
+        def accum(mstate, cnt, tot):
             total, picks, frac = mstate
             b = torch.clamp(torch.searchsorted(caps, cnt.reshape(1)), 0, top)
-            fi = torch.searchsorted(edges, cnt.reshape(1).float() / U)
-            total.add_(cnt)
+            fi = torch.searchsorted(edges, tot.reshape(1).float() / U)
+            total.add_(tot)
             picks.scatter_add_(0, b, one)
             frac.scatter_add_(0, fi, one)
 
@@ -629,28 +739,41 @@ class Runner:
         return accum
 
     # -- geometry ------------------------------------------------------------
-    @property
-    def _K(self) -> int:
-        return self.n_keys
-
-    @property
-    def _U(self) -> int:
-        return self.n_keys * self.n_segs
-
     def _names(self):
         return sorted(self.spec.input_specs)
 
+    # every configuration degree of freedom the built steps close over;
+    # _cache_key is built from exactly these (in this order), so the step
+    # cache is never keyed on less than the steps depend on.  Under a mesh
+    # "mesh" is its shape, this rank's index along the axis and the axis
+    # group's serial (the steps gather through that group).
+    _KEY_DOFS = ("K", "n_segs", "device", "mesh", "axis")
+
+    def staging_key_dofs(self, dev=None) -> Dict:
+        """The step-cache key's degrees of freedom, by name."""
+        mesh = self.policy.mesh
+        return {"K": self._K, "n_segs": self.n_segs, "device": str(dev),
+                "mesh": (None if mesh is None
+                         else (tuple(mesh.shape), self._rank,
+                               self._comm.serial)),
+                "axis": self.policy.axis if mesh is not None else None}
+
     def _cache_key(self, kind, dev, *extra):
-        """Step-cache key: the geometry the built steps close over, the
-        device their index tensors live on, then ``extra`` (the capacity
+        """Step-cache key: the geometry the built steps close over (the
+        local key count, the segments, the device their index tensors
+        live on, the mesh's shape and axis), then ``extra`` (the capacity
         of a compute step last)."""
-        return (kind, self._K, self.n_segs, str(dev)) + extra
+        dofs = self.staging_key_dofs(dev)
+        return (kind,) + tuple(dofs[k] for k in self._KEY_DOFS) + extra
 
     def _compile_label(self, key) -> str:
         """The recompile detector's unit of accounting (device-free, as
         the reference's labels)."""
-        kind, K, n_segs = key[0], key[1], key[2]
-        parts = [f"K={K}", f"segs={n_segs}"] + [str(x) for x in key[4:]]
+        kind, K, n_segs, axis = key[0], key[1], key[2], key[5]
+        parts = [f"K={K}", f"segs={n_segs}"]
+        if axis is not None:
+            parts.append(f"mesh={axis}")
+        parts += [str(x) for x in key[6:]]
         return f"{kind}({','.join(parts)})"
 
     # -- chunk ingest --------------------------------------------------------
@@ -668,6 +791,9 @@ class Runner:
             v, m = g.value, g.valid
             if not self.policy.keyed:  # internal layout always carries K
                 v, m = _tm(lambda x: x[None], v), m[None]
+            elif self._n > 1:          # this rank's keys (views)
+                k0, k1 = self._k0, self._k0 + self._K
+                v, m = _tm(lambda x: x[k0:k1], v), m[k0:k1]
             chunk_in[name] = (v, m)
         return chunk_in
 
@@ -707,7 +833,7 @@ class Runner:
             if src is None:
                 _zero_tree(dst)
             else:
-                _copy_tree(dst, src)
+                _copy_tree(dst, self._mine(src))
         self._tails = tails
         if work.sparse:
             st = self._sparse
@@ -718,7 +844,7 @@ class Runner:
                     if src is None:
                         _zero_tree(dst)
                     else:
-                        _copy_tree(dst, src)
+                        _copy_tree(dst, self._mine(src))
             self._seeded = {o for o in st["seed"] if o in work.seed}
             st["dirty"], st["prev"], st["seed"] = (work.dirty, work.prev,
                                                    work.seed)
@@ -774,6 +900,16 @@ class Runner:
         flats, packing = self._graph(work, key, cache_key, step).replay()
         return {dt: f.clone() for dt, f in flats.items()}, packing
 
+    def _gather(self):
+        """``gather(packed)``: :func:`_gather_packed` along this runner's
+        work axis, or ``None`` when it is not on a mesh (what a step ends
+        with: the step cache keys carry the mesh, so a built step may
+        close over it)."""
+        if self._comm is None:
+            return None
+        return functools.partial(_gather_packed, self._comm,
+                                 0 if self.policy.keyed else -1)
+
     # -- dense step ----------------------------------------------------------
     def _dense_step(self, dev: torch.device):
         key = self._cache_key("dense", dev)
@@ -783,12 +919,17 @@ class Runner:
         self.metrics.tracer.record_compile(self._compile_label(key))
         outs_fn, specs = self.spec.outs_fn, self.spec.input_specs
         K, n_segs = self._K, self.n_segs
+        # this rank's segments (all of them unless single-keyed on a mesh)
+        segs = ((self._u0, self._u0 + self._Uc) if self._seg_mesh
+                else None)
+        n_own = self._Uc // K
+        gather = self._gather()
 
         def step(work):
-            packed = _pack(_per_key(outs_fn(_units(specs, n_segs,
-                                                   work.bufs)), K, n_segs))
+            packed = _pack(_per_key(outs_fn(_units(
+                specs, n_segs, work.bufs, segs=segs)), K, n_own))
             work.shift()
-            return packed
+            return gather(packed) if gather else packed
 
         cache[key] = step
         return step
@@ -804,9 +945,11 @@ class Runner:
 
     def _compute_local(self, cap: int, dev: torch.device):
         """Compute body for one compaction capacity: resolve the dirty
-        units into ``cap`` fixed-size ids without a host read, gather their
-        halo windows, evaluate them only, scatter the results back over
-        the unit axis.  Built on first use of each capacity."""
+        units of ``w`` (this rank's units) into ``cap`` fixed-size ids
+        without a host read, gather their halo windows, evaluate them
+        only, scatter the results back over the rank's unit axis.  Built
+        on first use of each capacity (of the per-shard ladder under a
+        mesh)."""
         key = self._cache_key("compute", dev, cap)
         cache = self.spec.step_cache
         if key in cache:
@@ -814,18 +957,21 @@ class Runner:
         self.metrics.tracer.record_compile(self._compile_label(key))
         outs_fn, specs, n_segs = (self.spec.outs_fn, self.spec.input_specs,
                                   self.n_segs)
+        u0 = self._u0
+        segs = (u0, u0 + self._Uc) if self._seg_mesh else None
 
-        if cap == self._U:
-            # full-capacity bucket (count > U/2): compaction saves nothing,
-            # so compute every unit in place.  Bit-identical: computing a
-            # clean unit yields exactly its hold value (the sparse
-            # exactness contract), and the hold fill downstream still
-            # overwrites clean units from the dirty chain.
+        if cap == self._Uc:
+            # full-capacity bucket (count > Uc/2): compaction saves
+            # nothing, so compute every unit in place.  Bit-identical:
+            # computing a clean unit yields exactly its hold value (the
+            # sparse exactness contract), and the hold fill downstream
+            # still overwrites clean units from the dirty chain.
             def local(w, bufs):
-                return outs_fn(_units(specs, n_segs, bufs))
+                return outs_fn(_units(specs, n_segs, bufs, segs=segs))
         else:
             def local(w, bufs):
-                ids, pos = sparse_mod.compact_ids(w, cap)
+                # ids of this rank's units, offset to index the buffer
+                ids, pos = sparse_mod.compact_ids(w, cap, base=u0)
                 outs = outs_fn(_units(specs, n_segs, bufs, ids))  # (cap, ...)
                 return {o: (_tm(lambda x: x.index_select(0, pos), ov),
                             om.index_select(0, pos))
@@ -838,7 +984,9 @@ class Runner:
         """The prefix of a sparse chunk, ``prefix(work)``: per-segment
         change detection (the ``seg_dirty`` kernel over every input's
         buffer, plus the carried position-0 flags) into ``work.seg``, the
-        dirty-unit count into ``work.cnt`` and the next dirty tails into
+        dirty-unit count of this rank's units into ``work.cnt`` (and of
+        every unit into ``work.tot`` when they differ) and the next dirty
+        tails into
         ``work.next_dirty``.  Two variants per geometry: ``force_first=
         True`` (stream start / missing hold seed: segment 0 of every key is
         forced dirty) and the steady state."""
@@ -910,7 +1058,10 @@ class Runner:
             if force_first:
                 seg[:, 0] = True
             work.seg.copy_(seg)
-            work.cnt.copy_(work.seg.sum(dtype=torch.int32))
+            # the count that picks the bucket is this rank's own units'
+            work.cnt.copy_(work.w.sum(dtype=torch.int32))
+            if work.tot is not work.cnt:
+                work.tot.copy_(work.seg.sum(dtype=torch.int32))
 
         cache[key] = prefix
         return prefix
@@ -927,10 +1078,17 @@ class Runner:
         return body
 
     def _sparse_suffix(self, dev: torch.device):
-        """The suffix of a sparse chunk, ``suffix(work)``: the hold fill
-        over ``work.full``, the outputs (and the segment mask) packed, then
-        the carried state written in place: hold seeds, dirty tails, 1-tick
-        snapshots, tails, and the metric accumulators."""
+        """The suffix of a sparse chunk, ``(suffix, after)``.  ``suffix(
+        work)``: the hold fill over ``work.full``, the outputs (and the
+        segment mask) packed, then the carried state written in place:
+        hold seeds, dirty tails, 1-tick snapshots, tails, and the metric
+        accumulators.  Local runners have no ``after`` (``None``).  On a
+        mesh, ``after(work, packed)`` runs once the switched step is done
+        (on the card, a graph of its own): keyed, it all-gathers the
+        suffix's ``packed`` results; single-keyed, the hold fill reads
+        every rank's segments, so it moves there — ``suffix`` writes the
+        rest of the state, and ``after`` all-gathers the compacted outputs
+        into ``work.gfull_flats``, fills, packs and writes the seeds."""
         key = self._cache_key("sparse_hold", dev)
         cache = self.spec.step_cache
         if key in cache:
@@ -939,24 +1097,43 @@ class Runner:
         K, n_segs = self._K, self.n_segs
         ar = torch.arange(n_segs, device=dev)
         accum = self._obs_accum(dev)
+        gathered, comm, gather = self._seg_mesh, self._comm, self._gather()
 
-        def suffix(work):
+        def hold(work):
+            full = work.full
+            if gathered:
+                for dt, f in work.full_flats.items():
+                    comm.gather_flat(f, out=work.gfull_flats[dt])
+                full = _unpack_merged(work.gfull_flats,
+                                      work.full_packing, 0)
             full = {o: _tm(lambda x: x.reshape((K, n_segs) + x.shape[1:]),
-                           f) for o, f in work.full.items()}
+                           f) for o, f in full.items()}
             outs, new_seeds = _hold(full, work.seg, work.seed, ar, K, n_segs)
             packed = _pack((outs, work.seg))
             for o, sd in new_seeds.items():
                 _copy_tree(work.seed[o], sd)
+            return packed
+
+        def carry(work):
             for name, nd in work.next_dirty.items():
                 work.dirty[name].copy_(nd)
             for name, pv in work.prev.items():
                 _copy_tree(pv, _tm(lambda x: x[..., -1:], work.chunk(name)))
             work.shift()
-            accum(work.mstate, work.cnt)
+            accum(work.mstate, work.cnt, work.tot)
+
+        def suffix(work):
+            packed = hold(work)
+            carry(work)
             return packed
 
-        cache[key] = suffix
-        return suffix
+        if gathered:
+            cache[key] = (carry, lambda work, packed: hold(work))
+        elif gather is not None:
+            cache[key] = (suffix, lambda work, packed: gather(packed))
+        else:
+            cache[key] = (suffix, None)
+        return cache[key]
 
     def _switched(self, work: _Work, force_first: bool):
         """The captured sparse step of one variant: its prefix, then every
@@ -964,9 +1141,9 @@ class Runner:
         shared by both variants), composed into one graph."""
         dev = work.dev
         prefix = self._sparse_step(force_first, dev)
-        caps = sparse_mod.capacity_ladder(self._U)
+        caps = sparse_mod.capacity_ladder(self._Uc)
         bodies = [self._sparse_body(c, dev) for c in caps]
-        suffix = self._sparse_suffix(dev)
+        suffix, after = self._sparse_suffix(dev)
         self.metrics.tracer.record_capture(self._compile_label(
             self._cache_key("sparse_fused", dev, force_first)))
         with capture.warm_up(dev):
@@ -974,7 +1151,9 @@ class Runner:
             prefix(scratch)
             for body in bodies:
                 body(scratch)
-            suffix(scratch)
+            packed = suffix(scratch)
+            if after is not None:
+                after(scratch, packed)
         pre = capture.record(lambda: prefix(work), work.pool, keep=True)
         shared = work.graphs.get("sparse_parts")
         if shared is None:
@@ -982,6 +1161,11 @@ class Runner:
                 [capture.record(lambda b=b: b(work), work.pool, keep=True)
                  for b in bodies],
                 capture.record(lambda: suffix(work), work.pool, keep=True))
+            if after is not None:
+                # replayed after the switched step, over the suffix's
+                # (static) results
+                work.graphs["sparse_after"] = capture.record(
+                    lambda: after(work, shared[1].result), work.pool)
         g = work.graphs[("sparse", force_first)] = capture.Switched(
             pre, shared[0], shared[1], work.cnt, work.caps)
         return g
@@ -992,9 +1176,11 @@ class Runner:
         path; on the card only :meth:`staged_steps` runs it)."""
         dev = work.dev
         self._sparse_step(force_first, dev)(work)
-        cap = sparse_mod.bucket_capacity(int(work.cnt), self._U)
+        cap = sparse_mod.bucket_capacity(int(work.cnt), self._Uc)
         self._sparse_body(cap, dev)(work)
-        return self._sparse_suffix(dev)(work)
+        suffix, after = self._sparse_suffix(dev)
+        packed = suffix(work)
+        return packed if after is None else after(work, packed)
 
     def _sparse_chunk(self, work: _Work):
         st = self._sparse
@@ -1006,7 +1192,11 @@ class Runner:
             g = work.graphs.get(("sparse", force_first))
             if g is None:
                 g = self._switched(work, force_first)
-            flats, packing = g.replay()
+            res = g.replay()
+            after = work.graphs.get("sparse_after")
+            if after is not None:
+                res = after.replay()
+            flats, packing = res
             outs, seg = _unpack({dt: f.clone() for dt, f in flats.items()},
                                 packing)
         self.last_seg_dirty = seg
@@ -1030,6 +1220,11 @@ class Runner:
         Each chunk grid supplies ``segs_per_chunk · spec.core`` fresh ticks
         per input (leading key axis first when ``keys='vmapped'``).
         Returns one output grid (solo) or ``{query_name: grid}`` (union).
+        Under a mesh every rank passes the same global chunks and gets the
+        whole grid back, all-gathered along the work axis (every key, every
+        segment) — the global array a reference caller reads back; the
+        gathers read nothing on the host, so a steady chunk makes no
+        synchronizing call.
         The carried state is written only at the end of the step, after
         everything that can raise, so a raise leaves the runner as it was.
         """
@@ -1124,7 +1319,8 @@ class Runner:
         fraction of (key × segment) work units that actually computed
         (forced-dirty first segments included).  ``None`` for dense bodies
         or before the first chunk.  Reading syncs the device-resident
-        counter — a diagnostic call, not part of the steady path."""
+        counter — a diagnostic call, not part of the steady path.  Under a
+        keyed mesh it counts this rank's keys."""
         if self._sparse is None or self._total_units == 0:
             return None
         dirty = int(self._work.mstate[0])
@@ -1136,16 +1332,31 @@ class Runner:
     def _strip(self, tree, host: bool = True):
         """Copies (numpy on the host, or tensors where they are), without
         the internal K axis for single-key runners: nothing a later step
-        does can reach them."""
+        does can reach them.  A keyed mesh runner's live state (this
+        rank's keys) is all-gathered into the global key layout first."""
+        gather = self.policy.keyed and self._n > 1 and self._bound
+
         def one(x):
-            x = (x.detach().to("cpu", copy=True).numpy() if host
-                 else x.detach().clone())
+            x = x.detach()
+            if gather:
+                x = self._comm.all_gather(x, 0)
+            x = x.to("cpu", copy=True).numpy() if host else x.clone()
             return x if self.policy.keyed else x[0]
         return _tm(one, tree)
 
+    def _mine(self, tree):
+        """``tree``'s leaves cut to this rank's keys where they hold every
+        key (a checkpoint's global layout); the rest as they are."""
+        if not (self.policy.keyed and self._n > 1):
+            return tree
+        k0, k1 = self._k0, self._k0 + self._K
+        return _tm(lambda x: x[k0:k1] if x.shape[0] == self.n_keys else x,
+                   tree)
+
     def _lift(self, tree):
         """Tensors copied in from a checkpoint's arrays or tensors (kept
-        until the next step copies them into the runner's buffers)."""
+        until the next step copies them into the runner's buffers, each
+        rank its own keys' under a keyed mesh)."""
         def one(x):
             t = (x.detach().clone() if torch.is_tensor(x)
                  else torch.from_numpy(np.array(x, copy=True)))
@@ -1156,7 +1367,9 @@ class Runner:
         """Checkpointable runner state: host numpy copies, or with
         ``host=False`` tensor copies on the runner's device (a re-fit that
         stays on the card); see the module docstring for the pytree
-        layout."""
+        layout.  Under a mesh the layout is the global one, as the
+        reference's: a keyed runner gathers every rank's keys (a collective
+        every rank calls), a single-keyed one's state is replicated."""
         strip = lambda t: self._strip(t, host)  # noqa: E731
         out = {k: strip(v) for k, v in self._tails.items()}
         out["__t"] = self._t
@@ -1210,7 +1423,7 @@ class Runner:
             raise ValueError(
                 f"checkpoint inputs {sorted(state)} != query inputs "
                 f"{sorted(names)} (unknown={unknown}, missing={missing})")
-        lead = ((self._K,) if self.policy.keyed else ())
+        lead = ((self.n_keys,) if self.policy.keyed else ())
         label = ("(n_keys, left_halo)" if self.policy.keyed
                  else "(left_halo,)")
 
@@ -1321,10 +1534,13 @@ class Runner:
         if key in cache:
             return cache[key]
         self.metrics.tracer.record_compile(self._compile_label(key))
-        K, n_segs = self._K, self.n_segs
+        K, n_own = self._K, self._Uc // self._K
+        gather = self._gather()
 
         def step(work, local):
-            packed = _pack(_per_key(local(work.w, work.bufs), K, n_segs))
+            packed = _pack(_per_key(local(work.w, work.bufs), K, n_own))
+            if gather is not None:
+                packed = gather(packed)
             work.shift()
             return packed
 
@@ -1396,17 +1612,20 @@ class Runner:
                 for e in self._rev_ring:
                     if e["chunk"] == from_chunk + i:
                         e["tails"] = _tm(lambda x: x.clone(), rwork.tails())
-            sd = np.asarray(sd, bool).reshape(K, self.n_segs)
-            cnt = int(sd.sum())
+            # this rank's keys' mask, and of it the units the rank computes
+            sd = np.asarray(sd, bool).reshape(self.n_keys, self.n_segs)[
+                self._k0:self._k0 + K]
+            wl = sd.reshape(U)[self._u0:self._u0 + self._Uc]
+            cnt = int(wl.sum())
             n_units += cnt
             # the mask is host data: its count picks the bucket without a
             # device read, and it reaches the card by an asynchronous copy
-            w = torch.from_numpy(sd.reshape(U).copy())
+            w = torch.from_numpy(wl.copy())
             if dev.type == "cuda":
                 w = w.pin_memory()
             rwork.w.copy_(w, non_blocking=True)
             rwork.load(chunk_in)
-            cap = sparse_mod.bucket_capacity(cnt, U)
+            cap = sparse_mod.bucket_capacity(cnt, self._Uc)
             rstep = self._revision_step(dev)
             local = self._compute_local(cap, dev)
             outs = _unpack(*self._run(
@@ -1439,7 +1658,7 @@ class Runner:
                         _copy_tree(st["prev"][name], _tm(
                             lambda x: x[..., -1:], rwork.chunk(name)))
                 for o in list(self._seeded):
-                    ov, om = last_outs[o]
+                    ov, om = self._mine(last_outs[o])
                     sv, sm = st["seed"][o]
                     _copy_tree(sv, _tm(
                         lambda x, s: torch.where(_bc(ld, x[..., -1]),
@@ -1469,6 +1688,11 @@ class Runner:
                 t0=0, prec=s.prec)
         return chunks
 
+    def capacity_ladder(self) -> List[int]:
+        """The compaction capacities this rank's compacted bodies run at
+        (the per-shard ladder under a mesh)."""
+        return sparse_mod.capacity_ladder(self._Uc)
+
     def aot_keys(self) -> List[tuple]:
         """``(label, key)`` of every step one serving process runs at this
         policy point: the variants of the chunk step, and with revision
@@ -1482,7 +1706,7 @@ class Runner:
             keys = [("dense", ("dense",))]
         if self._rev_ring is not None:
             keys += [(f"revise({c})", ("revise", c))
-                     for c in sparse_mod.capacity_ladder(self._U)]
+                     for c in self.capacity_ladder()]
         return keys
 
     def _prepare(self, work: _Work, key) -> str:
@@ -1493,7 +1717,7 @@ class Runner:
         if kind == "sparse":
             if dev.type != "cuda":
                 self._sparse_step(key[1], dev)
-                for c in sparse_mod.capacity_ladder(self._U):
+                for c in self.capacity_ladder():
                     self._sparse_body(c, dev)
                 self._sparse_suffix(dev)
                 return "eager"

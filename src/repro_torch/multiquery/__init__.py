@@ -31,9 +31,11 @@ exactly one place:
   ChangePlan of the union DAG lets clean segments and keys skip the whole
   union evaluation).  :func:`~repro_torch.multiquery.session.union_runner`
   exposes the same composition without the attach/detach machinery.
-* ``shard_union_run`` — the time-sharded union executor over a device mesh
-  — and ``MultiQuerySession(mesh=...)`` are not ported yet and raise
-  (ROADMAP A14).
+* :func:`~repro_torch.multiquery.session.shard_union_run` — the union DAG
+  with the *timeline* sharded over a device mesh: the merged per-source
+  halo contracts are assembled by the multi-hop chain (core/halo.py), so
+  union plans whose windows exceed the per-shard span shard fine; and
+  ``MultiQuerySession(mesh=...)`` shards a keyed session's key axis.
 
 Sharing model in one line: *fingerprint-equal ⇒ plan-equal ⇒ evaluate
 once* — correctness rests on fingerprints implying structural equality
@@ -50,7 +52,5 @@ from .session import (MultiQuerySession, shard_union_run, union_body_spec,
                       union_runner)
 from .shared import SharedPlanCache, SharingReport
 
-# the reference's __all__ without shard_union_run, which goes with mesh
-# placement (ROADMAP A14): it is importable here and raises
 __all__ = ["MultiQuerySession", "SharedPlanCache", "SharingReport",
-           "union_body_spec", "union_runner"]
+           "shard_union_run", "union_body_spec", "union_runner"]

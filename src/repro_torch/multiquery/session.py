@@ -19,38 +19,40 @@ restored from the same checkpoint.
 
 Keyed sources compose as in the keyed runner: chunks carry a leading key
 axis and K keyed sub-streams × N queries advance in one union evaluation
-per chunk.  ``sparse=True`` composes change-compressed execution with
-multi-query sharing: the merged :class:`~repro_torch.core.plan.ChangePlan`
-of the union DAG is the per-input union of the per-query dilations, so
-segments (and keys) whose dilated lineage saw no change skip the whole
-union evaluation and hold every query's previous output.
+per chunk, and an optional mesh shards the key axis.  ``sparse=True``
+composes change-compressed execution with multi-query sharing: the
+merged :class:`~repro_torch.core.plan.ChangePlan` of the union DAG is the
+per-input union of the per-query dilations, so segments (and keys) whose
+dilated lineage saw no change skip the whole union evaluation and hold
+every query's previous output.
 
 The session runs on the device of the chunks it is given (the reference's
 ``pallas`` and ``jit`` knobs have no counterpart: the port is eager and
-picks its kernels by device).  Sharding the key axis over a mesh and the
-time-sharded :func:`shard_union_run` are not ported yet (ROADMAP A14).
+picks its kernels by device).  :func:`shard_union_run` is the
+time-sharded union executor: the timeline sharded over a mesh axis, the
+merged halo contracts assembled by the same hop chain as
+:func:`repro_torch.core.parallel.shard_map_run`.
 """
 from __future__ import annotations
 
+import collections
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 from torch.utils._pytree import tree_map
 
-from ..core import boundary, compile as qcompile, ir
+from ..core import boundary, compile as qcompile, ir, parallel
 from ..core.plan import plan_change, plan_union
 from ..core.stream import SnapshotGrid
-from ..engine.policy import ExecPolicy
+from ..engine.policy import ExecPolicy, MeshPlacement
 from ..engine.runner import BodySpec, Runner
+from ..launch.mesh import axis_comm
 from ..obs import Metrics
 from .shared import SharedPlanCache, SharingReport
 
 __all__ = ["MultiQuerySession", "shard_union_run", "union_body_spec",
            "union_runner"]
-
-_A14 = "is not ported yet: ROADMAP A14"
-
 
 def _union_body(plan, queries, order, sum_algo, span, counts=None,
                 fps=None):
@@ -130,10 +132,72 @@ def union_runner(queries: Dict[str, object], span: int,
     return Runner(spec, policy, n_keys=n_keys, segs_per_chunk=segs_per_chunk)
 
 
-def shard_union_run(*args, **kwargs):
-    """Time-sharded execution of a union DAG over a device mesh (the
-    reference's ``shard_union_run``)."""
-    raise NotImplementedError(f"shard_union_run (time sharding) {_A14}")
+def shard_union_run(queries: Dict[str, object], span: int,
+                    inputs: Dict[str, SnapshotGrid], mesh,
+                    axis: str = "data", *, sum_algo: str = "block"
+                    ) -> Dict[str, SnapshotGrid]:
+    """SPMD execution of N queries' union DAG with the *timeline* sharded
+    along ``mesh[axis]`` — the multi-query counterpart of
+    :func:`repro_torch.core.parallel.shard_map_run`, through the same
+    ``place_core_inputs`` / ``stage_exchange_step`` / ``record_exchange``.
+
+    ``span`` is the per-shard output span (time units); each input supplies
+    exactly the core region of the global window (``n · span`` time units,
+    shared by all queries), the same on every rank.  The merged per-source
+    halo contracts of the union plan — which get *deeper* as queries pile
+    on — are assembled by the same multi-hop chain as the per-query path,
+    so union plans whose windows exceed the per-shard span shard fine.
+    Every query's output grid comes back whole on every rank.  Unkeyed
+    sources only (the keyed session shards the key axis instead).
+    """
+    queries = {name: getattr(q, "node", q) for name, q in queries.items()}
+    for name, root in queries.items():
+        ir.validate(root)
+        if any(n.keyed for n in ir.free_inputs(root)):
+            raise NotImplementedError(
+                f"query {name!r}: shard_union_run time-shards unkeyed "
+                "sources; keyed query sets shard the key axis via "
+                "MultiQuerySession(mesh=...)")
+    comm = axis_comm(mesh, axis)
+    # plan + staged step depend only on the query-set structure and the
+    # execution knobs — cache both, keyed structurally because callers
+    # rebuild query dicts per call
+    qkey = tuple(sorted((name, ir.fingerprint(root))
+                        for name, root in queries.items()))
+
+    def build():
+        # interned, so nodes shared between queries evaluate once, as in
+        # the session (under jit the reference gets this from XLA's CSE;
+        # an eager evaluator does not)
+        cache = SharedPlanCache()
+        roots = {name: cache.intern(root) for name, root in queries.items()}
+        plan = plan_union(list(roots.values()), span)
+        order = ir.topo_order_multi(list(roots.values()))
+        body = _union_body(plan, roots, order, sum_algo, span)
+        return plan, parallel.stage_exchange_step(
+            plan.input_specs, body, comm, axis,
+            {qname: (axis, axis) for qname in queries})
+
+    plan, sharded = parallel.lru_step_get(
+        _union_step_cache,
+        (qkey, span, comm.n, comm.rank, comm.serial, axis, sum_algo),
+        build, _UNION_STEP_CACHE_MAX)
+    placed, out_t0 = parallel.place_core_inputs(plan.input_specs, inputs,
+                                                comm)
+    parallel.record_exchange(plan.input_specs, placed, comm)
+    outs = sharded(*placed)
+    return {qname: SnapshotGrid(value=v, valid=m, t0=out_t0,
+                                prec=queries[qname].prec)
+            for qname, (v, m) in outs.items()}
+
+
+# (qkey, span, axis geometry, sum_algo) -> (UnionPlan, step); structural
+# fingerprints make the key process-stable, so rebuilding the same
+# dashboard set every chunk never re-plans.  LRU-bounded: a long-lived
+# server with an evolving query set must not grow without bound.
+_UNION_STEP_CACHE_MAX = 16
+_union_step_cache: "collections.OrderedDict[tuple, tuple]" = \
+    collections.OrderedDict()
 
 
 def _crop(x, lo: int):
@@ -160,10 +224,11 @@ class MultiQuerySession:
     span:
         Output time units per chunk, shared by all queries (each query
         emits ``span // root.prec`` ticks per step).
-    n_keys:
+    n_keys / mesh / axis:
         Keyed execution: required key count when sources are
-        ``keyed=True``.  ``mesh`` (sharding the key axis) is not ported
-        yet (ROADMAP A14) and raises.
+        ``keyed=True``; an optional mesh shards the key axis along
+        ``axis`` (as in the keyed runner: every rank attaches the same
+        queries and steps the same global chunks).
     sparse:
         Change-compressed stepping: segments — and, when keyed, individual
         keys — whose dilated input lineage saw no change skip the union
@@ -187,15 +252,14 @@ class MultiQuerySession:
     """
 
     def __init__(self, span: int, *, n_keys: Optional[int] = None,
-                 mesh=None, sum_algo: str = "block",
+                 mesh=None, axis: str = "data", sum_algo: str = "block",
                  instrument: bool = False, sparse: bool = False,
                  cache: Optional[SharedPlanCache] = None,
                  metrics: Optional[Metrics] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"MultiQuerySession(mesh=...) (key-axis sharding) {_A14}")
         self.span = span
         self.n_keys = n_keys
+        self.mesh = mesh
+        self.axis = axis
         self.sum_algo = sum_algo
         self.instrument = instrument
         self.sparse = sparse
@@ -239,6 +303,8 @@ class MultiQuerySession:
             self._keyed = q_keyed
         if self._keyed and self.n_keys is None:
             raise ValueError("keyed sources need n_keys")
+        if self.mesh is not None and not self._keyed:
+            raise ValueError("mesh sharding requires keyed sources")
         canon = self.cache.intern(root)
         self._queries[name] = canon
         self._dirty = True
@@ -300,7 +366,13 @@ class MultiQuerySession:
                 sparse=self.sparse)
             policy = ExecPolicy(
                 body="sparse" if self.sparse else "dense",
-                keys="vmapped" if self._keyed else "single", dag="union")
+                keys="vmapped" if self._keyed else "single",
+                # the mesh shards the key axis only (attach() rejects
+                # unkeyed mesh sessions)
+                placement=(MeshPlacement(self.mesh, self.axis)
+                           if self.mesh is not None and self._keyed
+                           else "local"),
+                dag="union")
             runner = Runner(spec, policy,
                             n_keys=self.n_keys if self._keyed else None,
                             metrics=self.metrics)

@@ -37,7 +37,6 @@ from typing import Dict, Optional
 import torch
 
 from ..core import ir
-from ..core import sparse as sparse_mod
 from ..multiquery.shared import load_plain
 
 __all__ = ["ExecutableCache", "aot_capture", "capture_manifest",
@@ -55,9 +54,11 @@ def _backend_tag() -> tuple:
 def step_fingerprint(runner, label: str, *,
                      query_fp: Optional[str] = None) -> str:
     """Process-stable content key of one step: the query structure, the
-    execution geometry, the metrics mode and the backend (torch's version,
-    the CUDA version and the card's name).  Two processes that would
-    capture the same step agree on it; any drift misses."""
+    execution geometry (with a mesh reduced to its axis and shard count),
+    the metrics mode and the backend (torch's version, the CUDA version
+    and the card's name).  Two processes that would capture the same step
+    agree on it; any drift misses — a manifest written at one shard count
+    reads as a miss at another."""
     spec = runner.spec
     if query_fp is None:
         if spec.root is not None:
@@ -70,14 +71,11 @@ def step_fingerprint(runner, label: str, *,
     p = runner.policy
     payload = repr((query_fp, label, spec.out_len, spec.out_prec,
                     sorted(spec.out_precs.items()), spec.solo,
-                    p.body, p.keys, p.dag, p.placement,
+                    p.body, p.keys, p.dag,
+                    p.axis if p.mesh is not None else None, p.n_shards,
                     runner.n_keys, runner.n_segs, runner.metrics.on,
                     runner.revision_horizon, _backend_tag()))
     return hashlib.sha256(payload.encode()).hexdigest()
-
-
-def _ladder(runner) -> list:
-    return sparse_mod.capacity_ladder(runner.n_keys * runner.n_segs)
 
 
 def capture_manifest(runner, key, device=None) -> dict:
@@ -85,7 +83,7 @@ def capture_manifest(runner, key, device=None) -> dict:
     without planning or evaluating the body: the key, the capacity-bucket
     ladder and the hold seeds' shapes (``Runner.seed_shape_spec``)."""
     return {"schema": _MANIFEST_SCHEMA, "key": tuple(key),
-            "caps": _ladder(runner),
+            "caps": runner.capacity_ladder(),
             "seed_shapes": runner.seed_shape_spec(device)}
 
 
@@ -94,7 +92,7 @@ def manifest_fits(manifest: Optional[dict], runner, key) -> bool:
     same key and the same capacity-bucket ladder (a stale entry reads as
     a miss)."""
     return (manifest is not None and manifest.get("key") == tuple(key)
-            and manifest.get("caps") == _ladder(runner))
+            and manifest.get("caps") == runner.capacity_ladder())
 
 
 class ExecutableCache:

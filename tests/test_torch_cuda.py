@@ -915,3 +915,106 @@ def test_cuda_serve_steady_state_makes_no_synchronizing_call(cuda, tmp_path,
     assert warm.plan_source == "warm"
     assert set(warm.aot_report.values()) == {"captured"}
     _same(warm.step(chunks[0]), outs[0])
+
+
+# ---------------------------------------------------------------------------
+# mesh placement on a 1-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """The 1-rank NCCL mesh ``make_local_mesh()`` starts on the card (a
+    second card cannot join a one-card machine: NCCL refuses two ranks on
+    one device)."""
+    from repro_torch.launch.mesh import make_local_mesh
+    return make_local_mesh()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["dense", "sparse"])
+@pytest.mark.parametrize("keyed", [False, True])
+def test_cuda_mesh_runner_equals_local_without_syncs(nccl_mesh, body,
+                                                      keyed):
+    """``Runner(placement=mesh)`` on the card: every chunk a replay of the
+    steps captured at their first use, the result gathered over NCCL after
+    it; bit for bit the local runner's, and a steady chunk makes no
+    synchronizing call and captures nothing."""
+    from repro_torch.engine import mesh_placement
+    n_keys, segs, n_chunks = 24, 4, 6
+    span = 64 * segs
+    shape = (n_keys, span * n_chunks) if keyed else (span * n_chunks,)
+    vals = _int_vals(shape, 7, rate=0.002)
+    g = {"in": keyed_grid(vals, np.ones(shape, bool))}
+    local = _mean_runners(keyed, n_keys, segs)[body == "sparse"]
+    mesh = Runner(local.spec, ExecPolicy(
+        body=body, keys=local.policy.keys,
+        placement=mesh_placement(nccl_mesh)),
+        n_keys=n_keys if keyed else None, segs_per_chunk=segs)
+    want = local.run(g, n_chunks)
+    got = mesh.run(g, n_chunks - 1)
+    caps = mesh.metrics.tracer.captures()
+    assert caps and all(n == 1 for n in caps.values()), caps
+    last = {"in": g["in"].replace(
+        value=g["in"].value[..., -span:], valid=g["in"].valid[..., -span:],
+        t0=(n_chunks - 1) * span)}
+    tail = []
+    assert _count_syncs(lambda: tail.append(mesh.step(last))) == 0
+    assert mesh.metrics.tracer.captures() == caps
+    _same(want, got.replace(
+        value=torch.cat([got.value, tail[0].value], dim=-1),
+        valid=torch.cat([got.valid, tail[0].valid], dim=-1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sparse", [False, True])
+def test_cuda_shard_map_run_on_one_rank(nccl_mesh, sparse):
+    """``shard_map_run`` and ``shard_union_run`` on the 1-rank NCCL mesh
+    equal ``partition_run`` and the union session bit for bit."""
+    from repro_torch.core.frontend import TStream
+    from repro_torch.multiquery import MultiQuerySession, shard_union_run
+    n = 1 << 14
+    vals = _int_vals((n,), 3, rate=0.01)
+    g = {"in": keyed_grid(vals, np.ones(n, bool))}
+    exe = qc.compile_query(streams.fraud_query(64).node, out_len=n,
+                           sparse=sparse)
+    _same(par.partition_run(exe, g, 0, 1),
+          par.shard_map_run(exe, g, nccl_mesh))
+    s = TStream.source("in", prec=1)
+    qs = {"a": s.window(16).mean(), "b": s.window(200).max()}
+    out = shard_union_run(qs, n, g, nccl_mesh)
+    sess = MultiQuerySession(n)
+    for name, q in qs.items():
+        sess.attach(name, q)
+    ref = sess.run(g, 1)
+    for name in qs:
+        _same(ref[name], out[name])
+
+
+@pytest.mark.cuda
+def test_cuda_keyed_engine_and_session_on_mesh(nccl_mesh):
+    """``KeyedEngine(mesh=)`` and a sparse keyed session with ``mesh=`` on
+    the card equal their local counterparts bit for bit."""
+    from repro_torch.core.frontend import TStream
+    from repro_torch.engine import KeyedEngine
+    from repro_torch.multiquery import MultiQuerySession
+    K, T, span = 32, 1024, 128
+    vals = _int_vals((K, T), 9, rate=0.01)
+    g = {"in": keyed_grid(vals, np.ones((K, T), bool))}
+    s = TStream.source("in", prec=1, keyed=True)
+    trend = (s.window(16).mean().join(s.window(64).mean(),
+                                      lambda a, b: a - b)
+             .where(lambda d: d > 0))
+    exe = qc.compile_query(trend.node, out_len=span, sparse=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        _same(KeyedEngine(exe, n_keys=K, sparse=True).run(g, T // span),
+              KeyedEngine(exe, n_keys=K, sparse=True,
+                          mesh=nccl_mesh).run(g, T // span))
+    outs = []
+    for mesh in (None, nccl_mesh):
+        sess = MultiQuerySession(span, n_keys=K, sparse=True, mesh=mesh)
+        sess.attach("trend", trend)
+        sess.attach("band", s.window(32).max().join(s, lambda h, x: h - x))
+        outs.append(sess.run(g, T // span))
+    for name in ("trend", "band"):
+        _same(outs[0][name], outs[1][name])

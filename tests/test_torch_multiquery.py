@@ -10,9 +10,10 @@ state exactly.  Against the reference: the port's session equals the
 reference's (``pallas=False``) on the same data, unkeyed and keyed, dense
 and sparse, through attach and detach; ``plan_union`` plans the same
 contracts; a reference session's ``state()`` carried in through
-``convert.state_from_numpy`` continues to the same outputs.  Not mirrored:
-``test_shard_union_run_single_device_matches_session`` and the halo-hop
-report, which go with the mesh placement of ROADMAP A14.
+``convert.state_from_numpy`` continues to the same outputs.  On a 1-rank
+gloo mesh (the reference's 1-device mesh): ``shard_union_run`` against
+the session and the reference's, the halo-hop report, and the keyed
+session with ``mesh=`` against the reference's through attach and detach.
 
 Test data is integer-valued (floor of uniforms): f32 window sums over
 small integers are exact, so every comparison within the port is bit for
@@ -38,13 +39,18 @@ from repro.core import ir as rir, plan as rplan
 from repro.core.frontend import TStream as RTStream
 from repro.core.stream import SnapshotGrid as RGrid
 from repro.data import apps as RA
+from repro.core.parallel import check_single_hop_halo as r_check_hops
+from repro.launch.mesh import make_local_mesh as r_make_local_mesh
 from repro.multiquery import MultiQuerySession as RSession
+from repro.multiquery import shard_union_run as r_shard_union_run
 from repro_torch import convert
 from repro_torch.core import compile as qc, ir, plan as qplan
 from repro_torch.core.frontend import TStream
 from repro_torch.core.stream import SnapshotGrid
 from repro_torch.data import apps as A
+from repro_torch.core.parallel import check_single_hop_halo
 from repro_torch.engine import ExecPolicy, Runner, keyed_grid
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.multiquery import (MultiQuerySession, SharedPlanCache,
                                     shard_union_run, union_runner)
 
@@ -488,10 +494,63 @@ def test_session_step_shape_check_is_real_exception():
 
 
 def test_mesh_and_time_sharding_raise_naming_a14():
-    with pytest.raises(NotImplementedError, match="A14"):
-        MultiQuerySession(SPAN, mesh=object())
-    with pytest.raises(NotImplementedError, match="A14"):
-        shard_union_run({}, SPAN, {}, object())
+    """Mesh placement is ported (ROADMAP A14): what still raises is what
+    the reference refuses — a mesh over an unkeyed session (it shards the
+    key axis), and time-sharding keyed sources."""
+    mesh = make_local_mesh(n_data=1, device="cpu")
+    sess = MultiQuerySession(SPAN, mesh=mesh)
+    with pytest.raises(ValueError, match="requires keyed"):
+        sess.attach("q", TStream.source("in", prec=1).window(8).mean())
+    with pytest.raises(NotImplementedError, match="time-shards unkeyed"):
+        shard_union_run({"q": TStream.source("in", keyed=True).window(8)
+                         .mean()}, SPAN, {}, mesh)
+
+
+def test_halo_overflow_guard_reports_hop_geometry():
+    """Any halo is served by the multi-hop exchange, so nothing raises;
+    the report keeps the single-hop threshold formula, as the
+    reference's."""
+    q = TStream.source("in", prec=1).window(100).mean()
+    exe = qc.compile_query(q.node, out_len=32)
+    rep = check_single_hop_halo(exe.input_specs, exe.out_prec, n=4)
+    assert rep["in"].min_single_hop_out_len == 100
+    assert rep["in"].left_hops == 4 and rep["in"].right_hops == 0
+    assert rep["in"].max_hops == 4
+    assert check_single_hop_halo(exe.input_specs, exe.out_prec,
+                                 n=1)["in"].max_hops == 0
+    rq = RTStream.source("in", prec=1).window(100).mean()
+    from repro.core import compile as rqc
+    rexe = rqc.compile_query(rq.node, out_len=32, pallas=False)
+    want = r_check_hops(rexe.input_specs, rexe.out_prec, n=4)["in"]
+    assert (rep["in"].left_hops, rep["in"].right_hops,
+            rep["in"].min_single_hop_out_len) == (
+        want.left_hops, want.right_hops, want.min_single_hop_out_len)
+
+
+def test_shard_union_run_single_device_matches_session():
+    """Time-sharded union execution on the 1-rank mesh matches the chunked
+    session and the reference's ``shard_union_run`` on its 1-device mesh
+    bit for bit (integer-valued data)."""
+    N = 128
+    vals, valid = _int_stream(N, seed=13)
+    s = TStream.source("in", prec=1)
+    queries = {"a": s.window(12).mean(), "b": s.window(40).sum()}
+    out = shard_union_run(queries, N, {"in": _grid(vals, valid)},
+                          make_local_mesh(n_data=1, device="cpu"))
+    sess = MultiQuerySession(N)
+    for name, q in queries.items():
+        sess.attach(name, q)
+    ref = sess.run({"in": _grid(vals, valid)}, 1)
+    rs = RTStream.source("in", prec=1)
+    want = r_shard_union_run(
+        {"a": rs.window(12).mean(), "b": rs.window(40).sum()}, N,
+        {"in": RGrid(value=jnp.asarray(vals), valid=jnp.asarray(valid),
+                     t0=0, prec=1)}, r_make_local_mesh(n_data=1),
+        pallas=False)
+    for name in queries:
+        assert out[name].t0 == 0
+        _assert_bit_identical(out[name], ref[name], name)
+        _assert_bit_identical(out[name], want[name], name)
 
 
 # ---------------------------------------------------------------------------
@@ -607,3 +666,69 @@ def test_reference_state_continues_in_the_port(keyed, sparse):
         rsess2.attach(n, q)
     rsess2.restore(back)
     assert rsess2.state()["__t"] == n_chunks * SPAN
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_keyed_mesh_session_matches_reference_through_attach_and_detach(
+        sparse):
+    """A keyed session with ``mesh=`` on the 1-rank mesh and the
+    reference's on its 1-device mesh, fed the same chunks with a query
+    attached and one detached between chunks: every output bit for bit
+    (the stddev heads within ``STD_TOL``)."""
+    import jax
+    queries, rqueries = _dash(keyed=True, n=6), _dash(keyed=True, n=6,
+                                                      pkg=RA)
+    names = list(queries)
+    n_chunks = 4
+    vals, valid = _int_stream((K, SPAN * n_chunks), seed=37, p_valid=0.9,
+                              top=16)
+    full, rfull = _grid(vals, valid), _rgrid(vals, valid)
+    sess = MultiQuerySession(SPAN, n_keys=K, sparse=sparse,
+                             mesh=make_local_mesh(n_data=1, device="cpu"))
+    rsess = RSession(SPAN, n_keys=K, sparse=sparse, pallas=False,
+                     mesh=jax.sharding.Mesh(np.array(jax.devices()[:1]),
+                                            ("data",)))
+    for n in names[:4]:
+        sess.attach(n, queries[n])
+        rsess.attach(n, rqueries[n])
+    for c in range(n_chunks):
+        if c == 1:
+            sess.attach(names[4], queries[names[4]])
+            rsess.attach(names[4], rqueries[names[4]])
+        if c == 2:
+            sess.detach(names[1])
+            rsess.detach(names[1])
+        got = sess.step(_chunk(full, c))
+        want = rsess.step(_rchunk(rfull, c, True))
+        assert sorted(got) == sorted(want)
+        for n in got:
+            _assert_head(got[n], want[n], n, (c, n))
+    assert sess.runner.policy.describe() == (
+        f"{'sparse' if sparse else 'dense'}×vmapped×mesh1×union")
+
+
+def test_shard_union_run_evaluates_shared_nodes_once(monkeypatch):
+    """``shard_union_run`` interns its queries, so a node shared between
+    queries evaluates once per call, as in the session: the evaluator runs
+    exactly the union DAG's nodes (the reference gets this from XLA's CSE
+    under ``jit``)."""
+    from repro_torch.multiquery import session as sess_mod
+    qs = _dash(n=8)
+    calls = []
+    real = qcompile_eval = sess_mod.qcompile.eval_op
+
+    def counting(n, *args):
+        calls.append(id(n))
+        return real(n, *args)
+
+    monkeypatch.setattr(sess_mod.qcompile, "eval_op", counting)
+    vals, valid = _int_stream(SPAN, seed=41)
+    shard_union_run(qs, SPAN, {"in": _grid(vals, valid)},
+                    make_local_mesh(n_data=1, device="cpu"))
+    monkeypatch.setattr(sess_mod.qcompile, "eval_op", qcompile_eval)
+    sess = MultiQuerySession(SPAN)
+    for name, q in qs.items():
+        sess.attach(name, q)
+    rep = sess.sharing_report()
+    assert rep.shared_nodes > 0
+    assert len(calls) == len(set(calls)) == rep.union_nodes

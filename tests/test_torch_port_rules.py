@@ -17,6 +17,7 @@ from repro_torch.core import stream
 from repro_torch.data import apps, streams
 from repro_torch.engine import keyed_grid
 from repro_torch.ingest import IngestRunner, ReorderBuffer
+from repro_torch.launch.mesh import make_local_mesh
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -36,6 +37,14 @@ def test_the_rules_cover_the_serving_package():
     paths = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
     assert {"serve/aot.py", "serve/loop.py", "serve/ring.py",
             "serve/__main__.py"} <= paths
+
+
+def test_the_rules_cover_the_launch_package():
+    """The mesh module is among the modules imported and scanned below."""
+    assert {"repro_torch.launch", "repro_torch.launch.mesh"} <= set(
+        _modules())
+    paths = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {"launch/__init__.py", "launch/mesh.py"} <= paths
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
@@ -107,7 +116,8 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch):
                  lambda **kw: _service(**kw),
                  lambda **kw: convert.state_from_numpy(
                      {"in": (np.zeros(4), np.ones(4, bool)), "__t": 0},
-                     **kw)):
+                     **kw),
+                 lambda **kw: make_local_mesh(**kw)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
         assert call(device="cpu") is not None

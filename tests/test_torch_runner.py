@@ -10,6 +10,14 @@ reference's, as ``tests/test_policy.py``, ``tests/test_engine.py`` and
   bit identity and every ``restore`` rejection, the deprecated wrappers ≡
   ``Runner``, one step built per geometry key, the telemetry, and the
   out-of-scope axes raising.
+* Mesh placement on a 1-rank gloo mesh, as ``tests/test_policy.py`` holds
+  the reference on its 1-device mesh: the accessors, ``KeyedEngine(mesh=,
+  sparse=True)``, the sparse single-keyed runner sharding segments, every
+  point of ``body × keys × placement × dag`` against the reference's
+  runner at the same point, a property over random points and change
+  rates, the state's global layout and the cache and manifest keys
+  carrying the mesh.  The 8-rank points are in
+  ``tests/test_torch_multidev.py``.
 
 Every comparison is exact.
 """
@@ -19,23 +27,42 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._pytree import tree_flatten
 
 from repro import obs as robs
 from repro.core import compile as rqc
 from repro.core.frontend import TStream as RTStream
 from repro.core.stream import SnapshotGrid as RGrid
 from repro.engine import ExecPolicy as RPolicy, Runner as RRunner
+from repro.engine import KeyedEngine as RKeyedEngine
+from repro.engine import keyed_grid as r_keyed_grid
+from repro.engine import mesh_placement as r_mesh_placement
+from repro.multiquery import union_runner as r_union_runner
 from repro_torch.core import compile as qc
 from repro_torch.core.frontend import TStream
 from repro_torch.core.parallel import (SparseStreamRunner, StreamRunner,
                                        partition_run)
 from repro_torch.data import apps
-from repro_torch.engine import (ExecPolicy, KeyedEngine, Runner, keyed_grid,
+from repro_torch.engine import (ExecPolicy, KeyedEngine, MeshPlacement,
+                                Runner, keyed_grid, mesh_placement,
                                 wrap_keyed_step)
+from repro_torch.launch.mesh import group_serial, make_local_mesh
+from repro_torch.multiquery import union_runner
 
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 
 N, K, SEG, SPC = 256, 4, 16, 2
+
+
+@pytest.fixture(scope="module")
+def mesh1():
+    """The port's 1-rank gloo mesh (``("data", "model")``)."""
+    return make_local_mesh(n_data=1, device="cpu")
+
+
+def _rmesh1():
+    import jax
+    return jax.sharding.Mesh(np.array(jax.devices()[:1]), ("data",))
 
 
 def pw_const(shape, rate, seed):
@@ -364,17 +391,26 @@ def test_policy_values_describe_and_out_of_scope_axes():
         ExecPolicy(dag="forest")
     with pytest.raises(ValueError, match="placement"):
         ExecPolicy(placement="cloud")
-    with pytest.raises(NotImplementedError, match="A14"):
+    # mesh placement is ported (ROADMAP A14): a bare string names no mesh,
+    # and is refused as the reference refuses it
+    with pytest.raises(ValueError, match="placement"):
         ExecPolicy(placement="mesh")
+    with pytest.raises(ValueError, match="placement"):
+        RPolicy(placement="mesh")
     p = ExecPolicy(body="sparse", keys="vmapped")
     assert p.sparse and p.keyed and not p.union
     assert ExecPolicy(dag="union").union       # ported: ROADMAP A11
+    mesh = make_local_mesh(n_data=1, device="cpu")
     for body in ("dense", "sparse"):
         for keys in ("single", "vmapped"):
             for dag in ("solo", "union"):
-                assert (ExecPolicy(body=body, keys=keys, dag=dag).describe()
-                        == RPolicy(body=body, keys=keys,
-                                   dag=dag).describe())
+                for pl, rpl in (("local", "local"),
+                                (mesh_placement(mesh),
+                                 r_mesh_placement(_rmesh1()))):
+                    assert (ExecPolicy(body=body, keys=keys, dag=dag,
+                                       placement=pl).describe()
+                            == RPolicy(body=body, keys=keys, dag=dag,
+                                       placement=rpl).describe())
     r = Runner(_exe(), ExecPolicy())
     # late-data revision is ported (ROADMAP A12): enabling it raises only
     # on a bad horizon, and revise() only before it is enabled
@@ -388,12 +424,17 @@ def test_policy_values_describe_and_out_of_scope_axes():
         "dense", "revise(1)"]
     with pytest.raises(NotImplementedError, match="A15"):
         r.audit_example_chunks()
-    with pytest.raises(NotImplementedError, match="A14"):
-        KeyedEngine(_exe(True), n_keys=4, mesh=object())
-    with pytest.raises(NotImplementedError, match="A14"):
-        wrap_keyed_step(lambda t, c: (t, c), mesh=object())
-    step = lambda t, c: (t, c)  # noqa: E731
+    # the mesh forms the reference has (ROADMAP A14): KeyedEngine(mesh=)
+    # places its runner on the mesh, wrap_keyed_step(mesh=) shards the key
+    # axis and gathers both results back
+    eng = KeyedEngine(_exe(True), n_keys=4, mesh=mesh)
+    assert eng._runner.policy.placement == MeshPlacement(mesh, "data")
+    assert eng._runner.policy.describe() == "dense×vmapped×mesh1×solo"
+    step = lambda t, c: (t + 1, c * 2)  # noqa: E731
     assert wrap_keyed_step(step) is step
+    tails, chunks = torch.arange(8.).reshape(4, 2), torch.ones(4, 3)
+    out, new = wrap_keyed_step(step, mesh=mesh)(tails, chunks)
+    assert torch.equal(out, tails + 1) and torch.equal(new, chunks * 2)
 
 
 def test_runner_validation():
@@ -486,3 +527,249 @@ def test_dense_runner_metrics_have_no_sparse_slots():
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         assert robs.validate_snapshot(snap) == []
+
+
+# ---------------------------------------------------------------------------
+# mesh placement on the 1-rank mesh (tests/test_policy.py's _mesh1 points)
+# ---------------------------------------------------------------------------
+
+def _bands(s):
+    return s.window(24).max().join(s, lambda h, x: h - x)
+
+
+def test_policy_mesh_accessors_and_describe(mesh1):
+    p = ExecPolicy(body="sparse", keys="vmapped",
+                   placement=mesh_placement(mesh1), dag="union")
+    assert p.sparse and p.keyed and p.union
+    assert p.mesh is mesh1 and p.axis == "data" and p.n_shards == 1
+    assert p.rank == 0
+    assert p.describe() == "sparse×vmapped×mesh1×union"
+    assert ExecPolicy().describe() == "dense×single×local×solo"
+    # a bare mesh is accepted and normalized onto its first axis
+    assert ExecPolicy(placement=mesh1).axis == "data"
+    assert ExecPolicy(placement=mesh1).placement == MeshPlacement(mesh1)
+    assert repr(mesh_placement(mesh1)) == "mesh(axis='data', n=1)"
+
+
+def test_keyed_engine_sparse_mesh_matches_dense_local(mesh1):
+    vals = pw_const((K, N), 0.03, seed=4)
+    exe_d = _exe(True, out_len=64)
+    exe_s = _exe(True, True, out_len=64)
+    g = _grid(vals)
+    ref = KeyedEngine(exe_d, n_keys=K).run(g, N // 64)
+    eng = KeyedEngine(exe_s, n_keys=K, mesh=mesh1, sparse=True)
+    _assert_same(ref, eng.run(g, N // 64), "sparse+mesh")
+
+
+def test_runner_sparse_mesh_single_keys_shards_segments(mesh1):
+    """``ExecPolicy(body=sparse, placement=mesh)`` with keys='single':
+    segments shard over the mesh, per-shard compaction, bit-identical to
+    the dense local runner and to the reference's on its 1-device mesh."""
+    vals = pw_const((N,), 0.03, seed=5)
+    ref = Runner(_exe(out_len=32), ExecPolicy()).run(_grid(vals), N // 32)
+    got = Runner(_exe(sparse=True, out_len=32),
+                 ExecPolicy(body="sparse", placement=mesh_placement(mesh1)),
+                 segs_per_chunk=4).run(_grid(vals), N // 128)
+    _assert_same(ref, got, "sparse×single×mesh")
+    rexe = rqc.compile_query(_trend(RTStream.source("in")).node, out_len=32,
+                             pallas=False, sparse=True)
+    want = RRunner(rexe, RPolicy(body="sparse",
+                                 placement=r_mesh_placement(_rmesh1())),
+                   segs_per_chunk=4).run(
+        {"in": RGrid(value=jnp.asarray(vals),
+                     valid=jnp.ones(N, bool), t0=0, prec=1)}, N // 128)
+    _assert_same(want, got, "reference")
+
+
+@pytest.mark.parametrize("body", ["dense", "sparse"])
+@pytest.mark.parametrize("keys", ["single", "vmapped"])
+@pytest.mark.parametrize("placement", ["local", "mesh"])
+@pytest.mark.parametrize("dag", ["solo", "union"])
+def test_policy_matrix_against_reference(mesh1, body, keys, placement, dag):
+    """Every point of ``body × keys × placement × dag`` equals the
+    reference's runner at the same point (its 1-device mesh) bit for bit,
+    chunk after chunk, on integer data."""
+    keyed, sparse = keys == "vmapped", body == "sparse"
+    seg, k = 16, 3
+    vals = pw_const((k, 128) if keyed else (128,), 0.05, 21)
+    pl = mesh_placement(mesh1) if placement == "mesh" else "local"
+    rpl = r_mesh_placement(_rmesh1()) if placement == "mesh" else "local"
+    policy = ExecPolicy(body=body, keys=keys, placement=pl, dag=dag)
+    rpolicy = RPolicy(body=body, keys=keys, placement=rpl, dag=dag)
+    kw = dict(n_keys=k if keyed else None, segs_per_chunk=2)
+    s = TStream.source("in", prec=1, keyed=keyed)
+    rs = RTStream.source("in", prec=1, keyed=keyed)
+    if dag == "solo":
+        r = Runner(qc.compile_query(_trend(s).node, out_len=seg,
+                                    sparse=sparse), policy, **kw)
+        rr = RRunner(rqc.compile_query(_trend(rs).node, out_len=seg,
+                                       pallas=False, sparse=sparse),
+                     rpolicy, **kw)
+    else:
+        r = union_runner({"trend": _trend(s), "bands": _bands(s)}, seg,
+                         policy, **kw)
+        rr = r_union_runner({"trend": _trend(rs), "bands": _bands(rs)}, seg,
+                            rpolicy, pallas=False, **kw)
+    for v, t0 in _chunks(vals, 2 * seg):
+        got = r.step(_grid(v, t0))
+        want = rr.step({"in": RGrid(value=jnp.asarray(v),
+                                    valid=jnp.ones(v.shape, bool), t0=t0,
+                                    prec=1)})
+        if dag == "solo":
+            got, want = {"trend": got}, {"trend": want}
+        for name in got:
+            _assert_same(want[name], got[name], (policy.describe(), name,
+                                                 t0))
+
+
+def test_policy_matrix_property_with_mesh(mesh1):
+    """Property: random policy points (placement included) × random change
+    patterns on a small query zoo never diverge from the reference's dense
+    single-stream ``partition_run`` (integer-valued data)."""
+    from hypothesis import given, settings, strategies as st
+    from repro.core.parallel import partition_run as r_partition_run
+
+    n, seg = 128, 16
+    zoo = {"trend": _trend, "bands": _bands,
+           "tumbling": lambda s: s.window(8, stride=8).sum()}
+
+    @settings(max_examples=12, deadline=None, database=None)
+    @given(st.sampled_from(["dense", "sparse"]),
+           st.sampled_from(["single", "vmapped"]), st.booleans(),
+           st.sampled_from(sorted(zoo)), st.integers(0, 2 ** 31 - 1),
+           st.floats(0.0, 1.0))
+    def prop(body, keys, use_mesh, qname, seed, rate):
+        keyed = keys == "vmapped"
+        vals = pw_const((K, n) if keyed else (n,), rate, seed)
+        q = zoo[qname](TStream.source("in", prec=1, keyed=keyed))
+        rq = zoo[qname](RTStream.source("in", prec=1))
+        out_len = seg // q.node.prec
+        r = Runner(qc.compile_query(q.node, out_len=out_len,
+                                    sparse=body == "sparse"),
+                   ExecPolicy(body=body, keys=keys,
+                              placement=(mesh_placement(mesh1) if use_mesh
+                                         else "local")),
+                   n_keys=K if keyed else None, segs_per_chunk=2)
+        got = r.run(_grid(vals), n // (2 * seg))
+        rexe = rqc.compile_query(rq.node, out_len=n // q.node.prec,
+                                 pallas=False)
+        rows = range(0, K, 3) if keyed else [None]
+        for i in rows:
+            row = vals if i is None else vals[i]
+            ref = r_partition_run(rexe, {"in": RGrid(
+                value=jnp.asarray(row), valid=jnp.ones(n, bool), t0=0,
+                prec=1)}, 0, 1)
+            gv, gm = (got.value, got.valid) if i is None else (
+                got.value[i], got.valid[i])
+            _assert_same(ref, RGrid(value=gv.numpy(), valid=gm.numpy(),
+                                    t0=0, prec=q.node.prec),
+                         (body, keys, use_mesh, qname, i))
+
+    prop()
+
+
+@pytest.mark.parametrize("body", ["dense", "sparse"])
+@pytest.mark.parametrize("keys", ["single", "vmapped"])
+def test_mesh_state_is_the_global_layout(mesh1, body, keys):
+    """A mesh runner's ``state()`` is the local runner's, array for array
+    (the reference's global layout), and a checkpoint moves between the
+    two placements and continues to the same outputs."""
+    keyed = keys == "vmapped"
+    vals = pw_const((K, N) if keyed else (N,), 0.05, 8)
+    exe = _exe(keyed, body == "sparse")
+    kw = dict(n_keys=K if keyed else None, segs_per_chunk=SPC)
+    span = SEG * SPC
+    chunks = _chunks(vals, span)
+    local = Runner(exe, ExecPolicy(body=body, keys=keys), **kw)
+    mesh = Runner(exe, ExecPolicy(body=body, keys=keys,
+                                  placement=mesh_placement(mesh1)), **kw)
+    for v, t0 in chunks[:3]:
+        local.step(_grid(v, t0))
+        mesh.step(_grid(v, t0))
+    st_l, st_m = local.state(), mesh.state()
+    flat_l, spec_l = tree_flatten(st_l)
+    flat_m, spec_m = tree_flatten(st_m)
+    assert spec_l == spec_m
+    for a, b in zip(flat_l, flat_m):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+    a = Runner(exe, ExecPolicy(body=body, keys=keys,
+                               placement=mesh_placement(mesh1)), **kw)
+    a.restore(st_l)
+    b = Runner(exe, ExecPolicy(body=body, keys=keys), **kw)
+    b.restore(st_m)
+    for v, t0 in chunks[3:]:
+        want = local.step(_grid(v, t0))
+        _assert_same(want, a.step(_grid(v, t0)), "local state in mesh")
+        _assert_same(want, b.step(_grid(v, t0)), "mesh state in local")
+
+
+def test_mesh_runner_keys_carry_the_mesh(mesh1, monkeypatch):
+    """The built steps' cache keys and the capture manifests' fingerprints
+    carry the mesh reduced to its shape and axis: a mesh runner and a
+    local one over one query never share a step, and a manifest written at
+    one shard count reads as a miss at another."""
+    from repro_torch.engine import policy as pol
+    from repro_torch.serve import step_fingerprint
+    exe = _exe(sparse=True)
+    local = Runner(exe, ExecPolicy(body="sparse"), segs_per_chunk=SPC)
+    mesh = Runner(exe, ExecPolicy(body="sparse",
+                                  placement=mesh_placement(mesh1)),
+                  segs_per_chunk=SPC)
+    assert Runner._KEY_DOFS == ("K", "n_segs", "device", "mesh", "axis")
+    dofs = mesh.staging_key_dofs("cpu")
+    at = ((1, 1), 0, group_serial(mesh1.get_group("data")))
+    assert dofs["mesh"] == at and dofs["axis"] == "data"
+    assert local.staging_key_dofs("cpu")["mesh"] is None
+    vals = pw_const((N,), 0.05, 3)
+    for r in (local, mesh):
+        r.step(_grid(vals[:SEG * SPC]))
+    labels = set(exe._runner_step_cache)
+    assert any(k[4] is None for k in labels)
+    assert any(k[4] == at for k in labels)
+    assert any("mesh=data" in lab for lab in mesh.metrics.tracer.compiles())
+    assert mesh.capacity_ladder() == local.capacity_ladder()
+    fp1 = step_fingerprint(mesh, "dense")
+    assert fp1 != step_fingerprint(local, "dense")
+    monkeypatch.setattr(pol.ExecPolicy, "n_shards",
+                        property(lambda self: 2))
+    assert step_fingerprint(mesh, "dense") != fp1
+
+
+@pytest.mark.parametrize("body", ["dense", "sparse"])
+@pytest.mark.parametrize("keys", ["single", "vmapped"])
+def test_same_shape_meshes_over_two_groups_share_no_step(mesh1, body, keys,
+                                                         monkeypatch):
+    """Two meshes of one shape over different process groups: runners of
+    one query on each build their own steps (the step cache keys carry the
+    axis group), and each runner's steps gather through its own group —
+    a step reused across the two would gather through the other one."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.launch import mesh as lm
+    groups = [dist.new_group([0]) for _ in range(2)]
+    meshes = [DeviceMesh.from_group(g, "cpu", mesh_dim_names=("data",))
+              for g in groups]
+    keyed = keys == "vmapped"
+    exe = _exe(keyed=keyed, sparse=body == "sparse")
+    kw = dict(n_keys=K if keyed else None, segs_per_chunk=SPC)
+    local = Runner(exe, ExecPolicy(body=body, keys=keys), **kw)
+    runners = [Runner(exe, ExecPolicy(body=body, keys=keys,
+                                      placement=mesh_placement(m)), **kw)
+               for m in meshes]
+    seen = []
+    gather = lm.dist.all_gather_into_tensor
+
+    def spy(out, x, group=None):
+        seen.append(group)
+        return gather(out, x, group=group)
+
+    monkeypatch.setattr(lm.dist, "all_gather_into_tensor", spy)
+    vals = pw_const((K, N) if keyed else (N,), 0.05, 5)
+    for v, t0 in _chunks(vals, SEG * SPC):
+        want = local.step(_grid(v, t0))
+        for g, r in zip(groups, runners):
+            seen.clear()
+            _assert_same(want, r.step(_grid(v, t0)), (body, keys, t0))
+            assert seen and all(x is g for x in seen), (body, keys, t0)
+    keys_of = [{r._cache_key("dense", "cpu")} for r in runners]
+    assert keys_of[0] != keys_of[1]
