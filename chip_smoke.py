@@ -126,12 +126,24 @@ Phases (each raises on failure; the script then exits non-zero):
    phase prints
    its launches of ``sliding_assoc``, ``seg_dirty`` and ``prefix_scan``,
    the NCCL version and the device count.
-12. One JSON line with every kernel's launches on the main path (the sum
+12. The static audit (``repro_torch.analysis``) on the card, on phase
+   11's 1-rank NCCL group: (a) all 16 points of the ExecPolicy lattice
+   (the ``(policy, pass)`` summary, the verdict and the wall time per
+   point; no error finding, warnings printed with their provenance); (b)
+   the known-bad corpus of ``tests/test_torch_analysis.py``, each fixture
+   firing its code on the card and the shipped runner at its point
+   staying clean; (c) every runner cell of phases 5, 6, 8, 9, 10 and 11,
+   audited once after its timed run, outside its timed and launch-count
+   windows (``audit=<verdict>`` beside the cell's numbers; an error
+   finding fails the script); (d) every ``sliding_assoc``, ``seg_dirty``
+   and ``prefix_scan`` shape the audits launched, held against the plain
+   versions.  The group is destroyed after it.
+13. One JSON line with every kernel's launches on the main path (the sum
    of the windows of phases 3-11), its error against its plain version, its
    times and its bound.  ``fused_trend`` has no caller on any path (nor in
    the reference), so its launches are 0; phase 2 holds it against its
    plain version.
-13. The last line: ``{"ok": true, "device": {...}}``.
+14. The last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 before printing any result.
 """
@@ -170,6 +182,9 @@ OOO_KEYS, OOO_KEY_TICKS = 64, 8192
 SERVE_BATCHES = (1, 10, 100, 1000)                       # phase 10
 SERVE_EVENTS, SERVE_WARMUP, SERVE_WINDOW = 1_000_000, 2, 16
 FIRST_RESULT_BATCH = 100
+# phase 12(c): each audited cell's verdict, findings and seconds, and the
+# kernel shapes the audits launched (held in 12(d))
+AUDITS: dict = {"cells": {}, "shapes": {}}
 
 
 def log(*a):
@@ -1018,6 +1033,33 @@ def drive(main_launches: dict, fn):
     return res, dt
 
 
+def _log_findings(where: str, findings) -> None:
+    """Every warning and error, with its provenance."""
+    for f in findings:
+        if f.severity != "info":
+            log(f"  {where}: [{f.severity}] {f.pass_name}/{f.code} :: "
+                f"{f.target or '-'} @ {f.provenance or '-'}")
+
+
+def audit_cell(label: str, runner) -> str:
+    """Phase 12(c): every pass of the static audit over one runner cell,
+    after its timed run and outside its launch-count windows; the kernel
+    shapes it launches are recorded for 12(d).  Warnings are printed with
+    their provenance; an error finding fails the script."""
+    from repro_torch.analysis import audit_runner, verdict
+    t0 = time.perf_counter()
+    findings = recording(AUDITS["shapes"], lambda: audit_runner(runner))()
+    dt = time.perf_counter() - t0
+    v = verdict(findings)
+    AUDITS["cells"][label] = {
+        "verdict": v, "seconds": dt,
+        "findings": [f.to_json() for f in findings if f.severity != "info"]}
+    _log_findings(f"audit {label}", findings)
+    if v == "error":
+        raise AssertionError(f"audit of {label}: error findings")
+    return v
+
+
 def device_profile(fn, wall_s: float) -> dict:
     """Device time of one call by ``torch.profiler``, outside any launch
     count window: the busy time (union of kernel and copy intervals), the
@@ -1336,6 +1378,7 @@ def run_runner(dev, main_launches: dict, label: str, query, grids: dict,
             raise AssertionError(f"runner {label} {body}: a steady chunk "
                                  f"made {syncs} synchronizing calls")
         replay = replay_check(rp) if body == "sparse" else None
+        audit = audit_cell(f"runner {label} {body}", r)
         cpu_kw = dict(kw, n_keys=CMP_KEYS) if n_keys > 1 else kw
         cpu = Runner(exe, policy, **cpu_kw).run(cpu_grids, CMP_CHUNKS)
         n_cmp = CMP_CHUNKS * span
@@ -1347,6 +1390,7 @@ def run_runner(dev, main_launches: dict, label: str, query, grids: dict,
                    launches_per_chunk={k: n / n_chunks
                                        for k, n in launches.items()},
                    chunks=n_chunks, metrics=snap, replay=replay,
+                   audit=audit,
                    sliding_shapes_per_chunk=[[*k[:4], k[4] / 2]
                                              for k in shapes])
         if body == "sparse":
@@ -1360,7 +1404,8 @@ def run_runner(dev, main_launches: dict, label: str, query, grids: dict,
         log(f"runner {label} {body:6s}: {events / dt:.4g} events/s, "
             f"{dt / n_chunks * 1e3:.3f} ms per chunk{dirty}; launches per "
             f"chunk: {per}; host reads per steady chunk {syncs}; vs cpu max "
-            f"diff {stats['max_abs_diff']:.3g}, {stats['flips']} gate flips")
+            f"diff {stats['max_abs_diff']:.3g}, {stats['flips']} gate flips; "
+            f"audit={audit}")
         slid = sum(v for k, v in prof["per_kernel"].items()
                    if k.startswith("sliding"))
         log(f"  one chunk: {_profile_text(prof)}; sliding_assoc kernels "
@@ -1694,6 +1739,8 @@ def run_session(dev, main_launches: dict, label: str, vals: np.ndarray,
     if sparse:
         replay = replay_check(rp.runner)
         prof["replay"] = replay
+    audit = audit_cell(f"session {label} {'sparse' if sparse else 'dense'}",
+                       sess.runner)
     events = MQ_QUERIES * n_keys * span * n_chunks
     row = dict(events_per_s=events / dt, seconds=dt,
                ms_per_chunk=dt / n_chunks * 1e3, profile=prof,
@@ -1703,7 +1750,7 @@ def run_session(dev, main_launches: dict, label: str, vals: np.ndarray,
                         "independent": rep.independent_nodes},
                launches_per_chunk={k: n / n_chunks
                                    for k, n in launches.items()},
-               metrics=snap)
+               metrics=snap, audit=audit)
     if sparse:
         st = sess.runner.dirty_stats()
         row["dirty_fraction"] = st["compact"]
@@ -1742,7 +1789,7 @@ def run_session(dev, main_launches: dict, label: str, vals: np.ndarray,
         + f"; vs cpu: trend heads max diff {row['vs_cpu_max_diff']:.3g}, "
         f"stddev heads max diff {row['vs_cpu_vol_max_diff']:.3g} (random "
         f"walk); all heads max diff {row['int_vs_cpu_max_diff']:.3g} "
-        f"(integer prices)")
+        f"(integer prices); audit={audit}")
     log(f"  one chunk: {_profile_text(prof)}")
     if sparse:
         log(f"  {_replay_text(prof['replay'])}")
@@ -1880,6 +1927,7 @@ def run_ingest_cell(dev, main_launches: dict, label: str, exe, vals,
             and torch.equal(got_v[got_m], want.value[want.valid])):
         raise AssertionError(f"ingest {label}: sealed + corrections != "
                              "in-order execution")
+    audit = audit_cell(f"ingest {label}", r)
     c = r.metrics.snapshot()["counters"]
     n_events = len(arrivals)
     row = {k.split(".")[-1]: c[k]["value"] for k in (
@@ -1892,7 +1940,7 @@ def run_ingest_cell(dev, main_launches: dict, label: str, exe, vals,
     prof = device_profile(lambda: go(ing_p), dt)
     row.update(events=n_events, seconds=dt, events_per_s=n_events / dt,
                ms_per_sealed_chunk=dt / len(sealed) * 1e3, profile=prof,
-               horizon_chunks=horizon, lateness=lateness)
+               horizon_chunks=horizon, lateness=lateness, audit=audit)
     log(f"ingest {label}: {n_events / dt:.4g} events/s ({dt:.2f} s, "
         f"{dt / len(sealed) * 1e3:.3f} ms per sealed chunk); "
         f"late {row['late_events']}, revised {row['revised_events']}, "
@@ -1902,7 +1950,7 @@ def run_ingest_cell(dev, main_launches: dict, label: str, exe, vals,
         f"{row['beyond_horizon']}, dropped {row['dropped_events']}; sealed "
         f"{row['sealed_chunks']} chunks, dirty units {row['dirty_units']}/"
         f"{row['units']}: sealed + corrections equal in-order execution bit "
-        "for bit")
+        f"for bit; audit={audit}")
     log(f"  the whole cell: {_profile_text(prof)}")
     return row
 
@@ -2029,6 +2077,7 @@ def serve_latency(dev, main_launches: dict, errs: dict, tmp: str) -> dict:
         (dts, rest), dt = drive(main_launches,
                                 lambda: _steady(svc, gen, calls))
         served += rest
+        audit = audit_cell(f"serve fraud batch {batch}", svc.runner)
         cpu = build_service(_serve_fraud(), out_len=batch, segs_per_chunk=1,
                             device="cpu")
         want = [cpu.step(r) for r in _host_requests(vals, batch)]
@@ -2038,14 +2087,14 @@ def serve_latency(dev, main_launches: dict, errs: dict, tmp: str) -> dict:
             "batch": batch, "calls": calls, "p50_ms": p50 * 1e3,
             "p99_ms": p99 * 1e3, "events_per_s_p50": batch / p50,
             "captures": svc.runner.metrics.tracer.captures(),
-            "vs_cpu": stats,
+            "vs_cpu": stats, "audit": audit,
             "held_shapes": {k: len(v) for k, v in shapes.items()}}
         log(f"serve fraud batch {batch:4d}: p50 {p50 * 1e3:.4f} ms, p99 "
             f"{p99 * 1e3:.4f} ms per call over {calls} calls "
             f"({batch / p50:.4g} events/s at p50); steady state: no "
             f"synchronizing call, no capture; {len(served)} results vs cpu "
             f"max diff {stats['max_abs_diff']:.3g}, {stats['flips']} gate "
-            "flips")
+            f"flips; audit={audit}")
     return out
 
 
@@ -2125,6 +2174,7 @@ def serve_keyed(dev, main_launches: dict, errs: dict) -> dict:
         (dts, rest), dt = drive(main_launches, lambda: _steady(
             svc, gen, RK_CHUNKS - SERVE_WARMUP))
         served += rest
+        audit = audit_cell(f"serve keyed fraud {rate:.0%}", svc.runner)
         want = Runner(qc.compile_query(q.node, out_len=RK_SEG, sparse=True),
                       policy, n_keys=RK_KEYS, segs_per_chunk=RK_SPC).run(
             {"in": _grid(vals, dev)}, RK_CHUNKS)
@@ -2137,12 +2187,13 @@ def serve_keyed(dev, main_launches: dict, errs: dict) -> dict:
         p50, p99 = np.percentile(dts, (50, 99))
         out[f"rate_{rate:g}"] = {"p50_ms": p50 * 1e3, "p99_ms": p99 * 1e3,
                                  "events_per_s_p50": RK_KEYS * span / p50,
-                                 "dirty_fraction": st["compact"]}
+                                 "dirty_fraction": st["compact"],
+                                 "audit": audit}
         log(f"serve keyed fraud {RK_KEYS} keys, {rate:.0%} active: p50 "
             f"{p50 * 1e3:.4f} ms, p99 {p99 * 1e3:.4f} ms per chunk "
             f"({RK_KEYS * span / p50:.4g} events/s at p50), dirty fraction "
             f"{st['compact']:.4f}; no synchronizing call, no capture in the "
-            "steady state; equal to Runner.run bit for bit")
+            f"steady state; equal to Runner.run bit for bit; audit={audit}")
     return out
 
 
@@ -2202,8 +2253,9 @@ def serve_events(dev, main_launches: dict, errs: dict) -> dict:
             and torch.equal(got_v[got_m], want.value[want.valid])):
         raise AssertionError("served events: sealed + corrections != "
                              "in-order execution")
+    audit = audit_cell("serve events", svc.runner)
     c = svc.runner.metrics.snapshot()
-    row = {"events": len(arr), "seconds": dt,
+    row = {"events": len(arr), "seconds": dt, "audit": audit,
            "events_per_s": len(arr) / dt,
            "corrections": len(corrections), "sealed": len(sealed),
            "admitted": c["counters"]["serve.admitted"]["value"],
@@ -2213,7 +2265,8 @@ def serve_events(dev, main_launches: dict, errs: dict) -> dict:
         f"events/s ({dt:.2f} s), {len(sealed)} sealed chunks, "
         f"{len(corrections)} corrections, admission to sealed result p50 "
         f"{row['admit_to_result_p50_s']}; sealed + corrections equal "
-        "in-order execution bit for bit; no capture after warm-up")
+        "in-order execution bit for bit; no capture after warm-up; "
+        f"audit={audit}")
     return row
 
 
@@ -2382,15 +2435,17 @@ def mesh_runner_cell(dev, mesh, launches: dict, seen: dict, label: str,
                              f"warm-up ({caps} -> "
                              f"{meshr.metrics.tracer.captures()})")
     ms, ms_l = tm / n_chunks * 1e3, tl / n_chunks * 1e3
+    audit = audit_cell(f"mesh runner {label} {body}", meshr)
     log(f"mesh runner {label} {body:6s}: {ms:.3f} ms per chunk against "
         f"local {ms_l:.3f} ms (mesh - local {ms - ms_l:+.3f} ms); equal "
         f"bit for bit; host reads per steady chunk {syncs}; no capture "
-        "after warm-up")
+        f"after warm-up; audit={audit}")
     log(f"  one chunk, mesh: {_profile_text(prof['mesh'])}")
     log(f"  one chunk, local: {_profile_text(prof['local'])}")
     return {"ms_per_chunk": ms, "local_ms_per_chunk": ms_l,
             "host_reads_per_chunk": syncs, "chunks": n_chunks,
-            "profile": prof["mesh"], "local_profile": prof["local"]}
+            "profile": prof["mesh"], "local_profile": prof["local"],
+            "audit": audit}
 
 
 def mesh_runners(dev, mesh, launches: dict, seen: dict) -> dict:
@@ -2447,12 +2502,15 @@ def mesh_keyed(dev, mesh, launches: dict, seen: dict) -> dict:
         lambda: (meshe.reset(), meshe.run(grids, n_parts))[1])
     if not _same_bits(want, got):
         raise AssertionError("mesh KeyedEngine != local")
+    audit = audit_cell("mesh KeyedEngine", meshe._runner)
     out["keyed_engine"] = {"ms_per_chunk": tm / n_parts * 1e3,
-                           "local_ms_per_chunk": tl / n_parts * 1e3}
+                           "local_ms_per_chunk": tl / n_parts * 1e3,
+                           "audit": audit}
     log(f"mesh KeyedEngine {RK_KEYS} keys, 1% active, sparse: "
         f"{tm / n_parts * 1e3:.3f} ms per chunk against local "
         f"{tl / n_parts * 1e3:.3f} ms (mesh - local "
-        f"{(tm - tl) / n_parts * 1e3:+.3f} ms); equal bit for bit")
+        f"{(tm - tl) / n_parts * 1e3:+.3f} ms); equal bit for bit; "
+        f"audit={audit}")
     del grids, want, got
     rng = np.random.default_rng(7)
     vals = np.floor(rng.random((MQ_KEYS, MQ_KEY_TICKS)) * 16).astype(
@@ -2485,12 +2543,14 @@ def mesh_keyed(dev, mesh, launches: dict, seen: dict) -> dict:
         raise AssertionError(f"mesh keyed session: a steady chunk made "
                              f"{syncs} synchronizing calls")
     ms, ms_l = tm / n_chunks * 1e3, tl / n_chunks * 1e3
+    audit = audit_cell("mesh keyed session", sessions[1].runner)
     out["keyed_session"] = {"ms_per_chunk": ms, "local_ms_per_chunk": ms_l,
-                            "host_reads_per_chunk": syncs}
+                            "host_reads_per_chunk": syncs, "audit": audit}
     log(f"mesh keyed session {MQ_QUERIES} queries, {MQ_KEYS} keys, 1% "
         f"active, sparse, integer prices: {ms:.3f} ms per chunk against "
         f"local {ms_l:.3f} ms (mesh - local {ms - ms_l:+.3f} ms); every "
-        f"head equal bit for bit; host reads per steady chunk {syncs}")
+        f"head equal bit for bit; host reads per steady chunk {syncs}; "
+        f"audit={audit}")
     return out
 
 
@@ -2498,7 +2558,8 @@ def run_mesh(dev, main_launches: dict, errs: dict) -> dict:
     """Phase 11: every mesh-placed entry point on the 1-rank NCCL mesh,
     held against its local counterpart; every shape the phase called a
     kernel at (warm-ups, captures and the launch-count windows recorded)
-    held against the kernel's plain version."""
+    held against the kernel's plain version.  The group stays up for
+    phase 12."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_local_mesh
@@ -2525,8 +2586,110 @@ def run_mesh(dev, main_launches: dict, errs: dict) -> dict:
     log("mesh phase launches: " + ", ".join(
         f"{k} {n}" for k, n in launches.items() if n))
     out["launches"] = launches
-    dist.destroy_process_group()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the static audit on the card
+# ---------------------------------------------------------------------------
+
+def _severities(findings) -> str:
+    n = {}
+    for f in findings:
+        n[f.severity] = n.get(f.severity, 0) + 1
+    return "/".join(f"{k[0]}{v}" for k, v in sorted(n.items())) or "-"
+
+
+def audit_lattice_on_card(dev, seen: dict) -> dict:
+    """12(a): every pass over every point of the 16-point lattice, each
+    point's runner built at the audit's small geometry; its kernels'
+    shapes recorded into ``seen``."""
+    from repro_torch.analysis import (PASSES, build_lattice_runner,
+                                      lattice_policies, make_target,
+                                      verdict)
+    out = {}
+    for policy in lattice_policies(dev):
+        label = policy.describe()
+        t0 = time.perf_counter()
+        target = make_target(build_lattice_runner(policy), device=dev)
+        by_pass = recording(seen, lambda: {
+            name: fn(target) for name, fn in PASSES.items()})()
+        dt = time.perf_counter() - t0
+        flat = [f for fs in by_pass.values() for f in fs]
+        v = verdict(flat)
+        out[label] = {"verdict": v, "seconds": dt,
+                      "by_pass": {k: _severities(fs)
+                                  for k, fs in by_pass.items()},
+                      "findings": [f.to_json() for f in flat
+                                   if f.severity != "info"]}
+        log(f"audit {label:26s} " + " ".join(
+            f"{k} {_severities(fs)}" for k, fs in by_pass.items())
+            + f"; verdict {v}; {dt:.2f} s")
+        _log_findings("audit", flat)
+        if v == "error":
+            raise AssertionError(f"lattice point {label}: error findings: "
+                                 + "; ".join(f"{f.code} @ {f.provenance}"
+                                             for f in flat
+                                             if f.severity == "error"))
+    return out
+
+
+def audit_corpus_on_card(dev, seen: dict) -> dict:
+    """12(b): each known-bad fixture of ``tests/test_torch_analysis.py``
+    (imports neither jax nor the reference) fires its code on the card,
+    and a full audit of the shipped runner at the fixture's point has no
+    error and no warning but the documented mesh-sparse one."""
+    from repro_torch.launch.mesh import make_local_mesh
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_analysis as corpus
+    mesh = make_local_mesh()            # phase 11's group, reused
+    out = {}
+    for name, (_fn, code, _build) in corpus.CORPUS.items():
+        t0 = time.perf_counter()
+        fired = recording(seen, lambda: corpus.corpus_findings(
+            name, dev, mesh))()
+        hits = [f for f in fired if f.code == code]
+        if not hits:
+            raise AssertionError(f"corpus {name}: {code} did not fire on "
+                                 f"the card ({[f.code for f in fired]})")
+        noise = recording(seen, lambda: corpus.shipped_noise(
+            name, dev, mesh))()
+        if noise:
+            raise AssertionError(f"corpus {name}: the shipped runner is "
+                                 f"not clean: {[f.code for f in noise]}")
+        dt = time.perf_counter() - t0
+        out[name] = {"code": code, "hits": len(hits), "seconds": dt,
+                     "provenance": hits[0].provenance}
+        log(f"audit corpus {name}: {code} fired {len(hits)}x on the card "
+            f"(@ {hits[0].provenance or hits[0].target}); the shipped "
+            f"runner at its point is clean; {dt:.2f} s")
+    return out
+
+
+def run_audit(dev, errs: dict) -> dict:
+    """Phase 12: the lattice (a) and the corpus (b) on the card, the cell
+    audits of phases 5-11 (c) summed, every kernel shape the audits
+    launched held against the plain versions (d)."""
+    t0 = time.perf_counter()
+    seen = AUDITS["shapes"]
+    lattice = audit_lattice_on_card(dev, seen)
+    t1 = time.perf_counter()
+    corpus = audit_corpus_on_card(dev, seen)
+    t2 = time.perf_counter()
+    hold_shapes(dev, errs, "audit", record_shapes(lambda: None, seen))
+    t3 = time.perf_counter()
+    cells = AUDITS["cells"]
+    cell_s = sum(c["seconds"] for c in cells.values())
+    verdicts = {}
+    for c in cells.values():
+        verdicts[c["verdict"]] = verdicts.get(c["verdict"], 0) + 1
+    log(f"audit: lattice {t1 - t0:.2f} s, corpus {t2 - t1:.2f} s, shape "
+        f"holds {t3 - t2:.2f} s; {len(cells)} cell audits of phases 5-11 "
+        f"{cell_s:.2f} s ({verdicts}); added {t3 - t0 + cell_s:.2f} s")
+    return {"lattice": lattice, "corpus": corpus, "cells": cells,
+            "seconds": {"lattice": t1 - t0, "corpus": t2 - t1,
+                        "holds": t3 - t2, "cells": cell_s,
+                        "added": t3 - t0 + cell_s}}
 
 
 # ---------------------------------------------------------------------------
@@ -2583,6 +2746,9 @@ def main() -> int:
     serve_launches, mesh_launches = {}, {}
     serving = run_serving(dev, serve_launches, errs)
     mesh = run_mesh(dev, mesh_launches, errs)
+    audit = run_audit(dev, errs)
+    import torch.distributed as dist
+    dist.destroy_process_group()
     windows = {"partition_run": single, "batch_run": keyed_launches,
                "runner": runner_launches, "sparse_run": one_shot_launches,
                "session": session_launches, "ingest": ingest_launches,
@@ -2608,7 +2774,7 @@ def main() -> int:
     detail = {"card": card, "apps": apps, "keyed": keyed,
               "runner": runners, "sparse_run": one_shot,
               "session": sessions, "ingest": ingest, "serve": serving,
-              "mesh": mesh,
+              "mesh": mesh, "audit": audit,
               "kernels": {f"{k}/{lab}": v for (k, lab), v in rows.items()},
               "launches": dict(windows, total=launches)}
     Path("out/chip_smoke.json").write_text(json.dumps(detail,

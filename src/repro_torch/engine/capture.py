@@ -26,6 +26,15 @@ graph like any kernel (PyTorch captures NCCL collectives), so a replay
 issues no collective from the host; the collector stays off during
 capture as for every step.
 
+Frames.  The runner marks the parts of a step with :func:`frame`: ``step``
+around what one captured graph replays on the card, inside it
+``prefix``, ``bucket-pick`` (the CPU's host read of the dirty count),
+``body[cap]`` (one capacity's compacted body) and ``suffix``, and
+``after`` (a mesh step's graph of its own).  :func:`frames` is the stack
+the calling thread is in; the static audit (:mod:`repro_torch.analysis`)
+reads it for every operation it records.  A frame costs a list push and
+pop; a replay pushes none.
+
 Launch counts.  A replay runs no kernel wrapper, so the wrappers' launch
 counts (``window_reduce.launches`` and the others) would not move.  A
 capture therefore records the launches its step issued and every replay
@@ -36,20 +45,67 @@ not counted.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import gc
-from typing import Callable, List, Sequence
+import threading
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 
 from ..kernels import fused_query, sparse_compact, window_reduce
 from ..kernels.build import launch_stream, library
 
-__all__ = ["Captured", "Switched", "record", "warm_up"]
+__all__ = ["Captured", "Frame", "Switched", "frame", "frames", "record",
+           "replays", "warm_up"]
 
 _COUNTS = (window_reduce.launches, sparse_compact.launches,
            fused_query.launches)
+
+
+# graph replays, by kind ("graph": one captured graph launched): the
+# static audit counts the graphs one steady chunk replays
+replays: collections.Counter = collections.Counter()
+
+
+class Frame:
+    """One part of a step the calling thread is in (compared by identity:
+    two entries of one part are two frames)."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __repr__(self) -> str:
+        return self.name
+
+
+_local = threading.local()
+
+
+def _stack() -> list:
+    st = getattr(_local, "stack", None)
+    if st is None:
+        st = _local.stack = []
+    return st
+
+
+@contextlib.contextmanager
+def frame(name: str):
+    """Mark the code it encloses as the part ``name`` of a step."""
+    st = _stack()
+    st.append(Frame(name))
+    try:
+        yield
+    finally:
+        st.pop()
+
+
+def frames() -> Tuple[Frame, ...]:
+    """The frames the calling thread is in, outermost first."""
+    return tuple(_stack())
 
 
 def _counts() -> list:
@@ -98,6 +154,7 @@ class Captured:
     def replay(self):
         self.graph.replay()
         _add(self.launches)
+        replays["graph"] += 1
         return self.result
 
 
@@ -171,6 +228,7 @@ class Switched:
                                    launch_stream(self._dev)),
                "launching the switched sparse step")
         _add(self.launches)
+        replays["graph"] += 1
         return self.result
 
     def __del__(self):

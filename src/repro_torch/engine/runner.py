@@ -80,8 +80,11 @@ State pytree (the *only* cross-chunk state, host-roundtrippable through
 Time is the last axis of every tensor: a tail is ``(K, left_halo)`` (value
 leaves may carry channel axes between the key axis and time).
 
-Not ported yet, and raising ``NotImplementedError`` naming its ROADMAP
-item: the static-audit surface (A15).
+The static audit (:mod:`repro_torch.analysis`) reads the runner through
+:meth:`Runner.audit_example_chunks`, :meth:`Runner.staged_steps`,
+:meth:`Runner.chunk_fn`, :meth:`Runner.staging_key_dofs`, the workspace's
+state buffers by path (:meth:`_Work.state_buffers`) and the frames a
+step's parts run in (:func:`repro_torch.engine.capture.frame`).
 """
 from __future__ import annotations
 
@@ -104,7 +107,7 @@ from ..core.plan import ChangePlan, InputSpec, QueryPlan, seg_range_affine
 from ..core.stream import SnapshotGrid
 from ..device import resolve
 from ..kernels import sparse_compact
-from ..launch.mesh import axis_comm, merge_ranks
+from ..launch.mesh import axis_comm, merge_ranks, mesh_device
 from ..obs import Metrics, log_buckets
 from . import capture
 from .policy import ExecPolicy
@@ -143,6 +146,11 @@ class BodySpec:
     step_cache: dict = dataclasses.field(default_factory=dict)
     plan: Optional[QueryPlan] = None
     sum_algo: str = "block"
+    # IR roots backing outs_fn, for static verification (repro_torch.
+    # analysis): solo bodies carry (root,); union bodies one root per
+    # query.  Empty means the body is opaque (a hand-built outs_fn) and the
+    # temporal-plan verifier can only check internal plan consistency.
+    roots: tuple = ()
 
     @property
     def span(self) -> int:
@@ -164,7 +172,8 @@ def body_spec_of(exe) -> BodySpec:
         out_precs={"__out": exe.out_prec},
         change_plan=exe.change_plan, root=exe.root, solo=True,
         step_cache=exe.__dict__.setdefault("_runner_step_cache", {}),
-        plan=exe.plan, sum_algo=exe.sum_algo)
+        plan=exe.plan, sum_algo=exe.sum_algo,
+        roots=(exe.root,) if exe.root is not None else ())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -429,6 +438,30 @@ class _Work:
             return self._w
         return self.seg.reshape(-1)[self.u0:self.u0 + self.uc]
 
+    def state_buffers(self) -> Dict[str, torch.Tensor]:
+        """The carried state, by path: each halo-carrying input's buffer
+        (``tails[name][i]``: its tail is the state), and on a sparse
+        runner the dirty tails, the 1-tick snapshots, the hold seeds and
+        the metric accumulators; a revision workspace's buffers under
+        ``revision.``.  Empty tensors carry nothing and are left out."""
+        out: Dict[str, torch.Tensor] = {}
+        pre = "revision." if self._w is not None else ""
+
+        def put(path, tree):
+            for i, x in enumerate(tree_leaves(tree)):
+                if x.numel():
+                    out[f"{pre}{path}[{i}]"] = x
+
+        for nm in self.names:
+            if self.hl[nm]:
+                put(f"tails[{nm!r}]", self.bufs[nm])
+        if self.sparse:
+            for part in ("dirty", "prev", "seed"):
+                for k, tree in getattr(self, part).items():
+                    put(f"{part}[{k!r}]", tree)
+            put("metrics", self.mstate)
+        return out
+
     def tails(self) -> Dict[str, tuple]:
         """Views of the carried tails."""
         return {nm: _tm(lambda x, hl=self.hl[nm]: x[..., :hl],
@@ -607,6 +640,7 @@ class Runner:
         # -- late-data revision ring (off unless enable_revision) -----------
         self._rev_ring: Optional[collections.deque] = None
         self.revision_horizon = 0
+        self.revise_bound: Optional[int] = None
         self._obs_init(metrics)
 
     # -- telemetry -----------------------------------------------------------
@@ -893,10 +927,12 @@ class Runner:
         return g
 
     def _run(self, work: _Work, key, cache_key, step):
-        """``step(work)`` → packed results: eagerly on the CPU; on the card
-        a replay of the graph of ``key``, its results copied out."""
+        """``step(work)`` → packed results: eagerly on the CPU, in a
+        ``step`` frame; on the card a replay of the graph of ``key``, its
+        results copied out."""
         if work.dev.type != "cuda":
-            return step(work)
+            with capture.frame("step"):
+                return step(work)
         flats, packing = self._graph(work, key, cache_key, step).replay()
         return {dt: f.clone() for dt, f in flats.items()}, packing
 
@@ -1147,13 +1183,7 @@ class Runner:
         self.metrics.tracer.record_capture(self._compile_label(
             self._cache_key("sparse_fused", dev, force_first)))
         with capture.warm_up(dev):
-            scratch = work.clone()
-            prefix(scratch)
-            for body in bodies:
-                body(scratch)
-            packed = suffix(scratch)
-            if after is not None:
-                after(scratch, packed)
+            self._sparse_eager(work.clone(), force_first)
         pre = capture.record(lambda: prefix(work), work.pool, keep=True)
         shared = work.graphs.get("sparse_parts")
         if shared is None:
@@ -1171,16 +1201,35 @@ class Runner:
         return g
 
     def _sparse_eager(self, work: _Work, force_first: bool):
-        """The sparse step's parts run one after another, without a graph:
-        the count is read on the host to pick the capacity (the CPU's
-        path; on the card only :meth:`staged_steps` runs it)."""
+        """The sparse step's parts run one after another, without a graph,
+        each in its frame.  On the CPU (the chunk path) the count is read
+        on the host to pick the one capacity that runs; on the card (a
+        warm-up before capture, and :meth:`staged_steps`) every
+        capacity's body runs in turn, the program the switched graph holds,
+        whose bucket a kernel picks on the device.  The full-capacity body
+        runs last and computes every unit, so the results are the same
+        (the sparse exactness contract).  A mesh step's ``after`` is a
+        step (on the card a graph) of its own."""
         dev = work.dev
-        self._sparse_step(force_first, dev)(work)
-        cap = sparse_mod.bucket_capacity(int(work.cnt), self._Uc)
-        self._sparse_body(cap, dev)(work)
-        suffix, after = self._sparse_suffix(dev)
-        packed = suffix(work)
-        return packed if after is None else after(work, packed)
+        with capture.frame("step"):
+            with capture.frame("prefix"):
+                self._sparse_step(force_first, dev)(work)
+            if dev.type == "cuda":
+                caps = self.capacity_ladder()
+            else:
+                with capture.frame("bucket-pick"):
+                    caps = [sparse_mod.bucket_capacity(int(work.cnt),
+                                                       self._Uc)]
+            for cap in caps:
+                with capture.frame(f"body[{cap}]"):
+                    self._sparse_body(cap, dev)(work)
+            suffix, after = self._sparse_suffix(dev)
+            with capture.frame("suffix"):
+                packed = suffix(work)
+        if after is None:
+            return packed
+        with capture.frame("step"), capture.frame("after"):
+            return after(work, packed)
 
     def _sparse_chunk(self, work: _Work):
         st = self._sparse
@@ -1502,12 +1551,17 @@ class Runner:
             self._seeded = set(st["seed"])
 
     # -- late-data revision processing ---------------------------------------
-    def enable_revision(self, horizon_chunks: int) -> None:
+    def enable_revision(self, horizon_chunks: int,
+                        revise_bound: Optional[int] = None) -> None:
         """Keep a ring of the carried tails before each of the last
         ``horizon_chunks`` chunks, so sealed chunks inside the horizon can
         be revised through :meth:`revise` when late data patches their
         inputs (:meth:`repro_torch.core.plan.ChangePlan.
         revision_horizon_chunks` sizes the ring for a maximum lateness).
+        ``revise_bound`` declares the maximum lateness (time units behind
+        the newest stepped chunk) the ring is meant to cover; the
+        ``revision`` analysis pass (:func:`repro_torch.analysis.passes.
+        pass_revision`) checks it against ``revision_horizon_chunks``.
 
         The ring holds copies made on the device (a step rewrites the live
         tails in place), so a revisable runner reads nothing from the card
@@ -1517,10 +1571,13 @@ class Runner:
             raise ValueError("horizon_chunks must be >= 1")
         self._rev_ring = collections.deque(maxlen=int(horizon_chunks))
         self.revision_horizon = int(horizon_chunks)
+        self.revise_bound = (None if revise_bound is None
+                             else int(revise_bound))
 
     def _revision_step(self, dev: torch.device):
-        """The late-data revision step ``step(work, local)``: ``local`` is
-        the compacted body of one capacity (:meth:`_compute_local`), never
+        """The late-data revision step ``step(work, cap, local)``:
+        ``local`` is the compacted body of capacity ``cap``
+        (:meth:`_compute_local`, run in the frame ``body[cap]``), never
         a dense chunk replay, over the unit mask ``work.w`` — derived on the
         host from :func:`repro_torch.core.sparse.retro_segment_mask` over
         the patched tick times, so its capacity is known without a device
@@ -1537,8 +1594,10 @@ class Runner:
         K, n_own = self._K, self._Uc // self._K
         gather = self._gather()
 
-        def step(work, local):
-            packed = _pack(_per_key(local(work.w, work.bufs), K, n_own))
+        def step(work, cap, local):
+            with capture.frame(f"body[{cap}]"):
+                outs = local(work.w, work.bufs)
+            packed = _pack(_per_key(outs, K, n_own))
             if gather is not None:
                 packed = gather(packed)
             work.shift()
@@ -1630,7 +1689,7 @@ class Runner:
             local = self._compute_local(cap, dev)
             outs = _unpack(*self._run(
                 rwork, ("revise", cap), self._cache_key("revise", dev, cap),
-                lambda wk: rstep(wk, local)))
+                lambda wk: rstep(wk, cap, local)))
             last_outs, last_sd = outs, sd
             res = {}
             for o, (v, m) in self._postprocess(outs).items():
@@ -1731,7 +1790,7 @@ class Runner:
             cap = key[1]
             rstep = self._revision_step(dev)
             local = self._compute_local(cap, dev)
-            step = lambda wk: rstep(wk, local)  # noqa: E731
+            step = lambda wk: rstep(wk, cap, local)  # noqa: E731
             ckey = self._cache_key("revise", dev, cap)
         if dev.type != "cuda":
             return "eager"
@@ -1766,37 +1825,44 @@ class Runner:
         self.metrics.tracer.record_aot(label or str(key), how)
         return how
 
+    def _staged_step(self, key, chunk_in, dev):
+        """``(fn, work)``: the step of ``key`` (one of :meth:`aot_keys`) as
+        a function over a scratch workspace (:meth:`_audit_state`) with
+        ``chunk_in`` loaded, run eagerly in its frames when called."""
+        kind = key[0]
+        work = self._audit_state(chunk_in, dev, revision=kind == "revise")
+        work.load(chunk_in)
+        if kind == "sparse":
+            return functools.partial(self._sparse_eager,
+                                     force_first=key[1]), work
+        if kind == "dense":
+            step = self._dense_step(dev)
+        else:
+            cap, rstep = key[1], self._revision_step(dev)
+            local = self._compute_local(cap, dev)
+            step = lambda wk: rstep(wk, cap, local)  # noqa: E731
+
+        def fn(wk):
+            with capture.frame("step"):
+                return step(wk)
+        return fn, work
+
     def staged_steps(self, chunks: Optional[Dict] = None) -> List[dict]:
         """The steps one chunk runs, with concrete example arguments:
         ``[{label, key, fn, args}]``, where ``fn(*args)`` runs the step
-        once, eagerly, over a scratch workspace for the layout of
-        ``chunks`` (default :meth:`example_chunks`) with fresh-stream
-        state, leaving the live stream untouched; it returns the step's
-        packed outputs.  A sparse step picks its capacity as the CPU's
-        chunk path does, from the count read on the host.  Building them
+        once, eagerly and never under a capture, over a scratch workspace
+        for the layout of ``chunks`` (default :meth:`audit_example_chunks`)
+        with fresh-stream state, leaving the live stream untouched; it
+        returns the step's packed outputs.  A sparse step runs as
+        :meth:`_sparse_eager` does on the chunks' device.  Building them
         populates the shared step cache exactly as a first chunk would."""
-        chunks = chunks if chunks is not None else self.example_chunks()
+        chunks = chunks if chunks is not None else \
+            self.audit_example_chunks()
         chunk_in = self._ingest(chunks)
         dev = self._chunk_device(chunk_in)
-        seeds = (self._zero_seeds(chunk_in, dev) if self.policy.sparse
-                 else None)
         steps = []
         for label, key in self.aot_keys():
-            if key[0] == "sparse":
-                work = _Work(self, chunk_in, dev, seeds=seeds)
-                work.load(chunk_in)
-                fn = functools.partial(self._sparse_eager,
-                                       force_first=key[1])
-            elif key[0] == "dense":
-                work = _Work(self, chunk_in, dev)
-                work.load(chunk_in)
-                fn = self._dense_step(dev)
-            else:
-                work = _Work(self, chunk_in, dev, revision=True)
-                work.load(chunk_in)
-                rstep = self._revision_step(dev)
-                fn = functools.partial(rstep,
-                                       local=self._compute_local(key[1], dev))
+            fn, work = self._staged_step(key, chunk_in, dev)
             steps.append({"label": label, "key": key, "fn": fn,
                           "args": (work,)})
         return steps
@@ -1804,9 +1870,10 @@ class Runner:
     def chunk_fn(self, variant: str = "steady",
                  chunks: Optional[Dict] = None):
         """A whole-chunk function plus concrete example args: one staged
-        step and the result assembly, as :meth:`step` composes them, over a
-        scratch workspace (:meth:`staged_steps`).  ``variant``:
-        ``"steady"`` / ``"first"`` (sparse bodies) or ``"dense"``."""
+        step and the result assembly, as :meth:`step` composes them once
+        the chunk is in the workspace, over a scratch workspace
+        (:meth:`staged_steps`).  ``variant``: ``"steady"`` / ``"first"``
+        (sparse bodies) or ``"dense"``."""
         if self.policy.sparse:
             if variant not in ("steady", "first"):
                 raise ValueError(
@@ -1818,8 +1885,11 @@ class Runner:
                 raise ValueError(
                     f"dense body has chunk variant 'dense', not {variant!r}")
             want = ("dense",)
-        step = next(s for s in self.staged_steps(chunks) if s["key"] == want)
-        staged = step["fn"]
+        chunks = chunks if chunks is not None else \
+            self.audit_example_chunks()
+        chunk_in = self._ingest(chunks)
+        staged, work = self._staged_step(want, chunk_in,
+                                         self._chunk_device(chunk_in))
 
         def fn(work):
             outs = _unpack(*staged(work))
@@ -1827,7 +1897,33 @@ class Runner:
                 outs = outs[0]
             return self._postprocess(outs)
 
-        return fn, step["args"]
+        return fn, (work,)
+
+    # -- static audit surface (repro_torch.analysis) -------------------------
+    def audit_example_chunks(self, device=None) -> Dict[str, SnapshotGrid]:
+        """Zero-filled example chunks in the external :meth:`step` layout,
+        sized to this runner's geometry: concrete arguments for recording
+        the chunk path without data.  They lie on ``device``, by default
+        the runner's: its live workspace's device, else its mesh's, else
+        CUDA (raising without one)."""
+        if device is None:
+            if self._work is not None:
+                device = self._work.dev
+            elif self.policy.mesh is not None:
+                device = mesh_device(self.policy.mesh)
+        return self.example_chunks(device)
+
+    def _audit_state(self, chunk_in, dev, *, revision: bool = False
+                     ) -> _Work:
+        """A workspace with fresh-stream carried state (φ tails, dirty
+        tails, snapshots and hold seeds) for ``chunk_in``'s layout on
+        ``dev``, built without touching the live stream: what a step is
+        recorded over.  ``revision``: a revision step's workspace."""
+        if revision:
+            return _Work(self, chunk_in, dev, revision=True)
+        seeds = (self._zero_seeds(chunk_in, dev) if self.policy.sparse
+                 else None)
+        return _Work(self, chunk_in, dev, seeds=seeds)
 
     def seed_shape_spec(self, device=None):
         """:class:`ShapeDtype` tree of the φ hold seeds (sparse bodies;
@@ -1853,8 +1949,3 @@ class Runner:
         self._zero_seed_cache = {
             o: (_tm(lambda a: a.zeros(cpu), ov), om.zeros(cpu))
             for o, (ov, om) in shapes.items()}
-
-    # -- not ported yet ----------------------------------------------------
-    def audit_example_chunks(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the static-audit surface is not ported yet: ROADMAP A15")

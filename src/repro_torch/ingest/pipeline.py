@@ -144,7 +144,8 @@ class IngestRunner:
                     1, -(-(self.lateness + 1) // self.chunk_span))
         self.horizon_chunks = int(horizon_chunks)
         if policy == "revise":
-            runner.enable_revision(self.horizon_chunks)
+            runner.enable_revision(self.horizon_chunks,
+                                   revise_bound=self.lateness)
         self._stage = stage if stage is not None else (lambda c: c)
         self._ready = ready if ready is not None else (lambda c: c)
         self.tracker = WatermarkTracker(self.lateness, keys=watermark_keys)

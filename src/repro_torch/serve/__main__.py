@@ -5,9 +5,11 @@
 from ``--cache-dir``), serves a few chunks through the double-buffered
 loop and gates the steady state: the tail after the first two chunks runs
 under ``torch.cuda.set_sync_debug_mode("error")`` (any synchronizing call
-raises), and no CUDA graph may be captured after warm-up.  Exit 1 if
-either fails.  The reference gates with its ``serving`` analysis pass
-instead, which waits for the port of the analysis layer (ROADMAP A15).
+raises), no CUDA graph may be captured after warm-up, and the served
+runner is audited with the ``serving`` analysis pass
+(:func:`repro_torch.analysis.passes.pass_serving`, as the reference
+gates): every step prepared ahead, the steady one writing its state in
+place.  The findings go to ``--out``.  Exit 1 if any gate fails.
 
 Run it twice with the same ``--cache-dir``: the second run prints
 ``plan=warm`` (its runner rebuilt from the persisted plan artifact and
@@ -43,6 +45,8 @@ def main(argv=None) -> int:
                          "(default: out/serve_cache)")
     ap.add_argument("--chunks", type=int, default=6)
     ap.add_argument("--out-len", type=int, default=32)
+    ap.add_argument("--out", default="out/analysis_serve.jsonl",
+                    help="findings JSONL path")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -51,6 +55,9 @@ def main(argv=None) -> int:
 
     import torch
 
+    from ..analysis.audit import audit_runner
+    from ..analysis.findings import export_jsonl, verdict
+    from ..analysis.passes import pass_serving
     from ..core.stream import SnapshotGrid
     from ..device import resolve
     from .loop import build_service
@@ -88,6 +95,8 @@ def main(argv=None) -> int:
             torch.cuda.set_sync_debug_mode("default")
     late = {k: n - captured.get(k, 0) for k, n in tracer.captures().items()
             if n != captured.get(k, 0)}
+    findings = audit_runner(svc.runner, passes={"serving": pass_serving})
+    path = export_jsonl(findings, args.out)
     how = {}
     for v in svc.aot_report.values():
         how[v] = how.get(v, 0) + 1
@@ -97,8 +106,12 @@ def main(argv=None) -> int:
           f"captures={sum(captured.values())} "
           f"captures_after_warmup={late or '{}'} "
           f"steady_syncs={'error: ' + sync_error if sync_error else 0} "
-          f"device={dev}")
-    return 1 if (sync_error or late) else 0
+          f"verdict={verdict(findings)} -> {path} device={dev}")
+    for f in findings:
+        print(f"  [{f.severity:7s}] {f.pass_name}/{f.code} :: "
+              f"{f.target or '-'} — {f.message}")
+    bad = [f for f in findings if f.severity == "error"]
+    return 1 if (sync_error or late or bad) else 0
 
 
 if __name__ == "__main__":

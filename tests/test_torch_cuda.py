@@ -1018,3 +1018,59 @@ def test_cuda_keyed_engine_and_session_on_mesh(nccl_mesh):
         outs.append(sess.run(g, T // span))
     for name in ("trend", "band"):
         _same(outs[0][name], outs[1][name])
+
+
+# ---------------------------------------------------------------------------
+# the static audit on the card (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["dense", "sparse"])
+def test_cuda_transfer_pass_replay_finds_no_sync(cuda, body):
+    """The transfer pass on a CUDA target records the chunk program on the
+    card and replays one steady chunk of a twin under the sync debug mode
+    set to raise: the shipped runner makes no synchronizing call and
+    replays one graph; the host-read fixture is caught in the replay."""
+    from repro_torch.analysis import make_target
+    from repro_torch.analysis.passes import pass_transfers
+    from repro_torch.engine import capture
+    from test_torch_analysis import SPC, corpus_findings, trend_exe
+    r = Runner(trend_exe(), ExecPolicy(body=body), segs_per_chunk=SPC)
+    n0 = capture.replays["graph"]
+    assert pass_transfers(make_target(r, device=cuda)) == []
+    assert capture.replays["graph"] > n0
+    hits = [f for f in corpus_findings("host_read", cuda, None)
+            if f.code == "host-sync"]
+    assert any(f.target == "steady (replayed)" for f in hits), hits
+
+
+@pytest.mark.cuda
+def test_cuda_collective_pass_flags_gather_in_body(nccl_mesh):
+    """A gather inside a compacted body of a mesh runner on the 1-rank NCCL
+    mesh fires the collective pass; the shipped runner at the point gives
+    no error and warns only of its second graph."""
+    from test_torch_analysis import corpus_findings, shipped_noise
+    dev = torch.device("cuda")
+    hits = [f for f in corpus_findings("body_gather", dev, nccl_mesh)
+            if f.code == "collective-under-divergence"]
+    assert hits and all("/body[" in f.provenance for f in hits)
+    assert shipped_noise("body_gather", dev, nccl_mesh) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["dense", "sparse"])
+def test_cuda_serving_pass_certifies_service(cuda, tmp_path, body):
+    """A ``build_service`` runner has every step captured ahead, its steady
+    step writing its state in place: the serving pass certifies it."""
+    from repro_torch.analysis import audit_runner
+    from repro_torch.analysis.passes import pass_serving
+    from repro_torch.serve import build_service
+    seg, spc = 32, 2
+    svc = build_service(_serve_query(), out_len=seg, segs_per_chunk=spc,
+                        policy=ExecPolicy(body=body),
+                        cache_dir=str(tmp_path))
+    gen = svc.serve(iter(_host_chunks(4, seg * spc)))
+    assert len(list(gen)) == 4
+    findings = audit_runner(svc.runner, passes={"serving": pass_serving})
+    assert [f.code for f in findings] == ["serving-aot-complete"], findings
+    assert "(captured)" in findings[0].message

@@ -14,13 +14,14 @@ holds the reference's, where the CPU can show them.
   captured step holds their addresses).
 
 Each case also holds the port's outputs against the reference runner's on
-the same integer-valued chunks, bit for bit.  Not mirrored: the
-reference's ``transfer_guard`` and ``is_deleted`` checks, which are JAX's
-(the card's counterpart — zero synchronizing calls in a steady chunk — is
-``tests/test_torch_cuda.py``'s), and the static audit of the policy
-lattice (ROADMAP A15).
+the same integer-valued chunks, bit for bit.  The static audit of the
+policy lattice (``repro_torch.analysis``) is mirrored on the CPU.  Not
+mirrored: the reference's ``transfer_guard`` and ``is_deleted`` checks,
+which are JAX's (the card's counterpart — zero synchronizing calls in a
+steady chunk — is ``tests/test_torch_cuda.py``'s).
 """
 import numpy as np
+import pytest
 import torch
 from torch.utils._pytree import tree_leaves
 
@@ -224,3 +225,42 @@ def test_restore_copies_state_out_of_the_buffers_reach():
     assert all(np.array_equal(x, y) for x, y in zip(now, held))
     now_live = [x for x in tree_leaves(live) if torch.is_tensor(x)]
     assert all(torch.equal(x, y) for x, y in zip(now_live, held_live))
+
+
+# -- the static auditor proves the hot path clean ----------------------------
+
+# The points where the port warns, and why: a sparse step on a mesh
+# replays a second captured graph after its switched step (the hold fill
+# or the gather: ROADMAP C10), where the reference
+# dispatches one staged step.  Both chunk variants and, on the card, the
+# replayed steady chunk report it.
+PORT_WARNINGS = {
+    f"sparse×{keys}×mesh1×{dag}": {("warning", "staged-dispatch-count")}
+    for keys in ("single", "vmapped") for dag in ("solo", "union")}
+
+
+def _audit_noise(policy):
+    from repro_torch.analysis import audit_runner, build_lattice_runner
+    r = build_lattice_runner(policy)
+    return [f for f in audit_runner(r, device="cpu")
+            if f.severity in ("warning", "error")]
+
+
+@pytest.mark.parametrize("body", ["dense", "sparse"])
+@pytest.mark.parametrize("keys", ["single", "vmapped"])
+def test_static_audit_clean_local_solo(body, keys):
+    """Fast subset: the four local solo points audit clean — the static
+    complement of the in-place, build-count assertions above."""
+    assert _audit_noise(ExecPolicy(body=body, keys=keys)) == []
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("idx", range(16))
+def test_static_audit_clean_full_lattice(idx):
+    """Every point of the 16-point ExecPolicy lattice audits clean but for
+    the warnings named in ``PORT_WARNINGS`` (the matrix ``python -m
+    repro_torch.analysis --device cpu`` gates)."""
+    from repro_torch.analysis import lattice_policies
+    policy = lattice_policies("cpu")[idx]
+    got = {(f.severity, f.code) for f in _audit_noise(policy)}
+    assert got == PORT_WARNINGS.get(policy.describe(), set())

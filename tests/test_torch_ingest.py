@@ -11,10 +11,12 @@ reorder buffer reproduces ``events_to_grid`` under any arrival order, patch
 precedence and horizon refusal, the revision re-run is the compacted body
 (only dilated segments compute, no chunk is re-stepped), the drop and
 buffer policies, the lateness histogram, and ``restore(strict=False)``.
-Not mirrored: the reference's ``analysis`` pass tests (``pass_donation``,
-``pass_revision``), which wait for ROADMAP A15, and its jaxpr and transfer
-guard checks of the staged revision step (the port's revision reads
-nothing from the card: ``tests/test_torch_cuda.py`` counts it).
+The ``revision`` analysis pass (undersized, covered and undeclared
+horizons; ``IngestRunner``'s derived horizon passes it) and the donation
+pass over the revision steps are mirrored too.  Not mirrored: the
+reference's jaxpr and transfer guard checks of the staged revision step
+(the port's revision reads nothing from the card:
+``tests/test_torch_cuda.py`` counts it).
 
 Every comparison is exact: the data is integer-valued.
 """
@@ -28,6 +30,8 @@ from repro.core.frontend import TStream as RTStream
 from repro.core.stream import Event as REvent
 from repro.engine import ExecPolicy as RPolicy, Runner as RRunner
 from repro.ingest import IngestRunner as RIngestRunner
+from repro_torch.analysis import make_target
+from repro_torch.analysis.passes import pass_donation, pass_revision
 from repro_torch.core import compile as qc
 from repro_torch.core.frontend import TStream
 from repro_torch.core.sparse import retro_segment_mask
@@ -485,6 +489,47 @@ def test_default_horizon_is_the_change_plan_formula():
     ing = IngestRunner(r, lateness=40, policy="revise", device="cpu")
     assert ing.horizon_chunks == cp.revision_horizon_chunks(40, CHUNK)
     assert r.revision_horizon == ing.horizon_chunks
+
+
+# ---------------------------------------------------------------------------
+# analysis: revision-horizon coverage pass
+# ---------------------------------------------------------------------------
+
+def test_revision_pass_flags_undersized_horizon():
+    exe = _exe()
+    cp = exe.change_plan
+    r = Runner(exe, ExecPolicy(body="sparse"), segs_per_chunk=SPC)
+    assert pass_revision(make_target(r)) == []  # disabled: not applicable
+    r.enable_revision(1, revise_bound=10 * CHUNK)
+    fs = pass_revision(make_target(r))
+    assert [f.code for f in fs] == ["revision-horizon-undersized"]
+    assert fs[0].severity == "error" and fs[0].pass_name == "revision"
+
+    need = cp.revision_horizon_chunks(16, SPC * SEG)
+    r2 = Runner(exe, ExecPolicy(body="sparse"), segs_per_chunk=SPC)
+    r2.enable_revision(need, revise_bound=16)
+    fs2 = pass_revision(make_target(r2))
+    assert [f.code for f in fs2] == ["revision-horizon-covered"]
+    assert fs2[0].severity == "info"
+
+    r3 = Runner(exe, ExecPolicy(body="sparse"), segs_per_chunk=SPC)
+    r3.enable_revision(2)
+    fs3 = pass_revision(make_target(r3))
+    assert [f.code for f in fs3] == ["revision-bound-undeclared"]
+
+
+def test_ingest_runner_default_horizon_satisfies_pass():
+    """IngestRunner's derived horizon is the ChangePlan formula and it
+    declares its lateness as the bound, so the pass is green by
+    construction; every revision step writes its tails in place."""
+    r = Runner(_exe(), ExecPolicy(body="sparse"), segs_per_chunk=SPC)
+    IngestRunner(r, lateness=40, policy="revise", device="cpu")
+    assert r.revise_bound == 40
+    fs = pass_revision(make_target(r))
+    assert [f.code for f in fs] == ["revision-horizon-covered"]
+    target = make_target(r, device="cpu")
+    assert any(s["key"][0] == "revise" for s in target.staged())
+    assert pass_donation(target) == []
 
 
 def test_retro_span_and_horizon_arithmetic():

@@ -39,6 +39,14 @@ def test_the_rules_cover_the_serving_package():
             "serve/__main__.py"} <= paths
 
 
+def test_the_rules_cover_the_analysis_package():
+    """The auditor is among the modules imported and scanned below."""
+    assert {"repro_torch.analysis", "repro_torch.analysis.audit",
+            "repro_torch.analysis.findings", "repro_torch.analysis.graphs",
+            "repro_torch.analysis.passes", "repro_torch.analysis.planverify",
+            "repro_torch.analysis.__main__"} <= set(_modules())
+
+
 def test_the_rules_cover_the_launch_package():
     """The mesh module is among the modules imported and scanned below."""
     assert {"repro_torch.launch", "repro_torch.launch.mesh"} <= set(
@@ -94,6 +102,17 @@ def _service(**kw):
                          segs_per_chunk=2, **kw)
 
 
+def _analysis_cli(device=None):
+    """``python -m repro_torch.analysis`` over one lattice point: it runs
+    on CUDA unless ``--device cpu`` is given."""
+    import tempfile
+    from repro_torch.analysis.__main__ import main
+    with tempfile.TemporaryDirectory() as d:
+        return main(["--policy", "dense×single×local×solo", "--passes",
+                     "plan", "--out", f"{d}/a.jsonl"]
+                    + (["--device", device] if device else []))
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -117,7 +136,8 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch):
                  lambda **kw: convert.state_from_numpy(
                      {"in": (np.zeros(4), np.ones(4, bool)), "__t": 0},
                      **kw),
-                 lambda **kw: make_local_mesh(**kw)):
+                 lambda **kw: make_local_mesh(**kw),
+                 lambda **kw: _analysis_cli(**kw)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
         assert call(device="cpu") is not None

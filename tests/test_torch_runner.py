@@ -417,13 +417,20 @@ def test_policy_values_describe_and_out_of_scope_axes():
     with pytest.raises(ValueError, match="revision disabled"):
         r.revise(0, [], [])
     r.enable_revision(2)
-    assert r.revision_horizon == 2
-    # the serving surface is ported (ROADMAP A13); the audit surface waits
-    # for A15
+    assert r.revision_horizon == 2 and r.revise_bound is None
+    # the serving surface is ported (ROADMAP A13), and the audit surface
+    # (A15): zero chunks in step's layout, on the runner's device (CUDA
+    # unless asked for the CPU), as the reference's
     assert [label for label, _ in r.aot_keys()] == [
         "dense", "revise(1)"]
-    with pytest.raises(NotImplementedError, match="A15"):
-        r.audit_example_chunks()
+    ex = r.audit_example_chunks("cpu")
+    ref_ex = RRunner(rqc.compile_query(_trend(RTStream.source("in")).node,
+                                       out_len=SEG, pallas=False),
+                     RPolicy()).audit_example_chunks()
+    assert set(ex) == set(ref_ex)
+    for name, g in ex.items():
+        assert g.valid.device.type == "cpu" and not g.valid.any()
+        assert tuple(g.valid.shape) == tuple(ref_ex[name].valid.shape)
     # the mesh forms the reference has (ROADMAP A14): KeyedEngine(mesh=)
     # places its runner on the mesh, wrap_keyed_step(mesh=) shards the key
     # axis and gathers both results back

@@ -19,9 +19,9 @@
 Here everything runs on the CPU, where the port's steps are eager; the
 card's side (graphs captured ahead, a steady ``serve`` under PyTorch's
 sync debug mode, no capture after warm-up) is in ``tests/
-test_torch_cuda.py``.  Not mirrored: the three ``pass_serving`` tests,
-whose analysis pass is ROADMAP A15's, and the two ``slow`` tests of
-``launch/serve.py``, the LM stack of A16.
+test_torch_cuda.py``.  The three ``pass_serving`` tests are mirrored (a
+CPU service's steps are prepared "eager").  Not mirrored: the two
+``slow`` tests of ``launch/serve.py``, the LM stack of A16.
 
 The data is integer-valued and the query takes one mean (its sum is exact
 and its one division correctly rounded in both packages), so every
@@ -39,6 +39,8 @@ from repro.core.stream import Event as REvent, SnapshotGrid as RGrid
 from repro.engine import ExecPolicy as RPolicy, Runner as RRunner
 from repro.serve import aot_compile as r_aot_compile
 from repro.serve import build_service as r_build_service
+from repro_torch.analysis import audit_runner
+from repro_torch.analysis.passes import pass_serving
 from repro_torch.core import compile as qc
 from repro_torch.core.frontend import TStream
 from repro_torch.core.stream import Event, SnapshotGrid
@@ -435,3 +437,59 @@ def test_event_path_declared_watermark_keys_match_reference(tmp_path):
     assert [s.chunk for s in got] == [s.chunk for s in want] == [0, 1, 2]
     for g, w in zip(got, want):
         _assert_same(_np(g.outputs), _np(w.outputs))
+
+
+# ---------------------------------------------------------------------------
+# the serving analysis pass
+# ---------------------------------------------------------------------------
+
+class _RebindingRunner(Runner):
+    """A runner whose steady step makes new dirty tails instead of
+    writing the carried ones in place (the suffix writes into fresh
+    tensors bound over them)."""
+
+    def _sparse_suffix(self, dev):
+        suffix, after = super()._sparse_suffix(dev)
+
+        def rebinding(work):
+            work.dirty = {n: torch.zeros_like(d)
+                          for n, d in work.dirty.items()}
+            return suffix(work)
+        return rebinding, after
+
+
+def _aot_runner(cls=Runner):
+    exe = qc.compile_query(_query().node, out_len=SEG, sparse=True)
+    r = cls(exe, ExecPolicy(body="sparse"), segs_per_chunk=SPC)
+    aot_capture(r, device="cpu")
+    return r
+
+
+def test_pass_serving_certifies_aot_runner():
+    r = _aot_runner()
+    findings = audit_runner(r, passes={"serving": pass_serving})
+    assert [f.code for f in findings] == ["serving-aot-complete"], findings
+
+
+def test_pass_serving_flags_missing_step_and_donation():
+    r = _aot_runner()
+    # a step reachable by the policy point but never prepared ahead (the
+    # real-world shape: a variant enabled after warm()) -> error
+    label, _key = r.aot_keys()[0]
+    del r.metrics.tracer._aot[label]
+    findings = audit_runner(r, passes={"serving": pass_serving})
+    assert any(f.code == "serving-step-not-aot" and f.severity == "error"
+               for f in findings), findings
+    # a steady step that does not write its state in place -> error
+    r2 = _aot_runner(_RebindingRunner)
+    findings = audit_runner(r2, passes={"serving": pass_serving})
+    bad = [f for f in findings if f.code == "serving-donation-missing"]
+    assert bad and all(f.severity == "error" for f in bad), findings
+    assert {f.target for f in bad} == {"sparse_fused(steady)"}
+    assert "dirty['in'][0]:unaliased" in bad[0].provenance
+
+
+def test_pass_serving_noop_on_unserved_runner():
+    exe = qc.compile_query(_query().node, out_len=SEG, sparse=True)
+    r = Runner(exe, ExecPolicy(body="sparse"), segs_per_chunk=SPC)
+    assert audit_runner(r, passes={"serving": pass_serving}) == []
