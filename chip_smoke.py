@@ -138,12 +138,35 @@ Phases (each raises on failure; the script then exits non-zero):
    finding fails the script); (d) every ``sliding_assoc``, ``seg_dirty``
    and ``prefix_scan`` shape the audits launched, held against the plain
    versions.  The group is destroyed after it.
-13. One JSON line with every kernel's launches on the main path (the sum
-   of the windows of phases 3-11), its error against its plain version, its
-   times and its bound.  ``fused_trend`` has no caller on any path (nor in
-   the reference), so its launches are 0; phase 2 holds it against its
-   plain version.
-14. The last line: ``{"ok": true, "device": {...}}``.
+13. LM serving (``repro_torch.launch.serve``; no kernel of the TiLT path
+   lies on it, so its launch-count window must read 0): (a) qwen3-1.7b at
+   full width and depth, weights drawn on the card from a seeded
+   ``torch.Generator``, 64 requests of 1024 seeded token ids served in
+   waves of 32, 128 tokens each, through ``serve_waves`` (one warm-up
+   wave first, which captures the decode graph): tokens/s, prefill ms per
+   wave and decode ms per step (p50, p99; CUDA events), then a steady
+   decode step alone: its synchronizing calls (0, and none under the sync
+   debug mode set to raise), its device busy time, idle share and top
+   kernels (``torch.profiler``) and its memory bound (every weight and
+   cache buffer read once over 3.35 TB/s); prefill/decode consistency on
+   two requests (teacher-forced decode against a full forward of each
+   request alone: max|d| / max|logit| <= 2e-2).  (b) gemma2-2b (one
+   (local, global) period, prompt 5120), granite-moe-1b-a400m (2 layers,
+   prompt 1024: the served prefill drops picks at capacity; its
+   consistency check runs dropless groups), recurrentgemma-9b (one period,
+   prompt 3072), rwkv6-7b (2 layers, prompt 64) and whisper-large-v3 (2 + 2
+   layers, 1500 frames), each at full width in batches of 4, with the same
+   numbers and check.  (c) every SMOKE configuration, in its dtype and at
+   f32 (TF32 off for matmuls and cuDNN), and qwen3's f8 cache, on the card
+   and on the CPU with the same weights: forward, prefill, 8 decode steps
+   (graph replays on the card) and the caches, bf16 within 2e-2 of the
+   largest value, f32 within 1e-4.
+14. One JSON line with every kernel's launches on the main path (the sum
+   of the windows of phases 3-11 and 13), its error against its plain
+   version, its times and its bound.  ``fused_trend`` has no caller on any
+   path (nor in the reference), so its launches are 0; phase 2 holds it
+   against its plain version.
+15. The last line: ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with code 2 before printing any result.
 """
@@ -2693,6 +2716,371 @@ def run_audit(dev, errs: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: LM serving (repro_torch.launch.serve)
+# ---------------------------------------------------------------------------
+
+LM_SEED = 20
+LM_REL_TOL = 2e-2   # bf16: max|a - b| <= tol * (max|b| + |b|)
+LM_F32_TOL = 1e-4   # f32: |a - b| <= tol * (1 + |b|), TF32 off
+# 13(a): qwen3-1.7b at full width and depth
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, LM_REQUESTS = (
+    "qwen3-1.7b", 32, 1024, 128, 64)
+# 13(b): (arch, depth cut, prompt, length of the consistency sequence)
+LM_FAMILIES = (
+    ("gemma2-2b", {"n_layers": 2}, 5120, 6144),
+    ("granite-moe-1b-a400m", {"n_layers": 2}, 1024, 1056),
+    ("recurrentgemma-9b", {"n_layers": 3}, 3072, 4096),
+    ("rwkv6-7b", {"n_layers": 2}, 64, 128),
+    ("whisper-large-v3", {"n_layers": 2, "n_enc_layers": 2}, 64, 128),
+)
+LM_FAM_BATCH, LM_FAM_GEN, LM_FAM_REQUESTS = 4, 32, 8
+
+
+def _lm_model(arch: str, cut: dict, dev, **over):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(arch), **cut, **over)
+    return build_model(cfg, device=dev)
+
+
+def _lm_frames(cfg, B: int, dev, seed: int):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((B, cfg.enc_seq, cfg.d_model), generator=g,
+                       device=dev)
+
+
+def lm_consistency(model, params, tokens: np.ndarray, prompt: int,
+                   frames=None) -> float:
+    """Decode against a full forward at the same positions: the requests
+    of ``tokens`` (B, T) prefilled over their first ``prompt`` tokens, then
+    decoded teacher-forced over the rest through the serve steps (one
+    graph replay a step); the full forward runs each request alone (batch
+    1: an MoE group of at most 64 tokens stays dropless).  Returns
+    max|decode - full| / max|full| over the prefill's last logits and
+    every decode step's."""
+    import torch
+    from repro_torch.models import encdec, transformer
+    from repro_torch.train import make_serve_steps
+    cfg, dev = model.cfg, model.device
+    toks = torch.from_numpy(tokens.astype(np.int32)).to(dev)
+    B, T = toks.shape
+    n = T - prompt
+    full = []
+    for b in range(B):
+        if cfg.family == "encdec":
+            enc = encdec.forward_encoder(params, cfg, frames[b:b + 1])
+            lg, _ = encdec._decoder(params, cfg, toks[b:b + 1], enc,
+                                    last=n + 1)
+        else:
+            lg, _, _ = transformer.forward(params, cfg, toks[b:b + 1],
+                                           last=n + 1)
+        full.append(lg)
+    full = torch.cat(full)              # positions prompt-1 .. T-1
+    prefill_fn, decode_fn = make_serve_steps(model)
+    if cfg.family == "encdec":
+        logits, caches, enc = prefill_fn(params, toks[:, :prompt],
+                                         frames[:B], max_len=T)
+        rest = (enc,)
+    else:
+        logits, caches = prefill_fn(params, toks[:, :prompt], max_len=T)
+        rest = ()
+    err = (logits[:, 0] - full[:, 0]).abs().amax()
+    pos = torch.full((), prompt, dtype=torch.int32, device=dev)
+    for i in range(n):
+        lg, caches = decode_fn(params, caches,
+                               toks[:, prompt + i:prompt + i + 1], pos, *rest)
+        err = torch.maximum(err, (lg[:, 0] - full[:, i + 1]).abs().amax())
+        pos.add_(1)
+    rel = float(err / full.abs().amax())
+    if not np.isfinite(rel):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    return rel
+
+
+def lm_decode_bound_ms(params, caches) -> tuple:
+    """(bytes, ms): every weight and every cache buffer read once (a
+    global layer's decode reads its whole cache), over the memory rate."""
+    import torch
+    from repro_torch.models.layers import KVCache
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    for st in caches:
+        leaves = (st.k, st.v) if isinstance(st, KVCache) else st.values()
+        nbytes += sum(t.numel() * t.element_size() for t in leaves
+                      if torch.is_tensor(t))
+    return nbytes, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def lm_serve_cell(label: str, model, params, batch: int, prompt: int,
+                  gen: int, n_req: int, seed: int, frames=None) -> dict:
+    """Requests drawn from ``seed`` served through ``serve_waves``: one
+    wave first (it captures the decode graph), then the timed run over
+    all of them with the same steps; then a steady decode step alone: its
+    synchronizing calls (0, and none under the sync debug mode set to
+    raise), its host time and its device busy time and idle share."""
+    import torch
+    from repro_torch.launch.serve import serve_waves
+    from repro_torch.models import encdec
+    from repro_torch.train import make_serve_steps
+    cfg, dev = model.cfg, model.device
+    rng = np.random.default_rng(seed)
+    reqs = list(rng.integers(0, cfg.vocab, (n_req, prompt)))
+    steps = make_serve_steps(model)
+    serve_waves(model, params, reqs[:batch], batch, prompt, gen, frames,
+                steps=steps)
+    torch.cuda.synchronize()
+    stats: dict = {}
+    t0 = time.perf_counter()
+    done = serve_waves(model, params, reqs, batch, prompt, gen, frames,
+                       stats=stats, steps=steps)
+    wall = time.perf_counter() - t0
+    if len(done) != n_req or any(len(d) != gen for d in done):
+        raise AssertionError(f"{label}: {len(done)} answers")
+    if not all(0 <= t < cfg.vocab_padded for d in done for t in d):
+        raise AssertionError(f"{label}: a token out of the vocabulary")
+    prefill_fn, decode_fn = steps
+    if len(decode_fn.graphs) != 1:
+        raise AssertionError(f"{label}: {len(decode_fn.graphs)} decode "
+                             "graphs for one (batch, max_len)")
+    caches = prefill_fn.caches[(batch, prompt + gen)]
+    rest = ((encdec.forward_encoder(params, cfg, frames),)
+            if cfg.family == "encdec" else ())
+    tok = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
+    pos = torch.full((), prompt + gen // 2, dtype=torch.int32, device=dev)
+
+    def step():
+        lg, _ = decode_fn(params, caches, tok, pos, *rest)
+        tok.copy_(torch.argmax(lg[:, 0], dim=-1)[:, None])
+
+    syncs = count_syncs(lambda: [step() for _ in range(10)]) / 10
+    if syncs:
+        raise AssertionError(f"{label}: {syncs} syncs per decode step")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(5):
+            step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(50):
+        step()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t1) / 50
+    prof = device_profile(step, step_s)
+    dec = np.asarray(stats["decode_ms"])
+    bound_bytes, bound = lm_decode_bound_ms(params, caches)
+    row = {"tokens_per_s": n_req * gen / wall, "wall_s": wall,
+           "prefill_ms": stats["prefill_ms"],
+           "decode_p50_ms": float(np.median(dec)),
+           "decode_p99_ms": float(np.quantile(dec, 0.99)),
+           "step_ms": step_s * 1e3, "syncs_per_step": syncs,
+           "device_ms": prof["device_ms"], "idle_share": prof["idle_share"],
+           "top": prof["top"], "bound_bytes": bound_bytes,
+           "bound_ms": bound}
+    log(f"  {label}: {row['tokens_per_s']:.1f} tok/s ({n_req} requests x "
+        f"{gen} tokens, batch {batch}, prompt {prompt}, {wall:.3f} s); "
+        f"prefill ms/wave {', '.join(f'{v:.3f}' for v in row['prefill_ms'])}"
+        f"; decode ms/step p50 {row['decode_p50_ms']:.4f} p99 "
+        f"{row['decode_p99_ms']:.4f} (steady step {row['step_ms']:.4f}, "
+        f"device {_ms(row['device_ms'])}, idle {row['idle_share']}); "
+        f"syncs/step {syncs:g}; bound {bound:.4f} ms ({bound_bytes} bytes: "
+        f"weights + caches read once); top kernels " + ", ".join(
+            f"{k} {v:.3f}" for k, v in row["top"]))
+    return row
+
+
+def lm_full_width(dev) -> dict:
+    """13(a): qwen3-1.7b at full width and depth through the wave loop."""
+    import torch
+    model = _lm_model(LM_ARCH, {}, dev)
+    cfg = model.cfg
+    params = model.init(torch.Generator(device=dev).manual_seed(LM_SEED))
+    row = lm_serve_cell(f"{cfg.name} full ({cfg.n_layers} layers)", model,
+                        params, LM_BATCH, LM_PROMPT, LM_GEN, LM_REQUESTS,
+                        LM_SEED)
+    toks = np.random.default_rng(LM_SEED + 1).integers(
+        0, cfg.vocab, (2, LM_PROMPT + LM_GEN))
+    row["consistency"] = lm_consistency(model, params, toks, LM_PROMPT)
+    row["params"] = model.param_count(params)
+    log(f"  {cfg.name}: {row['params']} parameters; decode against full "
+        f"forward, 2 requests x {LM_GEN} steps: max|d|/max|logit| "
+        f"{row['consistency']:.3e} (limit {LM_REL_TOL})")
+    if not row["consistency"] <= LM_REL_TOL:
+        raise AssertionError(f"{cfg.name}: decode/full {row['consistency']}")
+    return row
+
+
+def lm_families(dev) -> dict:
+    """13(b): one configuration of each other family at full width, its
+    depth cut, served in batches of 4 and checked for consistency."""
+    import torch
+    from repro_torch.models.layers import moe_capacity
+    out = {}
+    for arch, cut, prompt, t_full in LM_FAMILIES:
+        model = _lm_model(arch, cut, dev)
+        cfg = model.cfg
+        params = model.init(torch.Generator(device=dev).manual_seed(
+            LM_SEED))
+        frames = (_lm_frames(cfg, LM_FAM_BATCH, dev, LM_SEED)
+                  if cfg.family == "encdec" else None)
+        log(f"  {arch}: depth cut to {cut} (full width d_model "
+            f"{cfg.d_model}, vocab {cfg.vocab})")
+        row = lm_serve_cell(arch, model, params, LM_FAM_BATCH, prompt,
+                            LM_FAM_GEN, LM_FAM_REQUESTS, LM_SEED, frames)
+        if cfg.is_moe:
+            G, Ng, C = moe_capacity(cfg, LM_FAM_BATCH * prompt)
+            row["moe_prefill"] = {"groups": G, "tokens": Ng, "capacity": C,
+                                  "dropping": Ng > 64}
+            log(f"  {arch}: served prefill groups {G} x {Ng} tokens, "
+                f"capacity {C} a expert ({'dropping' if Ng > 64 else 'dropless'})"
+                f"; the consistency check runs dropless groups")
+        toks = np.random.default_rng(LM_SEED + 1).integers(
+            0, cfg.vocab, (2, t_full))
+        row["consistency"] = lm_consistency(
+            model, params, toks, prompt,
+            frames[:2] if frames is not None else None)
+        row["cut"] = cut
+        log(f"  {arch}: decode against full forward, 2 requests, prompt "
+            f"{prompt}, {t_full - prompt} steps: max|d|/max|logit| "
+            f"{row['consistency']:.3e}")
+        if not row["consistency"] <= LM_REL_TOL:
+            raise AssertionError(f"{arch}: decode/full {row['consistency']}")
+        out[arch] = row
+        del model, params, frames
+        torch.cuda.empty_cache()
+    return out
+
+
+def _lm_run(model, params, tokens, frames, steps):
+    """Forward logits, then prefill over half the tokens and decode the
+    rest teacher-forced; returns every logit tensor and the final caches
+    (as numpy, the reference's layout)."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.models import encdec, transformer
+    cfg = model.cfg
+    B, S = tokens.shape
+    half = S // 2
+    prefill_fn, decode_fn = steps
+    outs = []
+    if cfg.family == "encdec":
+        enc = encdec.forward_encoder(params, cfg, frames)
+        outs.append(encdec._decoder(params, cfg, tokens, enc)[0])
+        lg, caches, enc = prefill_fn(params, tokens[:, :half], frames,
+                                     max_len=S)
+        rest = (enc,)
+    else:
+        outs.append(transformer.forward(params, cfg, tokens)[0])
+        lg, caches = prefill_fn(params, tokens[:, :half], max_len=S)
+        rest = ()
+    outs.append(lg)
+    for t in range(half, S):
+        lg, caches = decode_fn(params, caches, tokens[:, t:t + 1], t, *rest)
+        outs.append(lg.clone())
+    return ([o.float().cpu().numpy() for o in outs],
+            convert.lm_cache_to_numpy(cfg, caches))
+
+
+def _flat(tree, pre=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{pre}/{k}"))
+        return out
+    return {pre: tree}
+
+
+def lm_smoke_card_cpu(dev) -> dict:
+    """13(c): every SMOKE configuration (and qwen3's f8 cache) on the card
+    and on the CPU with the same weights: forward logits, prefill logits,
+    8 decode steps (a graph replay each on the card) and the caches; bf16
+    within ``LM_REL_TOL`` of the largest value, f32 within ``LM_F32_TOL``
+    with TF32 off for matmuls and cuDNN."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import build_model
+    from repro_torch.train import make_serve_steps
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        cases = []
+        for arch, (_, smoke) in sorted(registry().items()):
+            cases.append((arch, smoke))
+            cases.append((f"{arch} f32", dataclasses.replace(
+                smoke, dtype="float32", param_dtype="float32")))
+        q = registry()["qwen3-1.7b"][1]
+        cases.append(("qwen3-1.7b f8 cache", dataclasses.replace(
+            q, cache_dtype="float8_e4m3fn")))
+        for label, cfg in cases:
+            cpu = build_model(cfg, device="cpu")
+            card = build_model(cfg, device=dev)
+            p_cpu = cpu.init(torch.Generator().manual_seed(LM_SEED))
+            p_card = copy.deepcopy(p_cpu).to(dev)
+            rng = np.random.default_rng(LM_SEED)
+            toks = rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)
+            fr = (rng.normal(size=(2, cfg.enc_seq, cfg.d_model))
+                  .astype(np.float32) if cfg.family == "encdec" else None)
+            got = _lm_run(card, p_card, torch.from_numpy(toks).to(dev),
+                          None if fr is None else torch.from_numpy(fr).to(dev),
+                          make_serve_steps(card))
+            want = _lm_run(cpu, p_cpu, torch.from_numpy(toks),
+                           None if fr is None else torch.from_numpy(fr),
+                           make_serve_steps(cpu))
+            pairs = list(zip(got[0], want[0]))
+            a, b = _flat(got[1]), _flat(want[1])
+            pairs += [(a[k], b[k]) for k in b]
+            f32 = cfg.dtype == "float32"
+            worst = 0.0
+            for g, w in pairs:
+                g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+                if f32:
+                    r = (np.abs(g - w) / (LM_F32_TOL * (1 + np.abs(w)))).max()
+                else:
+                    r = (np.abs(g - w) / (LM_REL_TOL * (
+                        np.abs(w).max() + np.abs(w)) + 1e-30)).max()
+                worst = max(worst, float(r))
+            out[label] = worst
+            if not worst <= 1.0:
+                raise AssertionError(f"13(c) {label}: card against CPU at "
+                                     f"{worst:.3f} of the limit")
+        log("  13(c) card against CPU, share of the limit used: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in out.items()))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return out
+
+
+def run_lm(dev, main_launches: dict) -> dict:
+    """Phase 13: LM serving.  No kernel of the TiLT path lies on it (the
+    reference's models reach no ``pallas_call``): its launch-count window
+    must read 0 for every kernel."""
+    import torch
+    t0 = time.perf_counter()
+    res = {}
+
+    def go():
+        res["full"] = lm_full_width(dev)
+        torch.cuda.empty_cache()
+        res["families"] = lm_families(dev)
+
+    drive(main_launches, go)
+    if any(main_launches.values()):
+        raise AssertionError(f"a TiLT kernel launched on the LM path: "
+                             f"{main_launches}")
+    res["smoke"] = lm_smoke_card_cpu(dev)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"LM serving phase: {res['seconds']:.1f} s")
+    return res
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "prefix_scan": ("src/repro_torch/kernels/csrc/window_reduce.cu",
@@ -2715,6 +3103,7 @@ def main() -> int:
     from repro_torch.kernels import window_reduce as wr
     from repro_torch.kernels.build import library
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     log(card)
@@ -2749,10 +3138,13 @@ def main() -> int:
     audit = run_audit(dev, errs)
     import torch.distributed as dist
     dist.destroy_process_group()
+    lm_launches = {}
+    lm = run_lm(dev, lm_launches)
     windows = {"partition_run": single, "batch_run": keyed_launches,
                "runner": runner_launches, "sparse_run": one_shot_launches,
                "session": session_launches, "ingest": ingest_launches,
-               "serve": serve_launches, "mesh": mesh_launches}
+               "serve": serve_launches, "mesh": mesh_launches,
+               "lm": lm_launches}
     launches = {k: sum(w.get(k, 0) for w in windows.values())
                 for k in KERNELS}
     for k in ("seg_dirty",):
@@ -2774,7 +3166,7 @@ def main() -> int:
     detail = {"card": card, "apps": apps, "keyed": keyed,
               "runner": runners, "sparse_run": one_shot,
               "session": sessions, "ingest": ingest, "serve": serving,
-              "mesh": mesh, "audit": audit,
+              "mesh": mesh, "audit": audit, "lm": lm,
               "kernels": {f"{k}/{lab}": v for (k, lab), v in rows.items()},
               "launches": dict(windows, total=launches)}
     Path("out/chip_smoke.json").write_text(json.dumps(detail,
@@ -2789,6 +3181,7 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

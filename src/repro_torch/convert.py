@@ -17,6 +17,12 @@ reference's (numpy arrays) into tensors the port's ``restore`` takes, and
 other.  Both packages keep time on the last axis of every scalar-per-tick
 leaf (all the apps' payloads), so the arrays carry over as they are.
 Nothing here imports the reference package: callers pass its arrays.
+
+The LM stack's weights carry over too: :func:`lm_params_from_numpy` turns
+the reference's ``model.init(...)[0]`` pytree (numpy arrays) into the
+port's parameter module, unstacking the scanned superblocks and encdec's
+layer stacks, and :func:`lm_cache_to_numpy` gives the port's caches back
+in the reference's layout, leaf by leaf.
 """
 from __future__ import annotations
 
@@ -27,7 +33,8 @@ from torch.utils._pytree import tree_map
 from .core.stream import SnapshotGrid
 from .device import resolve
 
-__all__ = ["to_grid", "to_numpy", "state_from_numpy", "state_to_numpy"]
+__all__ = ["to_grid", "to_numpy", "state_from_numpy", "state_to_numpy",
+           "lm_params_from_numpy", "lm_cache_to_numpy"]
 
 
 def to_grid(value, valid, t0: int, prec: int, device=None) -> SnapshotGrid:
@@ -70,3 +77,90 @@ def state_to_numpy(tree):
     leaves are kept."""
     return tree_map(lambda x: (x.detach().cpu().numpy().copy()
                                if torch.is_tensor(x) else x), tree)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A copy of array ``a`` as a tensor on ``device``, its dtype kept.  A
+    bfloat16 array (``ml_dtypes``, as numpy sees a jax bf16 array) goes
+    through its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(a.view(np.uint16), copy=True))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_params_from_numpy(cfg, params, device=None):
+    """The port's parameter module (``transformer.LM`` or
+    ``encdec.EncDec``) from the reference's parameter pytree of ``cfg``
+    (arrays that ``np.asarray`` reads: numpy or jax), on ``device`` (CUDA
+    unless ``"cpu"`` is asked for).  The stacked ``scan`` superblocks and
+    encdec's ``enc``/``dec`` stacks become one module per layer."""
+    from .models import encdec, transformer
+    dev = resolve(device)
+    put = lambda a: _tensor(a, dev)
+    top = {k: put(v) for k, v in params.items()
+           if k not in ("scan", "enc", "dec") and not k.startswith("rest")}
+    if cfg.family == "encdec":
+        def layers(stack, n):
+            return [_tree(stack, lambda a, i=i: put(np.asarray(a)[i]))
+                    for i in range(n)]
+        return encdec.EncDec(cfg, top, layers(params["enc"],
+                                              cfg.n_enc_layers),
+                             layers(params["dec"], cfg.n_layers))
+    blocks = []
+    for path in transformer.layer_paths(cfg):
+        if path[0] == "scan":
+            _, b, s = path
+            blocks.append(_tree(params["scan"][b],
+                                lambda a, s=s: put(np.asarray(a)[s])))
+        else:
+            blocks.append(_tree(params[path[0]], put))
+    return transformer.LM(cfg, top, blocks)
+
+
+def _state_numpy(st) -> dict:
+    """One layer's cache as numpy, in the reference's layout: a
+    ``KVCache`` as ``{"k", "v", "pos"}`` with (B, S, N, K) buffers; float
+    leaves as float32 (exact for bf16 and f8)."""
+    from .models.layers import KVCache
+
+    def arr(t):
+        t = t.detach()
+        return (t.float() if t.is_floating_point() else t).cpu().numpy(
+        ).copy()
+
+    if isinstance(st, KVCache):
+        return {"k": arr(st.k.permute(0, 2, 1, 3)),
+                "v": arr(st.v.permute(0, 2, 1, 3)), "pos": arr(st.pos)}
+    return {k: arr(v) for k, v in st.items()}
+
+
+def lm_cache_to_numpy(cfg, caches) -> dict:
+    """The port's caches (one entry per layer) as nested dicts of numpy
+    arrays in the reference's tree: ``scan``/``b{i}`` leaves stacked over
+    the superblocks, ``rest{i}``, or encdec's stacked ``dec``."""
+    from .models import transformer
+    per_layer = [_state_numpy(st) for st in caches]
+
+    def stack(layers):
+        return {k: np.stack([l[k] for l in layers]) for k in layers[0]}
+
+    if cfg.family == "encdec":
+        return {"dec": stack(per_layer)}
+    out: dict = {}
+    scan: dict = {}
+    for path, st in zip(transformer.layer_paths(cfg), per_layer):
+        if path[0] == "scan":
+            scan.setdefault(path[1], []).append(st)
+        else:
+            out[path[0]] = st
+    if scan:
+        out["scan"] = {b: stack(sts) for b, sts in scan.items()}
+    return out

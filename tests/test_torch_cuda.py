@@ -1074,3 +1074,100 @@ def test_cuda_serving_pass_certifies_service(cuda, tmp_path, body):
     findings = audit_runner(svc.runner, passes={"serving": pass_serving})
     assert [f.code for f in findings] == ["serving-aot-complete"], findings
     assert "(captured)" in findings[0].message
+
+
+# ---------------------------------------------------------------------------
+# LM serving: the decode step as one captured graph
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ["qwen3-1.7b", "gemma2-2b", "granite-moe-1b-a400m",
+            "recurrentgemma-9b", "rwkv6-7b", "whisper-large-v3"]
+
+
+def _lm_setup(arch, dev, cache_dtype=""):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              cache_dtype=cache_dtype)
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(7))
+    g = torch.Generator(device=dev).manual_seed(8)
+    tokens = torch.randint(0, cfg.vocab, (2, 24), generator=g, device=dev)
+    frames = (torch.randn((2, cfg.enc_seq, cfg.d_model), generator=g,
+                          device=dev) if cfg.family == "encdec" else None)
+    return model, params, tokens, frames
+
+
+def _lm_prefill(model, params, tokens, frames, prefill):
+    if frames is not None:
+        logits, caches, enc = prefill(params, tokens[:, :16], frames,
+                                      max_len=24)
+        return logits, caches, (enc,)
+    logits, caches = prefill(params, tokens[:, :16], max_len=24)
+    return logits, caches, ()
+
+
+def _lm_cache_leaves(caches):
+    from repro_torch.models.layers import KVCache
+    out = []
+    for st in caches:
+        out += ([st.k, st.v, st.pos] if isinstance(st, KVCache)
+                else list(st.values()))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_cuda_lm_decode_replays_with_no_sync(cuda, arch):
+    """After its capture, a decode step (a replay, the argmax, the position
+    advanced) makes no synchronizing call, and one (batch, max_len) keeps
+    one graph."""
+    from repro_torch.train import make_serve_steps
+    model, params, tokens, frames = _lm_setup(arch, cuda)
+    prefill_fn, decode_fn = make_serve_steps(model)
+    _, caches, rest = _lm_prefill(model, params, tokens, frames, prefill_fn)
+    pos = torch.full((), 16, dtype=torch.int32, device=cuda)
+    tok = tokens[:, 16:17].clone()
+    decode_fn(params, caches, tok, pos, *rest)      # captures
+    torch.cuda.synchronize()
+
+    def steps():
+        for _ in range(4):
+            logits, _ = decode_fn(params, caches, tok, pos, *rest)
+            tok.copy_(torch.argmax(logits[:, 0], dim=-1)[:, None])
+            pos.add_(1)
+
+    assert _count_syncs(steps) == 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        steps()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(decode_fn.graphs) == 1
+    assert int(pos) == 24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,cache_dtype",
+                         [(a, "") for a in LM_ARCHS]
+                         + [("qwen3-1.7b", "float8_e4m3fn")])
+def test_cuda_lm_captured_decode_equals_eager(cuda, arch, cache_dtype):
+    """The same prefill twice, then 6 teacher-forced decode steps: eager
+    on one set of caches, replays of the captured graph on the other;
+    logits and every cache buffer equal bit for bit."""
+    from repro_torch.train import make_serve_steps
+    model, params, tokens, frames = _lm_setup(arch, cuda, cache_dtype)
+    prefill_fn, decode_fn = make_serve_steps(model)
+    _, eager, rest_e = _lm_prefill(model, params, tokens, frames,
+                                   model.prefill)
+    _, graph, rest_g = _lm_prefill(model, params, tokens, frames, prefill_fn)
+    for t in range(16, 22):
+        le, _ = model.decode_step(params, eager, tokens[:, t:t + 1], t,
+                                  *rest_e)
+        lg, _ = decode_fn(params, graph, tokens[:, t:t + 1], t, *rest_g)
+        assert torch.equal(le, lg), (arch, t)
+    for a, b in zip(_lm_cache_leaves(eager), _lm_cache_leaves(graph)):
+        assert torch.equal(a.view(torch.uint8) if a.element_size() == 1
+                           else a, b.view(torch.uint8)
+                           if b.element_size() == 1 else b)

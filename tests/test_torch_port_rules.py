@@ -55,6 +55,24 @@ def test_the_rules_cover_the_launch_package():
     assert {"launch/__init__.py", "launch/mesh.py"} <= paths
 
 
+def test_the_rules_cover_the_lm_packages():
+    """The LM stack (configs, models, serve steps, the serving loop) is
+    among the modules imported and scanned below."""
+    assert {"repro_torch.configs", "repro_torch.configs.base",
+            "repro_torch.configs.qwen3_1_7b",
+            "repro_torch.configs.whisper_large_v3",
+            "repro_torch.models", "repro_torch.models.layers",
+            "repro_torch.models.recurrent", "repro_torch.models.transformer",
+            "repro_torch.models.encdec", "repro_torch.models.model",
+            "repro_torch.train", "repro_torch.train.train_step",
+            "repro_torch.launch.serve"} <= set(_modules())
+    paths = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {"configs/base.py", "models/layers.py", "train/train_step.py",
+            "launch/serve.py"} <= paths
+    from repro_torch.configs import registry
+    assert len(registry()) == 10
+
+
 def test_importing_the_port_loads_no_jax_and_no_reference():
     code = ("import importlib, sys\n"
             f"for m in {_modules()!r}:\n"
@@ -113,6 +131,38 @@ def _analysis_cli(device=None):
                     + (["--device", device] if device else []))
 
 
+def _lm_serve_cli(device=None):
+    """``python -m repro_torch.launch.serve``: on CUDA unless ``--device
+    cpu`` is given."""
+    from repro_torch.launch import serve
+    return serve.main(["--smoke", "--batch", "1", "--prompt-len", "4",
+                       "--gen", "2", "--requests", "1"]
+                      + (["--device", device] if device else []))
+
+
+def _lm_model(**kw):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    return build_model(get_config("qwen3-1.7b", smoke=True), **kw)
+
+
+def _lm_params(**kw):
+    """Weights in the reference's tree (here the port's own, f32, as
+    numpy; unscanned, so every layer is a ``rest{i}``) carried over."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("qwen3-1.7b", smoke=True),
+                              dtype="float32", param_dtype="float32",
+                              scan_layers=False)
+    tree = build_model(cfg, device="cpu").init().tree()
+    as_np = lambda d: {k: (v.numpy() if torch.is_tensor(v) else as_np(v))
+                       for k, v in d.items()}
+    ref = as_np({k: v for k, v in tree.items() if k != "blocks"})
+    ref.update({f"rest{i}": as_np(b) for i, b in enumerate(tree["blocks"])})
+    return convert.lm_params_from_numpy(cfg, ref, **kw)
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -137,7 +187,10 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch):
                      {"in": (np.zeros(4), np.ones(4, bool)), "__t": 0},
                      **kw),
                  lambda **kw: make_local_mesh(**kw),
-                 lambda **kw: _analysis_cli(**kw)):
+                 lambda **kw: _analysis_cli(**kw),
+                 lambda **kw: _lm_model(**kw),
+                 lambda **kw: _lm_params(**kw),
+                 lambda **kw: _lm_serve_cli(**kw)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
         assert call(device="cpu") is not None
