@@ -160,13 +160,42 @@ Phases (each raises on failure; the script then exits non-zero):
    f32 (TF32 off for matmuls and cuDNN), and qwen3's f8 cache, on the card
    and on the CPU with the same weights: forward, prefill, 8 decode steps
    (graph replays on the card) and the caches, bf16 within 2e-2 of the
-   largest value, f32 within 1e-4.
-14. One JSON line with every kernel's launches on the main path (the sum
-   of the windows of phases 3-11 and 13), its error against its plain
+   largest value, f32 within 1e-4.  Every serving cell also holds step
+   t's logits across step t+1 (a decode step returns a copy).
+14. LM training (``repro_torch.train``, ``repro_torch.launch.train``; its
+   launch-count window must read 0 too): (a) qwen3-1.7b at full width and
+   depth, remat on, weights drawn on the card from a seeded
+   ``torch.Generator``, the reference's default ``AdamWConfig``, batch 8 x
+   seq 1024 from ``TokenPipeline``: step 1 eager (and the capture), then
+   20 timed replays (ms a step p50/p99 by CUDA events, tokens/s), a steady
+   step alone (0 synchronizing calls, none under the sync debug mode set
+   to raise; device busy time, idle share and top kernels by
+   ``torch.profiler``), the graph's private pool, the peak allocated
+   memory, every step's loss (finite), and the compute bound (model FLOPs
+   6*N*T plus attention over 989 TFLOP/s bf16) and the share of it
+   reached.  (b) qwen3-1.7b at full width with 2 layers: four captured
+   steps against four eager steps from one state, losses, parameters and
+   moments bit for bit.  (c) every SMOKE configuration and its f32
+   variant, the loss and gradients on the card against the CPU (TF32
+   off; f32: loss 1e-5 relative, a gradient leaf 1e-4 of its largest
+   magnitude, or 3x the leaf's sensitivity to one ulp of the weights where
+   that is larger; bf16: 1e-3 and 5e-2) and three train steps' losses;
+   the f32 variant also run in f64 on both (every f32 op promoted): card
+   and CPU within 1e-10, and each one's f32 gradients held against that
+   f64 result.  (d)
+   ``launch.train.main`` at SMOKE with checkpoints under ``out/``, cut
+   after step 3's checkpoint and relaunched, ends bit for bit with the
+   uninterrupted run; a checkpoint restored into a live captured step
+   continues it bit for bit.
+15. One JSON line with every kernel's launches on the main path (the sum
+   of the windows of phases 3-11, 13 and 14), its error against its plain
    version, its times and its bound.  ``fused_trend`` has no caller on any
    path (nor in the reference), so its launches are 0; phase 2 holds it
    against its plain version.
-15. The last line: ``{"ok": true, "device": {...}}``.
+16. The last line: ``{"ok": true, "device": {...}}``.
+
+Every phase prints its wall seconds and the card's SM clock, temperature
+and power draw after it (``nvidia-smi``).
 
 Without a CUDA device it exits with code 2 before printing any result.
 """
@@ -220,6 +249,31 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
+
+
+def card_state() -> str:
+    """The card's SM clock, temperature and power draw now."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,temperature.gpu,power.draw",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    sm, temp, draw = (v.strip() for v in
+                      res.stdout.strip().splitlines()[0].split(","))
+    return f"sm clock {sm}, {temp} C, drawing {draw}"
+
+
+PHASE_SECONDS: dict = {}
+
+
+def phase(name: str, fn, *args):
+    """Run one phase, print its wall seconds and the card's state after
+    it, and keep the seconds for the detail file."""
+    t0 = time.perf_counter()
+    res = fn(*args)
+    dt = time.perf_counter() - t0
+    PHASE_SECONDS[name] = dt
+    log(f"phase {name}: {dt:.1f} s ({card_state()})")
+    return res
 
 
 def cuda_ms(fn, reps: int = 7, inner: int = 10) -> float:
@@ -2816,7 +2870,9 @@ def lm_serve_cell(label: str, model, params, batch: int, prompt: int,
                   gen: int, n_req: int, seed: int, frames=None) -> dict:
     """Requests drawn from ``seed`` served through ``serve_waves``: one
     wave first (it captures the decode graph), then the timed run over
-    all of them with the same steps; then a steady decode step alone: its
+    all of them with the same steps; then, after a fresh prefill, step t's
+    logits held across step t+1 (they must not change), and a steady
+    decode step alone at position ``prompt + gen // 2``: its
     synchronizing calls (0, and none under the sync debug mode set to
     raise), its host time and its device busy time and idle share."""
     import torch
@@ -2843,11 +2899,28 @@ def lm_serve_cell(label: str, model, params, batch: int, prompt: int,
     if len(decode_fn.graphs) != 1:
         raise AssertionError(f"{label}: {len(decode_fn.graphs)} decode "
                              "graphs for one (batch, max_len)")
-    caches = prefill_fn.caches[(batch, prompt + gen)]
-    rest = ((encdec.forward_encoder(params, cfg, frames),)
-            if cfg.family == "encdec" else ())
+    prompt_toks = torch.from_numpy(np.stack(reqs[:batch]).astype(
+        np.int32)).to(dev)
+    if cfg.family == "encdec":
+        _, caches, enc = prefill_fn(params, prompt_toks, frames,
+                                    max_len=prompt + gen)
+        rest = (enc,)
+    else:
+        _, caches = prefill_fn(params, prompt_toks, max_len=prompt + gen)
+        rest = ()
     tok = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
-    pos = torch.full((), prompt + gen // 2, dtype=torch.int32, device=dev)
+    pos = torch.full((), prompt, dtype=torch.int32, device=dev)
+    # C13: logits held from step t are not rewritten by step t+1
+    held, _ = decode_fn(params, caches, tok, pos, *rest)
+    copy = held.clone()
+    pos.add_(1)
+    nxt, _ = decode_fn(params, caches, tok, pos, *rest)
+    if not torch.equal(held, copy) or torch.equal(held, nxt):
+        raise AssertionError(f"{label}: step t's logits changed at t+1")
+    if len(decode_fn.graphs) != 1:
+        raise AssertionError(f"{label}: the fresh prefill's caches took a "
+                             "second decode graph")
+    pos.fill_(prompt + gen // 2)    # the steady step is timed mid-answer
 
     def step():
         lg, _ = decode_fn(params, caches, tok, pos, *rest)
@@ -2872,6 +2945,7 @@ def lm_serve_cell(label: str, model, params, batch: int, prompt: int,
     dec = np.asarray(stats["decode_ms"])
     bound_bytes, bound = lm_decode_bound_ms(params, caches)
     row = {"tokens_per_s": n_req * gen / wall, "wall_s": wall,
+           "held_logits_kept": True,
            "prefill_ms": stats["prefill_ms"],
            "decode_p50_ms": float(np.median(dec)),
            "decode_p99_ms": float(np.quantile(dec, 0.99)),
@@ -2885,7 +2959,8 @@ def lm_serve_cell(label: str, model, params, batch: int, prompt: int,
         f"; decode ms/step p50 {row['decode_p50_ms']:.4f} p99 "
         f"{row['decode_p99_ms']:.4f} (steady step {row['step_ms']:.4f}, "
         f"device {_ms(row['device_ms'])}, idle {row['idle_share']}); "
-        f"syncs/step {syncs:g}; bound {bound:.4f} ms ({bound_bytes} bytes: "
+        f"syncs/step {syncs:g}; step t's logits kept across step t+1; bound "
+        f"{bound:.4f} ms ({bound_bytes} bytes: "
         f"weights + caches read once); top kernels " + ", ".join(
             f"{k} {v:.3f}" for k, v in row["top"]))
     return row
@@ -3081,6 +3156,452 @@ def run_lm(dev, main_launches: dict) -> dict:
     return res
 
 # ---------------------------------------------------------------------------
+# phase 14: LM training (repro_torch.train, repro_torch.launch.train)
+# ---------------------------------------------------------------------------
+
+TRAIN_SEED = 21
+BF16_OPS_PER_S = 989e12    # H100 SXM dense bf16 (tensor cores)
+# 14(a): qwen3-1.7b at full width and depth, remat on
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen3-1.7b", 8, 1024, 20
+TRAIN_F32_LOSS, TRAIN_F32_GRAD = 1e-5, 1e-4    # as the CPU tests
+TRAIN_BF16_LOSS, TRAIN_BF16_GRAD = 1e-3, 5e-2
+# 14(c): an f32 leaf's bound is at least TRAIN_KAPPA_X times its sensitivity
+# (the largest move of TRAIN_KAPPA_DRAWS one-ulp weight perturbations); the
+# f64 witness's bound on card against CPU
+TRAIN_KAPPA_X, TRAIN_KAPPA_DRAWS, TRAIN_F64 = 3, 8, 1e-10
+
+
+def train_flops(cfg, n_params: int, B: int, S: int) -> tuple:
+    """(model FLOPs of one train step, its attention part): 6 * N * T for
+    the parameters' products (forward and backward; N counts the tied
+    unembedding once, as it is one product) plus the attention scores and
+    their weighted sum, 4 * hd FLOPs a (query, key) pair a head forward,
+    3x with the backward.  A causal layer needs the pairs at or before
+    each query (within the window for a local layer): that is the
+    function's work, though the port forms every score.  Remat's
+    recomputed forward is not model work and is not counted."""
+    def pairs(kind):
+        if kind == "local":
+            return sum(min(i + 1, cfg.window) for i in range(S))
+        return S * (S + 1) // 2
+    kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+    attn = sum(3 * 4 * B * pairs(k) * cfg.n_heads * cfg.hd
+               for k in kinds if k in ("global", "local"))
+    return 6 * n_params * B * S + attn, attn
+
+
+def _pool_bytes() -> int:
+    """Bytes reserved by CUDA-graph private memory pools."""
+    import torch
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def lm_train_full(dev) -> dict:
+    """14(a): qwen3-1.7b at full width and depth through ``make_train_step``
+    and ``TokenPipeline``: step 1 eager (and the capture), then
+    ``TRAIN_STEPS`` timed replays (CUDA events), then a steady step alone:
+    its synchronizing calls, its device busy time (``torch.profiler``), the
+    graph pool and the peak memory; every step's loss must be finite."""
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train import init_opt_state, make_train_step
+    model = _lm_model(TRAIN_ARCH, {}, dev)
+    cfg = model.cfg
+    params = model.init(torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+    opt = init_opt_state(params)
+    step_fn = make_train_step(model)
+    pipe = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=TRAIN_SEED,
+                         device=dev)
+    n_params = model.param_count(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, _, m = step_fn(params, opt, pipe.next())
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    losses = [m["loss"]]
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(TRAIN_STEPS + 1)]
+    marks[0].record()
+    for i in range(TRAIN_STEPS):
+        _, _, m = step_fn(params, opt, pipe.next())
+        marks[i + 1].record()
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    ms = np.asarray([marks[i].elapsed_time(marks[i + 1])
+                     for i in range(TRAIN_STEPS)])
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"14(a): a non-finite loss: {losses}")
+
+    def step():
+        step_fn(params, opt, pipe.next())
+
+    syncs = count_syncs(lambda: [step() for _ in range(3)]) / 3
+    if syncs:
+        raise AssertionError(f"14(a): {syncs} syncs per train step")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t1) / 3
+    prof = device_profile(step, step_s)
+    flops, attn = train_flops(cfg, n_params, TRAIN_BATCH, TRAIN_SEQ)
+    bound = flops / BF16_OPS_PER_S * 1e3
+    p50 = float(np.median(ms))
+    row = {"params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "first_step_s": first_s, "p50_ms": p50,
+           "p99_ms": float(np.quantile(ms, 0.99)),
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3),
+           "losses": losses, "syncs_per_step": syncs, "step_ms": step_s * 1e3,
+           "device_ms": prof["device_ms"], "idle_share": prof["idle_share"],
+           "top": prof["top"], "pool_bytes": _pool_bytes(),
+           "max_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "flops": flops, "attn_flops": attn, "bound_ms": bound,
+           "bound_share": bound / p50}
+    log(f"  14(a) {cfg.name} full ({cfg.n_layers} layers, {n_params} "
+        f"parameters, remat on), batch {TRAIN_BATCH} x seq {TRAIN_SEQ}: "
+        f"step 1 (eager + capture) {first_s:.2f} s; {TRAIN_STEPS} replays "
+        f"ms/step p50 {p50:.3f} p99 {row['p99_ms']:.3f}; "
+        f"{row['tokens_per_s']:.0f} tokens/s; steady step "
+        f"{row['step_ms']:.3f} ms, device {_ms(row['device_ms'])}, idle "
+        f"{row['idle_share']}; syncs/step {syncs:g}; graph pool "
+        f"{row['pool_bytes'] / 2**30:.2f} GiB, max allocated "
+        f"{row['max_allocated_bytes'] / 2**30:.2f} GiB; top kernels "
+        + ", ".join(f"{k} {v:.3f}" for k, v in row["top"]))
+    log(f"  14(a) compute bound: {flops:.4e} model FLOPs a step (6*N*T "
+        f"{6 * n_params * TRAIN_BATCH * TRAIN_SEQ:.4e} + attention "
+        f"{attn:.4e}, causal pairs only) over {BF16_OPS_PER_S:.3e} bf16 "
+        f"FLOP/s = {bound:.3f} ms; share reached {row['bound_share']:.3f} "
+        "(remat's recomputed forward, about a third more, and the masked "
+        "half of the scores the port forms are work above the model "
+        "FLOPs)")
+    log("  14(a) losses: " + " ".join(f"{x:.4f}" for x in losses))
+    return row
+
+
+def _train_state(params, opt) -> list:
+    return ([p.detach() for p in params.parameters()]
+            + list(opt["m"].values()) + list(opt["v"].values())
+            + [opt["step"]])
+
+
+def lm_train_captured_eager(dev) -> dict:
+    """14(b): qwen3-1.7b at full width, 2 layers: from one seeded state,
+    four eager steps against the captured step (an eager first step and
+    its capture, then three replays); losses, parameters and moments
+    compared bit for bit."""
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train import init_opt_state, make_train_step
+    runs = []
+    for _ in range(2):
+        model = _lm_model(TRAIN_ARCH, {"n_layers": 2}, dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(
+            TRAIN_SEED))
+        runs.append((model, params, init_opt_state(params),
+                     TokenPipeline(model.cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                   seed=TRAIN_SEED, device=dev)))
+    (me, pe, oe, de), (mg, pg, og, dg) = runs
+    eager, captured = make_train_step(me), make_train_step(mg)
+    le, lg = [], []
+    for _ in range(4):
+        le.append(eager.eager(pe, oe, de.next())[2]["loss"])
+        lg.append(captured(pg, og, dg.next())[2]["loss"])
+    torch.cuda.synchronize()
+    loss_d = max(abs(float(a) - float(b)) for a, b in zip(le, lg))
+    state_d = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(_train_state(pe, oe), _train_state(pg, og)))
+    equal = loss_d == 0 and state_d == 0
+    log(f"  14(b) {TRAIN_ARCH} 2 layers, 4 steps: captured against eager "
+        f"{'bit for bit' if equal else 'DIFFER'} (largest loss difference "
+        f"{loss_d:.3e}, parameter/moment difference {state_d:.3e}); "
+        f"losses {' '.join(f'{float(x):.6f}' for x in lg)}")
+    if not equal:
+        raise AssertionError("14(b): captured and eager train steps differ")
+    return {"loss_diff": loss_d, "state_diff": state_d,
+            "losses": [float(x) for x in lg]}
+
+
+def _train_grads(model, params, batch) -> tuple:
+    """(loss, gradients on the CPU, in their own dtype)."""
+    from repro_torch.train import value_and_grad
+    loss, grads = value_and_grad(model, params, batch)
+    return float(loss), {k: g.detach().cpu() for k, g in grads.items()}
+
+
+def _grad_sensitivity(model, params, batch, grads) -> dict:
+    """Per gradient leaf, on the CPU: how far a seeded perturbation of every
+    weight by one f32 ulp (relative ``EPS32``, normal) moves it, over the
+    leaf's largest magnitude; the largest over ``TRAIN_KAPPA_DRAWS`` such
+    perturbations.  Two devices that round differently move an
+    ill-conditioned gradient about this far."""
+    import copy
+    import torch
+    kappa = {k: 0.0 for k in grads}
+    for seed in range(TRAIN_SEED, TRAIN_SEED + TRAIN_KAPPA_DRAWS):
+        moved = copy.deepcopy(params)
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for t in moved.parameters():
+                t.mul_(1 + EPS32 * torch.randn(t.shape, generator=gen))
+        _, g2 = _train_grads(model, moved, batch)
+        for k, w in grads.items():
+            kappa[k] = max(kappa[k], _rel(g2[k], w))
+    return kappa
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over max |want|, in f64."""
+    want = want.double()
+    return (float((got.double() - want).abs().max())
+            / (float(want.abs().max()) + 1e-300))
+
+
+def _f64_grads(model, params, batch) -> tuple:
+    """``_train_grads`` with every f32 operation of the step run in f64: the
+    f32 parameters are promoted, the default dtype is f64, and a dispatch
+    mode turns each f32 dtype argument and f32 tensor argument into f64 and
+    refuses an op that would still write or yield f32."""
+    import copy
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten, tree_map
+
+    def up(x):
+        if x is torch.float32:
+            return torch.float64
+        if torch.is_tensor(x) and x.dtype == torch.float32:
+            return x.double()
+        return x
+
+    def f32(tree):
+        return any(torch.is_tensor(t) and t.dtype == torch.float32
+                   for t in tree_flatten(tree)[0])
+
+    class F64(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func._schema.is_mutable and f32((args, kwargs)):
+                raise RuntimeError(f"f64 witness: {func} writes f32")
+            out = func(*tree_map(up, args), **tree_map(up, kwargs))
+            if f32(out):
+                raise RuntimeError(f"f64 witness: {func} yields f32")
+            return out
+
+    wide = copy.deepcopy(params)
+    for t in wide.parameters():
+        t.data = t.data.double()
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)    # factories given no dtype
+    try:
+        with F64():
+            return _train_grads(model, wide, batch)
+    finally:
+        torch.set_default_dtype(default)
+
+
+def lm_train_card_cpu(dev) -> dict:
+    """14(c): every SMOKE configuration, in its dtype and at f32, one train
+    step on the card and on the CPU with the same weights and batch
+    (TF32 off): the loss and every gradient within the CPU tests' bounds
+    (f32: loss 1e-5 relative, a gradient leaf 1e-4 of its largest
+    magnitude; bf16: 1e-3 and 5e-2), an f32 leaf's bound raised to
+    ``TRAIN_KAPPA_X`` times its measured sensitivity to one ulp of the
+    weights where that is larger (``_grad_sensitivity``: rwkv6's f32
+    gradients move up to about 3e-4 under it), then the step itself (eager,
+    its capture and one replay on the card) and its losses.  The f32
+    variant runs in f64 on both as well (``_f64_grads``): card and CPU
+    within ``TRAIN_F64`` of each other, and each one's f32 gradients within
+    their bound of that f64 result; the largest f32 error against f64, in
+    units of the sensitivity, is printed for each."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.train import init_opt_state, make_train_step
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, f64_read = {}, {}
+    try:
+        for arch, (_, smoke) in sorted(registry().items()):
+            for label, cfg in ((arch, smoke), (f"{arch} f32",
+                               dataclasses.replace(smoke, dtype="float32",
+                                                   param_dtype="float32"))):
+                f32 = cfg.dtype == "float32"
+                tl, tg = ((TRAIN_F32_LOSS, TRAIN_F32_GRAD) if f32 else
+                          (TRAIN_BF16_LOSS, TRAIN_BF16_GRAD))
+                cpu = build_model(cfg, device="cpu")
+                card = build_model(cfg, device=dev)
+                p_cpu = cpu.init(torch.Generator().manual_seed(TRAIN_SEED))
+                p_card = copy.deepcopy(p_cpu).to(dev)
+                batches = [TokenPipeline(cfg, 2, 16, seed=TRAIN_SEED,
+                                         device=d) for d in ("cpu", dev)]
+                b_cpu, b_card = (bp.next() for bp in batches)
+                l_cpu, g_cpu = _train_grads(cpu, p_cpu, b_cpu)
+                l_card, g_card = _train_grads(card, p_card, b_card)
+                kappa = (_grad_sensitivity(cpu, p_cpu, b_cpu, g_cpu) if f32
+                         else dict.fromkeys(g_cpu, 0.0))
+                bound = {k: max(tg, TRAIN_KAPPA_X * c)
+                         for k, c in kappa.items()}
+                parts = {"loss": abs(l_card - l_cpu) / (tl * abs(l_cpu))}
+                for k, w in g_cpu.items():
+                    parts[k] = _rel(g_card[k], w) / bound[k]
+                if f32:
+                    l64, g64 = _f64_grads(cpu, p_cpu, b_cpu)
+                    l64_card, g64_card = _f64_grads(card, p_card, b_card)
+                    wide = max([abs(l64_card - l64) / abs(l64)]
+                               + [_rel(g64_card[k], w)
+                                  for k, w in g64.items()])
+                    parts["f64 card against CPU"] = wide / TRAIN_F64
+                    units = {}
+                    for side, g in (("card", g_card), ("cpu", g_cpu)):
+                        rel = {k: _rel(g[k], w) for k, w in g64.items()}
+                        for k, e in rel.items():
+                            parts[f"{side} f32 against f64 {k}"] = (
+                                e / bound[k])
+                        units[side] = max(rel[k] / kappa[k] for k in rel)
+                    f64_read[label] = (wide, units["card"], units["cpu"])
+                steps = []
+                for model, params, bp, b0 in ((cpu, p_cpu, batches[0], b_cpu),
+                                              (card, p_card, batches[1],
+                                               b_card)):
+                    fn, opt = make_train_step(model), init_opt_state(params)
+                    steps.append([float(fn(params, opt, b)[2]["loss"])
+                                  for b in (b0, bp.next(), bp.next())])
+                # later steps: after AdamW's first update (about sign(g)
+                # times the learning rate) held as a gradient leaf is
+                for i, (a, b) in enumerate(zip(*steps)):
+                    parts[f"step {i + 1} loss"] = abs(a - b) / (tg * abs(b))
+                what = max(parts, key=parts.get)
+                out[label] = (parts[what], what, max(kappa.values()))
+                if not parts[what] <= 1.0:
+                    raise AssertionError(f"14(c) {label}: card against CPU "
+                                         f"at {parts[what]:.3f} of the "
+                                         f"limit ({what})")
+        log("  14(c) train step, card against CPU, share of the limit "
+            "used (where; the largest gradient sensitivity): " + ", ".join(
+                f"{k} {v:.3f} ({w}; {c:.1e})" for k, (v, w, c) in out.items()))
+        log(f"  14(c) f64 witness (limit {TRAIN_F64}), card against CPU; "
+            "then the largest f32 gradient error against f64 over the "
+            "leaf's sensitivity, card and CPU: " + ", ".join(
+                f"{k} {w:.2e}; {a:.2f} {b:.2f}"
+                for k, (w, a, b) in f64_read.items()))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return {"share": out, "f64": f64_read}
+
+
+def lm_train_resume(dev) -> dict:
+    """14(d): ``launch.train.main`` on the card at SMOKE (6 steps, a
+    checkpoint every 3, under ``out/``): a run cut after step 3's
+    checkpoint (the later one removed, the pointer back at 3) and
+    relaunched ends with the uninterrupted run's loss and state, bit for
+    bit; then, in one process, a checkpoint restored into the live
+    tensors of a captured step continues it bit for bit."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import init_opt_state, make_train_step
+    root = Path("out/train_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    args = ["--arch", TRAIN_ARCH, "--smoke", "--steps", "6", "--batch", "2",
+            "--seq", "16", "--ckpt-every", "3", "--log-every", "3"]
+    full = launch_train.main(args + ["--ckpt-dir", str(root / "a")])
+    launch_train.main(args + ["--ckpt-dir", str(root / "b")])
+    shutil.rmtree(root / "b" / "step_6")
+    (root / "b" / "latest").write_text("3")
+    resumed = launch_train.main(args + ["--ckpt-dir", str(root / "b")])
+    a, _ = ck.restore(str(root / "a"), device="cpu")
+    b, _ = ck.restore(str(root / "b"), device="cpu")
+    fa, fb = ck._flatten(a), ck._flatten(b)
+    same = resumed == full and all(torch.equal(fa[k], fb[k]) for k in fa)
+    log(f"  14(d) launch.train cut at step 3 and relaunched: loss "
+        f"{resumed!r} against {full!r} uninterrupted; state "
+        f"{'bit for bit' if same else 'DIFFERS'}")
+    if not same:
+        raise AssertionError("14(d): the resumed run differs")
+
+    cfg = get_config(TRAIN_ARCH, smoke=True)
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+    opt = init_opt_state(params)
+    pipe = TokenPipeline(cfg, 2, 16, seed=TRAIN_SEED, device=dev)
+    step_fn = make_train_step(model)
+    live = {"params": dict(params.named_parameters()), "opt": opt}
+    losses = []
+    for i in range(6):
+        losses.append(step_fn(params, opt, pipe.next())[2]["loss"])
+        if i == 2:
+            ck.save(str(root / "live"), 3, live,
+                    extra={"pipeline": pipe.state()})
+    end = [t.clone() for t in _train_state(params, opt)]
+    _, manifest = ck.restore(str(root / "live"), into=live)
+    pipe.restore(manifest["extra"]["pipeline"])
+    again = [step_fn(params, opt, pipe.next())[2]["loss"] for _ in range(3)]
+    cont = (step_fn.captures == 1
+            and all(torch.equal(x, y) for x, y in zip(again, losses[3:]))
+            and all(torch.equal(x, y)
+                    for x, y in zip(_train_state(params, opt), end)))
+    log(f"  14(d) a checkpoint restored into a live captured step: steps "
+        f"4-6 replayed again {'bit for bit' if cont else 'DIFFER'} (losses "
+        + " ".join(f"{float(x):.6f}" for x in again) + ")")
+    if not cont:
+        raise AssertionError("14(d): the restored captured step differs")
+    return {"loss": full, "resumed": resumed, "continued": cont}
+
+
+def run_train(dev, main_launches: dict) -> dict:
+    """Phase 14: LM training.  No kernel of the TiLT path lies on it: its
+    launch-count window must read 0 for every kernel."""
+    import gc
+    import torch
+    t0 = time.perf_counter()
+    res = {}
+
+    parts = {}
+
+    def part(name, fn):
+        t1 = time.perf_counter()
+        res[name] = fn(dev)
+        parts[name] = time.perf_counter() - t1
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def go():
+        part("full", lm_train_full)
+        part("captured_eager", lm_train_captured_eager)
+        part("resume", lm_train_resume)
+
+    drive(main_launches, go)
+    if any(main_launches.values()):
+        raise AssertionError(f"a TiLT kernel launched on the training "
+                             f"path: {main_launches}")
+    part("smoke", lm_train_card_cpu)
+    res["seconds"] = time.perf_counter() - t0
+    res["part_seconds"] = parts
+    log(f"LM training phase: {res['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in parts.items()) + ")")
+    return res
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "prefix_scan": ("src/repro_torch/kernels/csrc/window_reduce.cu",
@@ -3107,44 +3628,54 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     log(card)
+    log(f"card at start: {card_state()}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    library.load()
-    log(f"kernels built in {library.build_seconds:.2f} s (load "
-        f"{time.perf_counter() - t0:.2f} s): {library.path.name}")
-    for line in library.build_log.splitlines():
-        if "registers" in line:
-            log("  " + line.strip())
+    def build():
+        t0 = time.perf_counter()
+        library.load()
+        log(f"kernels built in {library.build_seconds:.2f} s (load "
+            f"{time.perf_counter() - t0:.2f} s): {library.path.name}")
+        for line in library.build_log.splitlines():
+            if "registers" in line:
+                log("  " + line.strip())
 
-    errs, rows = check_kernels(dev)
-    check_change_kernels(dev, errs, rows)
+    phase("1 build", build)
+
+    def kernels():
+        errs, rows = check_kernels(dev)
+        check_change_kernels(dev, errs, rows)
+        return errs, rows
+
+    errs, rows = phase("2 kernels", kernels)
 
     single, keyed_launches, runner_launches, one_shot_launches = {}, {}, {}, {}
-    apps = run_apps(dev, single, N_TICKS, PART, N_CMP_PARTS)
+    apps = phase("3 apps", run_apps, dev, single, N_TICKS, PART, N_CMP_PARTS)
     for k in wr.launches:
         if single.get(k, 0) == 0:
             raise AssertionError(f"{k} was never launched on the main path")
-    keyed = run_keyed(dev, keyed_launches, KEYS, KEY_TICKS, CMP_KEYS)
-    runners = run_runners(dev, runner_launches)
-    one_shot = run_one_shot(dev, one_shot_launches)
-    time_runner_shapes(dev, errs, rows, runners)
+    keyed = phase("4 keyed", run_keyed, dev, keyed_launches, KEYS,
+                  KEY_TICKS, CMP_KEYS)
+    runners = phase("5-6 runner", run_runners, dev, runner_launches)
+    one_shot = phase("7 sparse_run", run_one_shot, dev, one_shot_launches)
+    phase("2 runner shapes", time_runner_shapes, dev, errs, rows, runners)
     session_launches, ingest_launches = {}, {}
-    sessions = run_sessions(dev, session_launches)
-    ingest = run_ingest(dev, ingest_launches)
+    sessions = phase("8 sessions", run_sessions, dev, session_launches)
+    ingest = phase("9 ingest", run_ingest, dev, ingest_launches)
     serve_launches, mesh_launches = {}, {}
-    serving = run_serving(dev, serve_launches, errs)
-    mesh = run_mesh(dev, mesh_launches, errs)
-    audit = run_audit(dev, errs)
+    serving = phase("10 serving", run_serving, dev, serve_launches, errs)
+    mesh = phase("11 mesh", run_mesh, dev, mesh_launches, errs)
+    audit = phase("12 audit", run_audit, dev, errs)
     import torch.distributed as dist
     dist.destroy_process_group()
-    lm_launches = {}
-    lm = run_lm(dev, lm_launches)
+    lm_launches, train_launches = {}, {}
+    lm = phase("13 LM serving", run_lm, dev, lm_launches)
+    train = phase("14 LM training", run_train, dev, train_launches)
     windows = {"partition_run": single, "batch_run": keyed_launches,
                "runner": runner_launches, "sparse_run": one_shot_launches,
                "session": session_launches, "ingest": ingest_launches,
                "serve": serve_launches, "mesh": mesh_launches,
-               "lm": lm_launches}
+               "lm": lm_launches, "train": train_launches}
     launches = {k: sum(w.get(k, 0) for w in windows.values())
                 for k in KERNELS}
     for k in ("seg_dirty",):
@@ -3166,7 +3697,8 @@ def main() -> int:
     detail = {"card": card, "apps": apps, "keyed": keyed,
               "runner": runners, "sparse_run": one_shot,
               "session": sessions, "ingest": ingest, "serve": serving,
-              "mesh": mesh, "audit": audit, "lm": lm,
+              "mesh": mesh, "audit": audit, "lm": lm, "train": train,
+              "phase_seconds": PHASE_SECONDS,
               "kernels": {f"{k}/{lab}": v for (k, lab), v in rows.items()},
               "launches": dict(windows, total=launches)}
     Path("out/chip_smoke.json").write_text(json.dumps(detail,
@@ -3181,7 +3713,10 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in PHASE_SECONDS.items()))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all; card "
+        f"at the end: {card_state()}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -21,8 +21,11 @@ Nothing here imports the reference package: callers pass its arrays.
 The LM stack's weights carry over too: :func:`lm_params_from_numpy` turns
 the reference's ``model.init(...)[0]`` pytree (numpy arrays) into the
 port's parameter module, unstacking the scanned superblocks and encdec's
-layer stacks, and :func:`lm_cache_to_numpy` gives the port's caches back
-in the reference's layout, leaf by leaf.
+layer stacks, and :func:`lm_params_to_numpy` restacks a module, or a dict
+of gradients by parameter name, into the reference's tree.
+:func:`opt_state_from_numpy` and :func:`opt_state_to_numpy` do the same
+for AdamW's ``{m, v, step}``, and :func:`lm_cache_to_numpy` gives the
+port's caches back in the reference's layout, leaf by leaf.
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ from .core.stream import SnapshotGrid
 from .device import resolve
 
 __all__ = ["to_grid", "to_numpy", "state_from_numpy", "state_to_numpy",
-           "lm_params_from_numpy", "lm_cache_to_numpy"]
+           "lm_params_from_numpy", "lm_params_to_numpy",
+           "opt_state_from_numpy", "opt_state_to_numpy", "lm_cache_to_numpy"]
 
 
 def to_grid(value, valid, t0: int, prec: int, device=None) -> SnapshotGrid:
@@ -94,6 +98,76 @@ def _tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _tree(v, fn) for k, v in tree.items()}
     return fn(tree)
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _from_ref(cfg, named: dict, tree) -> None:
+    """Copy each leaf of the reference-layout ``tree`` into the port's
+    tensor of the same place (``named``: name -> tensor), in place."""
+    from .models.model import ref_location
+    for n, t in named.items():
+        path, i = ref_location(cfg, n)
+        a = _leaf(tree, path)
+        src = _tensor(a if i is None else a[i], "cpu")
+        if src.shape != t.shape or src.dtype != t.dtype:
+            raise ValueError(f"{n}: {tuple(src.shape)} {src.dtype} for "
+                             f"{tuple(t.shape)} {t.dtype}")
+        with torch.no_grad():
+            t.copy_(src)
+
+
+def _to_ref(cfg, named: dict) -> dict:
+    """The port's tensors (``named``: name -> tensor) as the reference's
+    tree of numpy arrays, stacked layers restacked; float leaves as float32
+    (exact for bf16 and f8)."""
+    from .models.model import ref_location
+    flat: dict = {}
+    for n, t in named.items():
+        path, i = ref_location(cfg, n)
+        t = t.detach()
+        a = (t.float() if t.is_floating_point() else t).cpu().numpy().copy()
+        flat.setdefault(path, {})[i] = a
+    out: dict = {}
+    for path, parts in flat.items():
+        a = (parts[None] if None in parts
+             else np.stack([parts[i] for i in sorted(parts)]))
+        d = out
+        for k in path[:-1]:
+            d = d.setdefault(k, {})
+        d[path[-1]] = a
+    return out
+
+
+def lm_params_to_numpy(cfg, params) -> dict:
+    """The reference's parameter tree of ``cfg`` (nested dicts of numpy
+    arrays, float leaves as float32) from the port's parameter module, or
+    from a dict of tensors by parameter name (gradients, moments)."""
+    named = (params if isinstance(params, dict)
+             else dict(params.named_parameters()))
+    return _to_ref(cfg, named)
+
+
+def opt_state_to_numpy(cfg, state) -> dict:
+    """AdamW's state ``{m, v, step}`` in the reference's layout."""
+    return {"m": _to_ref(cfg, state["m"]), "v": _to_ref(cfg, state["v"]),
+            "step": state["step"].detach().cpu().numpy().copy()}
+
+
+def opt_state_from_numpy(cfg, state, into: dict) -> dict:
+    """Write the reference's AdamW state ``{m, v, step}`` (numpy or jax
+    arrays) into the port's state ``into`` (as
+    ``optimizer.init_opt_state(params)`` makes it), in place; returns
+    ``into``."""
+    _from_ref(cfg, into["m"], state["m"])
+    _from_ref(cfg, into["v"], state["v"])
+    with torch.no_grad():
+        into["step"].copy_(_tensor(state["step"], "cpu").reshape(()))
+    return into
 
 
 def lm_params_from_numpy(cfg, params, device=None):

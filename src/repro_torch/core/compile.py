@@ -24,10 +24,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils._pytree import tree_map
 
 from . import fusion, ir
@@ -51,6 +53,51 @@ def _const_dtype(c) -> torch.dtype:
         return torch.float32
     dt = torch.as_tensor(c).dtype
     return {torch.float64: torch.float32, torch.int64: torch.int32}.get(dt, dt)
+
+
+# ---------------------------------------------------------------------------
+# user functions: subnormal constants flushed
+# ---------------------------------------------------------------------------
+
+def _flush(a, dtype: torch.dtype):
+    """``a`` (an argument of a torch call) with a subnormal value of
+    ``dtype`` replaced by a zero of its sign: a Python float on the host
+    (as it rounds to f32), a 0-d floating tensor on its device (no host
+    read)."""
+    tiny = torch.finfo(dtype).tiny
+    if isinstance(a, float):
+        if abs(a) < 2 * tiny and abs(float(np.float32(a))) < tiny:
+            return math.copysign(0.0, a)
+        return a
+    if torch.is_tensor(a) and a.dim() == 0 and a.is_floating_point():
+        return torch.where(a.abs() < torch.finfo(a.dtype).tiny, a * 0, a)
+    return a
+
+
+class _FlushSubnormal(TorchFunctionMode):
+    """Around a user function (``Map``'s and ``Where``'s): the constants it
+    hands to torch calls on floating tensors are flushed to zero where they
+    are subnormal in that tensor's dtype, as both reference backends do
+    (XLA's CPU backend flushes a subnormal constant, and the TPU has no
+    subnormals).  A constant meeting an integer tensor is kept, as the
+    reference keeps it.  Subnormal *results* are not flushed, where both
+    reference backends flush them (the port's contract in README.md)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        dt = next((a.dtype for a in (*args, *kwargs.values())
+                   if torch.is_tensor(a) and a.dim() > 0
+                   and a.is_floating_point()), None)
+        if dt is not None:
+            args = tuple(_flush(a, dt) for a in args)
+            kwargs = {k: _flush(v, dt) for k, v in kwargs.items()}
+        return func(*args, **kwargs)
+
+
+def _user(fn, *args):
+    """``fn(*args)`` with its subnormal constants flushed."""
+    with _FlushSubnormal():
+        return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -78,12 +125,12 @@ def _eval_op(n: ir.Node, qp: QueryPlan, sum_algo: str, device: torch.device,
             vs.append(av)
             oks.append(aok)
         if n.phi_aware:
-            return n.fn(*zip(vs, oks))
-        return n.fn(*vs), functools.reduce(torch.logical_and, oks)
+            return _user(n.fn, *zip(vs, oks))
+        return _user(n.fn, *vs), functools.reduce(torch.logical_and, oks)
     if isinstance(n, ir.Where):
         ((av, aok),) = args
         av, aok = qp.align(n.args[0], n).apply(av, aok)
-        return av, aok & n.pred(av)
+        return av, aok & _user(n.pred, av)
     if isinstance(n, ir.Shift):
         ((av, aok),) = args
         return qp.align(n.args[0], n, delta=n.delta).apply(av, aok)

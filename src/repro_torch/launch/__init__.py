@@ -1,2 +1,2 @@
-"""Device meshes for the multi-device execution paths (port of
-``repro.launch``'s mesh module)."""
+"""Entry points (port of ``repro.launch``): device meshes, the LM
+serving loop and the LM training loop."""

@@ -1,4 +1,4 @@
-"""The LM stack (port of ``repro.models``, serving half): ``layers``,
+"""The LM stack (port of ``repro.models``): ``layers``,
 ``recurrent``, ``transformer``, ``encdec`` and the ``model`` façade.  No
 module here reaches a kernel of the reference: attention, the recurrences
 and the MoE are plain tensor ops, and every large product is a

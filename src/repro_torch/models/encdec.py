@@ -1,12 +1,15 @@
-"""Whisper-style encoder-decoder backbone (port of ``repro.models.encdec``,
-serving half).
+"""Whisper-style encoder-decoder backbone (port of
+``repro.models.encdec``).
 
 As in the reference, the conv/mel frontend is a stub: the caller supplies
 precomputed audio-frame embeddings (B, enc_seq, D) and the encoder adds
 sinusoidal positions.  The decoder is a causal self-attention (RoPE) +
 cross-attention stack.  The reference's stacked ``enc``/``dec`` parameter
 trees are lists of layer modules here; its stacked ``dec`` cache is a list
-of per-layer ``KVCache`` written in place.
+of per-layer ``KVCache`` written in place.  In training (gradients on,
+``cfg.remat``) every encoder layer, and every decoder layer run without
+caches, is recomputed in the backward pass, as the reference's
+``jax.checkpoint`` of its scan bodies.
 """
 from __future__ import annotations
 
@@ -18,10 +21,10 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from . import layers as L
-from .transformer import positions, reset_cache
+from .transformer import cross_entropy, positions, remat, reset_cache
 
 __all__ = ["EncDec", "init", "forward_encoder", "init_cache", "decode_step",
-           "prefill"]
+           "prefill", "train_loss"]
 
 
 def _init_enc_block(gen, cfg, device) -> dict:
@@ -92,11 +95,16 @@ def forward_encoder(params, cfg: ModelConfig, frames):
     dt = L.dtype_of(cfg.dtype)
     x = frames.to(dt) + _sinusoid(S, D, frames.device).to(dt)
     pos = positions(B, S, None, frames.device)
-    for ps in params["enc"]:
+
+    def body(x, ps):
         h = L.rms_norm(x, ps["ln1"])
         h, _ = L.attention(ps["attn"], h, cfg, "bidir", pos)
         x, h = L.add_norm(x, h, ps["ln2"])
-        x = x + L.mlp(ps["mlp"], h, cfg)
+        return x + L.mlp(ps["mlp"], h, cfg)
+
+    rematted = cfg.remat and torch.is_grad_enabled()
+    for ps in params["enc"]:
+        x = remat(body, x, ps) if rematted else body(x, ps)
     return L.rms_norm(x, params["ln_enc"])
 
 
@@ -107,19 +115,34 @@ def _decoder(params, cfg: ModelConfig, tokens, enc_out, caches=None,
     B, T = tokens.shape
     pos = positions(B, T, pos0, tokens.device)
     x = params["embed"][tokens.long()].to(L.dtype_of(cfg.dtype))
-    for li, ps in enumerate(params["dec"]):
-        st = caches[li] if caches is not None else None
+
+    def body(x, ps, st, enc_out):
         h = L.rms_norm(x, ps["ln1"])
         h, _ = L.attention(ps["attn"], h, cfg, "global", pos, cache=st)
         x, h = L.add_norm(x, h, ps["lnx"])
         h, _ = L.attention(ps["xattn"], h, cfg, "cross", pos, kv_x=enc_out)
         x, h = L.add_norm(x, h, ps["ln2"])
-        x = x + L.mlp(ps["mlp"], h, cfg)
+        return x + L.mlp(ps["mlp"], h, cfg)
+
+    rematted = cfg.remat and caches is None and torch.is_grad_enabled()
+    for li, ps in enumerate(params["dec"]):
+        if rematted:
+            x = remat(body, x, ps, None, enc_out)
+        else:
+            x = body(x, ps, caches[li] if caches is not None else None,
+                     enc_out)
     if last is not None:
         x = x[:, -last:]
     x = L.rms_norm(x, params["ln_f"])
     logits = torch.matmul(x, params["embed"].T.to(x.dtype)).float()
     return logits, caches
+
+
+def train_loss(params, cfg: ModelConfig, batch, aux_weight: float = 0.0):
+    """batch: frames (B,S_audio,D), tokens (B,S), labels (B,S)."""
+    enc = forward_encoder(params, cfg, batch["frames"])
+    logits, _ = _decoder(params, cfg, batch["tokens"], enc)
+    return cross_entropy(logits, batch["labels"])
 
 
 def init_cache(cfg: ModelConfig, B: int, S_max: int, device) -> list:

@@ -1,5 +1,5 @@
 """Decoder-only LM stack covering dense / MoE / Griffin / RWKV-6 families
-(port of ``repro.models.transformer``, serving half).
+(port of ``repro.models.transformer``).
 
 The reference compiles the stack as a ``lax.scan`` over superblocks (one
 pattern period each, parameters stacked) plus unrolled remainder layers.
@@ -12,7 +12,11 @@ superblock ``s``, or ``rest{i}``), so weights carry over
 Caches are a list with one entry per layer (a ``KVCache`` or a dict of
 state tensors), written in place by :func:`forward`: a prefill resets and
 fills them, a decode step writes one slot and advances each ``pos`` on the
-device.  ``train_loss`` is training and belongs to the training slice.
+device.
+
+``remat``: in training (no caches, gradients on) each layer runs under
+:func:`remat`, the counterpart of the reference's ``jax.checkpoint`` of its
+scan body: its activations are recomputed in the backward pass.
 
 Public surface (consumed by model.py / launch):
   init(gen, cfg, device)              -> LM module (the params)
@@ -20,12 +24,14 @@ Public surface (consumed by model.py / launch):
   init_cache(cfg, B, S_max, device)   -> caches
   prefill(params, cfg, tokens, max_len) -> (last logits, caches)
   decode_step(params, cfg, caches, tokens, pos) -> (logits, caches)
+  train_loss(params, cfg, batch)      -> scalar
 """
 from __future__ import annotations
 
 from typing import List, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..configs.base import ModelConfig
@@ -33,7 +39,7 @@ from . import layers as L
 from . import recurrent as R
 
 __all__ = ["Block", "LM", "init", "forward", "init_cache", "decode_step",
-           "prefill", "layer_paths"]
+           "prefill", "layer_paths", "train_loss", "remat"]
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +227,15 @@ def positions(B: int, T: int, pos0, device):
     return ar if pos0 is None else pos0 + ar
 
 
+def remat(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant).  The RNG state is not
+    saved: the model draws no random numbers, and reading the RNG state is
+    not allowed while a CUDA graph is being captured."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 def forward(params, cfg: ModelConfig, tokens, caches=None, pos0=None,
             last: Optional[int] = None):
     """Full forward.  tokens (B, T).  caches/pos0 given → decode/prefill
@@ -232,9 +247,14 @@ def forward(params, cfg: ModelConfig, tokens, caches=None, pos0=None,
     x, x32 = _embed(params, cfg, tokens)
     joined, joined_final = _joined(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    rematted = cfg.remat and caches is None and torch.is_grad_enabled()
     for li, blk in enumerate(params["blocks"]):
         st = caches[li] if caches is not None else None
-        x, x32, ns, aux = blk(x, pos, st, x32 if joined[li] else None)
+        xin = x32 if joined[li] else None
+        if rematted:
+            x, x32, ns, aux = remat(blk, x, pos, None, xin)
+        else:
+            x, x32, ns, aux = blk(x, pos, st, xin)
         if aux is not None:
             aux_total = aux_total + aux
         if st is not None:
@@ -243,6 +263,30 @@ def forward(params, cfg: ModelConfig, tokens, caches=None, pos0=None,
         x, x32 = x[:, -last:], x32[:, -last:]
     logits = _unembed(params, cfg, x, x32 if joined_final else None)
     return logits, caches, aux_total
+
+
+# ---------------------------------------------------------------------------
+# training loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits, labels):
+    """Mean next-token cross-entropy over the labels ``>= 0``, as the
+    reference computes it: ``logsumexp - gold`` in f32.  (The reference
+    picks the gold logit with a masked sum; a gather gives the same
+    bits.)"""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return (torch.sum((logz - gold) * mask)
+            / torch.clamp(torch.sum(mask), min=1.0))
+
+
+def train_loss(params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
+    """Causal LM cross-entropy + MoE aux loss.  batch: tokens/labels
+    (B,S)."""
+    logits, _, aux = forward(params, cfg, batch["tokens"])
+    return cross_entropy(logits, batch["labels"]) + aux_weight * aux
 
 
 # ---------------------------------------------------------------------------

@@ -1171,3 +1171,212 @@ def test_cuda_lm_captured_decode_equals_eager(cuda, arch, cache_dtype):
         assert torch.equal(a.view(torch.uint8) if a.element_size() == 1
                            else a, b.view(torch.uint8)
                            if b.element_size() == 1 else b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_cuda_lm_logits_held_across_the_next_step(cuda, arch):
+    """Logits a caller holds from decode step t are not overwritten by step
+    t+1 (the graph's own logits are; a step returns a copy)."""
+    from repro_torch.train import make_serve_steps
+    model, params, tokens, frames = _lm_setup(arch, cuda)
+    prefill_fn, decode_fn = make_serve_steps(model)
+    _, caches, rest = _lm_prefill(model, params, tokens, frames, prefill_fn)
+    held = []
+    for t in range(16, 20):
+        logits, caches = decode_fn(params, caches, tokens[:, t:t + 1], t,
+                                   *rest)
+        held.append((logits, logits.clone()))
+    for logits, copy in held:
+        assert torch.equal(logits, copy)
+    assert not torch.equal(held[0][0], held[-1][0])
+
+
+@pytest.mark.cuda
+def test_cuda_lm_stale_caches_raise_and_graphs_stay_bounded(cuda):
+    """Waves of one (batch, max_len) decode through one graph; caches a
+    later prefill reset are refused."""
+    from repro_torch.train import make_serve_steps
+    model, params, tokens, frames = _lm_setup("qwen3-1.7b", cuda)
+    prefill_fn, decode_fn = make_serve_steps(model)
+    olds = []
+    for _ in range(3):
+        _, caches, rest = _lm_prefill(model, params, tokens, frames,
+                                      prefill_fn)
+        decode_fn(params, caches, tokens[:, 16:17], 16, *rest)
+        olds.append(caches)
+    assert len(decode_fn.graphs) == 1
+    with pytest.raises(RuntimeError, match="stale caches"):
+        decode_fn(params, olds[0], tokens[:, 17:18], 17)
+
+
+def _kernels_in(fn) -> int:
+    """Device kernels ``fn`` runs, by ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "whisper-large-v3"])
+def test_cuda_lm_serving_is_the_same_whether_params_take_gradients(cuda,
+                                                                    arch):
+    """The serve steps run without gradients: the decode graph captured
+    with the parameters taking gradients runs the same kernels and gives
+    the same logits as the one captured without."""
+    from repro_torch.train import make_serve_steps
+    outs = []
+    for grad in (False, True):
+        model, params, tokens, frames = _lm_setup(arch, cuda)
+        params.requires_grad_(grad)
+        prefill_fn, decode_fn = make_serve_steps(model)
+        _, caches, rest = _lm_prefill(model, params, tokens, frames,
+                                      prefill_fn)
+        step = lambda: decode_fn(params, caches, tokens[:, 16:17], 16,
+                                 *rest)[0]
+        step()
+        _, caches, rest = _lm_prefill(model, params, tokens, frames,
+                                      prefill_fn)
+        logits = step()
+        assert not logits.requires_grad
+        outs.append((logits, _kernels_in(step)))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert outs[0][1] == outs[1][1] > 0
+
+
+# ---------------------------------------------------------------------------
+# LM training: the train step as one captured graph
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ["qwen3-1.7b", "gemma2-2b", "recurrentgemma-9b", "rwkv6-7b",
+               "whisper-large-v3"]
+
+
+def _train_setup(arch, dev, seed=7, **over):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.train import init_opt_state
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **over)
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    return (model, params, init_opt_state(params),
+            TokenPipeline(cfg, 2, 16, seed=3, device=dev))
+
+
+def _train_leaves(params, opt):
+    return ([p.detach() for p in params.parameters()]
+            + list(opt["m"].values()) + list(opt["v"].values())
+            + [opt["step"]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_cuda_train_step_captured_equals_eager(cuda, arch):
+    """Four steps from one state: eager on one copy, the captured step on
+    the other (an eager first step and its capture, then three replays);
+    losses, parameters, moments and the step count equal bit for bit (no
+    MoE here: its dispatch backward adds with atomics, in any order)."""
+    from repro_torch.train import AdamWConfig, make_train_step
+    me, pe, oe, de = _train_setup(arch, cuda)
+    mg, pg, og, dg = _train_setup(arch, cuda)
+    cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+    eager, captured = make_train_step(me, cfg), make_train_step(mg, cfg)
+    for _ in range(4):
+        _, _, m_e = eager.eager(pe, oe, de.next())
+        _, _, m_g = captured(pg, og, dg.next())
+        assert torch.equal(m_e["loss"], m_g["loss"])
+        assert torch.equal(m_e["grad_norm"], m_g["grad_norm"])
+    assert captured.captures == 1
+    for a, b in zip(_train_leaves(pe, oe), _train_leaves(pg, og)):
+        assert torch.equal(a, b)
+    assert int(og["step"]) == 4
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_holds_one_graph_across_states(cuda):
+    """One train step over two states, A, A, B, B, A: each change of state
+    captures anew and drops the graph before it (a state no one else
+    holds is freed), and every state ends as its eager twin."""
+    import gc
+    import weakref
+    from repro_torch.train import make_train_step
+    model, pa, oa, da = _train_setup("qwen3-1.7b", cuda)
+    _, pb, ob, db = _train_setup("qwen3-1.7b", cuda, seed=8)
+    _, qa, ra, ea = _train_setup("qwen3-1.7b", cuda)
+    _, qb, rb, eb = _train_setup("qwen3-1.7b", cuda, seed=8)
+    step_fn, ref = make_train_step(model), make_train_step(model)
+    for p, o, d, q, r, e in [(pa, oa, da, qa, ra, ea)] * 2 + [
+            (pb, ob, db, qb, rb, eb)] * 2 + [(pa, oa, da, qa, ra, ea)]:
+        got = step_fn(p, o, d.next())[2]["loss"]
+        assert torch.equal(got, ref.eager(q, r, e.next())[2]["loss"])
+    assert step_fn.captures == 3 and step_fn.graph[1] is pa
+    assert all(torch.equal(x, y)
+               for a, b in [((pa, oa), (qa, ra)), ((pb, ob), (qb, rb))]
+               for x, y in zip(_train_leaves(*a), _train_leaves(*b)))
+    gone = weakref.ref(pb)
+    del pb, ob
+    gc.collect()
+    assert gone() is None
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_replays_with_no_sync(cuda):
+    """A steady train step (the next batch staged through pinned memory,
+    one replay) makes no synchronizing call, and its metrics stay on the
+    card."""
+    from repro_torch.train import make_train_step
+    model, params, opt, pipe = _train_setup("qwen3-1.7b", cuda)
+    step_fn = make_train_step(model)
+    step_fn(params, opt, pipe.next())
+    step_fn(params, opt, pipe.next())
+    torch.cuda.synchronize()
+    metrics = []
+
+    def steps():
+        for _ in range(3):
+            metrics.append(step_fn(params, opt, pipe.next())[2])
+
+    assert _count_syncs(steps) == 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        steps()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(m["loss"].device.type == "cuda" for m in metrics)
+    assert all(np.isfinite(float(m["loss"])) for m in metrics)
+    assert int(opt["step"]) == 8
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_restored_into_a_captured_step_continues_it(cuda):
+    """Six steps with a checkpoint after the third; the checkpoint
+    restored into the live tensors, the captured step replays steps 4-6
+    again with the same losses and ends in the same state, bit for
+    bit."""
+    import tempfile
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import make_train_step
+    model, params, opt, pipe = _train_setup("qwen3-1.7b", cuda)
+    step_fn = make_train_step(model)
+    live = {"params": dict(params.named_parameters()), "opt": opt}
+    losses = []
+    with tempfile.TemporaryDirectory() as d:
+        for i in range(6):
+            losses.append(step_fn(params, opt, pipe.next())[2]["loss"])
+            if i == 2:
+                ck.save(d, 3, live, extra={"pipeline": pipe.state()})
+        end = [t.clone() for t in _train_leaves(params, opt)]
+        _, manifest = ck.restore(d, into=live)
+    pipe.restore(manifest["extra"]["pipeline"])
+    again = [step_fn(params, opt, pipe.next())[2]["loss"] for _ in range(3)]
+    assert step_fn.captures == 1
+    assert all(torch.equal(a, b) for a, b in zip(again, losses[3:]))
+    assert all(torch.equal(a, b)
+               for a, b in zip(_train_leaves(params, opt), end))

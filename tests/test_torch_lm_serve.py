@@ -110,7 +110,8 @@ def test_main_serves_encdec_on_the_cpu(capsys):
 
 def test_serve_steps_reuse_and_reset_their_caches():
     """One set of cache buffers per (batch, max_len), reset by every
-    prefill: a second prefill gives what a fresh ``model.prefill`` gives."""
+    prefill: a second prefill gives what a fresh ``model.prefill`` gives,
+    in the first prefill's buffers."""
     _, pcfg = cfgs("gemma2-2b", "float32")
     model = build_model(pcfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(3))
@@ -122,14 +123,60 @@ def test_serve_steps_reuse_and_reset_their_caches():
     for t in range(8, 11):
         decode_fn(params, c1, t1[:, :1], t)
     l2, c2 = prefill_fn(params, t2, max_len=12)
-    assert c2 is c1 and list(prefill_fn.caches) == [(2, 12)]
+    assert all(a is b for a, b in zip(c2, c1))
+    assert list(prefill_fn.caches) == [(2, 12)]
     want_l, want_c = model.prefill(params, t2, max_len=12)
     np.testing.assert_array_equal(l2.numpy(), want_l.numpy())
     for a, b in zip(c2, want_c):
         np.testing.assert_array_equal(a.k.numpy(), b.k.numpy())
         assert int(a.pos) == int(b.pos) == 8
     _, c3 = prefill_fn(params, t2[:1], max_len=12)
-    assert c3 is not c1 and len(prefill_fn.caches) == 2
+    assert c3[0] is not c1[0] and len(prefill_fn.caches) == 2
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "whisper-large-v3"])
+def test_decoding_from_caches_a_later_prefill_reset_raises(arch):
+    """A prefill resets its (batch, max_len)'s buffers: caches handed out
+    by an earlier prefill of that shape are refused, not decoded from
+    silently; the newest caches decode, and a prefill of another shape
+    leaves them valid."""
+    _, pcfg = cfgs(arch, "float32")
+    model = build_model(pcfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(3))
+    prefill_fn, decode_fn = make_serve_steps(model)
+    rng = np.random.default_rng(4)
+    t1, t2 = (torch.from_numpy(rng.integers(0, pcfg.vocab, (2, 8))
+                               .astype(np.int32)) for _ in range(2))
+    frames = ((torch.zeros((2, pcfg.enc_seq, pcfg.d_model)),)
+              if pcfg.family == "encdec" else ())
+    out1 = prefill_fn(params, t1, *frames, max_len=12)
+    out2 = prefill_fn(params, t2, *frames, max_len=12)
+    rest = tuple(out2[2:])
+    with pytest.raises(RuntimeError, match="stale caches"):
+        decode_fn(params, out1[1], t1[:, :1], 8, *rest)
+    prefill_fn(params, t2[:1], *(f[:1] for f in frames), max_len=12)
+    logits, caches = decode_fn(params, out2[1], t2[:, :1], 8, *rest)
+    assert caches is out2[1] and logits.shape[:2] == (2, 1)
+
+
+def test_serving_is_the_same_whether_the_parameters_take_gradients():
+    """Training turns gradients on for the parameters; the serve steps run
+    without them, so their logits are the same bits and carry no graph."""
+    _, pcfg = cfgs("qwen3-1.7b", "float32")
+    model = build_model(pcfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(3))
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, pcfg.vocab, (2, 8)).astype(np.int32))
+    outs = []
+    for grad in (False, True):
+        params.requires_grad_(grad)
+        prefill_fn, decode_fn = make_serve_steps(model)
+        lp, caches = prefill_fn(params, tokens, max_len=10)
+        ld, _ = decode_fn(params, caches, tokens[:, :1], 8)
+        assert not lp.requires_grad and not ld.requires_grad
+        outs.append((lp, ld))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def test_whisper_caches_sized_for_the_prompt_clamp_as_the_reference():

@@ -73,6 +73,19 @@ def test_the_rules_cover_the_lm_packages():
     assert len(registry()) == 10
 
 
+def test_the_rules_cover_the_training_modules():
+    """Training (the optimizer, the train step, checkpoints, the data
+    pipelines and the training loop) is among the modules imported and
+    scanned below."""
+    assert {"repro_torch.train.optimizer", "repro_torch.train.checkpoint",
+            "repro_torch.train.train_step", "repro_torch.data.pipeline",
+            "repro_torch.launch.train"} <= set(_modules())
+    paths = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {"train/optimizer.py", "train/checkpoint.py",
+            "train/train_step.py", "data/pipeline.py",
+            "launch/train.py"} <= paths
+
+
 def test_importing_the_port_loads_no_jax_and_no_reference():
     code = ("import importlib, sys\n"
             f"for m in {_modules()!r}:\n"
@@ -163,6 +176,36 @@ def _lm_params(**kw):
     return convert.lm_params_from_numpy(cfg, ref, **kw)
 
 
+def _lm_train_cli(device=None):
+    """``python -m repro_torch.launch.train``: on CUDA unless ``--device
+    cpu`` is given."""
+    from repro_torch.launch import train
+    return train.main(["--smoke", "--steps", "1", "--batch", "1", "--seq",
+                       "4"] + (["--device", device] if device else []))
+
+
+def _token_pipeline(**kw):
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    return TokenPipeline(get_config("qwen3-1.7b", smoke=True), 1, 4,
+                         **kw).next()
+
+
+def _feature_pipeline(**kw):
+    from repro_torch.core import compile as qc
+    from repro_torch.data.pipeline import StreamFeaturePipeline
+    exe = qc.compile_query(streams.fraud_query(16).node, out_len=32)
+    return StreamFeaturePipeline(exe, **kw)
+
+
+def _checkpoint_restore(**kw):
+    import tempfile
+    from repro_torch.train import checkpoint
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save(d, 1, {"x": torch.zeros(2)})
+        return checkpoint.restore(d, **kw)
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -190,7 +233,11 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch):
                  lambda **kw: _analysis_cli(**kw),
                  lambda **kw: _lm_model(**kw),
                  lambda **kw: _lm_params(**kw),
-                 lambda **kw: _lm_serve_cli(**kw)):
+                 lambda **kw: _lm_serve_cli(**kw),
+                 lambda **kw: _lm_train_cli(**kw),
+                 lambda **kw: _token_pipeline(**kw),
+                 lambda **kw: _feature_pipeline(**kw),
+                 lambda **kw: _checkpoint_restore(**kw)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
         assert call(device="cpu") is not None
