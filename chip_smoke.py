@@ -183,16 +183,35 @@ Phases (each raises on failure; the script then exits non-zero):
    the f32 variant also run in f64 on both (every f32 op promoted): card
    and CPU within 1e-10, and each one's f32 gradients held against that
    f64 result.  (d)
-   ``launch.train.main`` at SMOKE with checkpoints under ``out/``, cut
+   ``launch.train.main`` at SMOKE (``--mesh none``: plain tensors) with
+   checkpoints under ``out/``, cut
    after step 3's checkpoint and relaunched, ends bit for bit with the
    uninterrupted run; a checkpoint restored into a live captured step
    continues it bit for bit.
-15. One JSON line with every kernel's launches on the main path (the sum
-   of the windows of phases 3-11, 13 and 14), its error against its plain
+15. Sharding and the dry-run (``repro_torch.launch.dryrun``, its launch-
+   count window must read 0 too): (a) five cells of ``python -m
+   repro_torch.launch.dryrun --mesh single`` (a fake process group of 256
+   ranks as the (16, 16) mesh, fake tensors laid out as DTensors, one
+   eager step traced), each in its own process, all started before phase
+   14 (they use the host's CPU, not the card) and read here:
+   qwen3-1.7b at train_4k, prefill_32k and decode_32k, granite-moe-1b-
+   a400m and dbrx-132b at train_4k; each must be ``ok``, and prints its
+   GB a device against 80 GB, its dominant roofline term and its roofline
+   fraction on the H100's constants.  (b) The same at 14(a)'s cell on
+   ``--mesh local`` (a (1, 1) mesh over a real 1-rank NCCL group): its
+   argument bytes equal the real parameters, AdamW state and batch
+   exactly, and its FLOPs ``FlopCounterMode``'s over one real eager step;
+   its predicted peak beside 14(a)'s ``max_memory_allocated``, its terms
+   beside 14(a)'s ms a step and bound.  (c) ``launch.train.main`` at
+   SMOKE on a 1-rank NCCL mesh (its default), cut at step 3 and
+   relaunched, equals 14(d)'s unsharded run (``--mesh none``) bit for
+   bit; a mesh train step's graphs and the syncs of a steady step.
+16. One JSON line with every kernel's launches on the main path (the sum
+   of the windows of phases 3-11 and 13-15), its error against its plain
    version, its times and its bound.  ``fused_trend`` has no caller on any
    path (nor in the reference), so its launches are 0; phase 2 holds it
    against its plain version.
-16. The last line: ``{"ok": true, "device": {...}}``.
+17. The last line: ``{"ok": true, "device": {...}}``.
 
 Every phase prints its wall seconds and the card's SM clock, temperature
 and power draw after it (``nvidia-smi``).
@@ -202,6 +221,7 @@ Without a CUDA device it exits with code 2 before printing any result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3523,7 +3543,8 @@ def lm_train_resume(dev) -> dict:
     root = Path("out/train_ckpt")
     shutil.rmtree(root, ignore_errors=True)
     args = ["--arch", TRAIN_ARCH, "--smoke", "--steps", "6", "--batch", "2",
-            "--seq", "16", "--ckpt-every", "3", "--log-every", "3"]
+            "--seq", "16", "--ckpt-every", "3", "--log-every", "3",
+            "--mesh", "none"]
     full = launch_train.main(args + ["--ckpt-dir", str(root / "a")])
     launch_train.main(args + ["--ckpt-dir", str(root / "b")])
     shutil.rmtree(root / "b" / "step_6")
@@ -3602,6 +3623,233 @@ def run_train(dev, main_launches: dict) -> dict:
     return res
 
 # ---------------------------------------------------------------------------
+# phase 15: sharding and the dry-run (repro_torch.launch.sharding, dryrun,
+# roofline; launch.train on a mesh)
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k"), ("qwen3-1.7b", "prefill_32k"),
+                ("qwen3-1.7b", "decode_32k"),
+                ("granite-moe-1b-a400m", "train_4k"),
+                ("dbrx-132b", "train_4k"))
+DRYRUN_DIR = Path("out/dryrun_chip")
+DRYRUN_TIMEOUT = 600
+HBM_BYTES = 80e9
+
+
+def _dryrun(arch: str, shape: str, mesh: str, out: Path, *extra):
+    """``python -m repro_torch.launch.dryrun`` for one cell, started (its
+    own process: a fake process group of 256 ranks, or a real 1-rank
+    one, cannot share this one's), its output to ``out`` with ``.log``."""
+    with open(out.with_suffix(".log"), "w") as log_file:
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--json", str(out),
+             *extra],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            stdout=log_file, stderr=subprocess.STDOUT)
+
+
+def _dryrun_result(label: str, proc, out: Path) -> dict:
+    """The cell's record once its process ends; it must be ``ok``."""
+    try:
+        proc.wait(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"15: dry-run {label} timed out")
+    rec = json.loads(out.read_text()) if out.exists() else {}
+    if proc.returncode != 0 or not rec.get("ok"):
+        tail = out.with_suffix(".log").read_text()[-2000:]
+        raise AssertionError(f"15: dry-run {label} failed (exit "
+                             f"{proc.returncode}): {rec.get('error')}\n"
+                             f"{tail}")
+    return rec
+
+
+def _state_bytes(tree) -> int:
+    import torch
+    from torch.utils._pytree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def dryrun_against_card(dev, rec: dict, full: dict) -> dict:
+    """15(b): the ``--mesh local`` dry-run of 14(a)'s cell (qwen3-1.7b,
+    remat, batch 8 x 1024, one microbatch) against the card: its argument
+    bytes equal the real parameters, AdamW state and batch exactly, and
+    its FLOPs ``FlopCounterMode``'s count over one real eager step; its
+    predicted peak beside 14(a)'s ``max_memory_allocated``, its compute
+    and memory terms beside 14(a)'s ms a step and bound."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.train import init_opt_state, make_train_step
+    model = _lm_model(TRAIN_ARCH, {}, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+    opt = init_opt_state(params)
+    batch = TokenPipeline(model.cfg, TRAIN_BATCH, TRAIN_SEQ, seed=TRAIN_SEED,
+                          device=dev).next()
+    real_bytes = _state_bytes((list(params.parameters()), opt, batch))
+    with FlopCounterMode(display=False) as fc:
+        make_train_step(model).eager(params, opt, batch)
+    torch.cuda.synchronize()
+    real_flops = fc.get_total_flops()
+    del params, opt
+    args = rec["memory"]["argument_size_in_bytes"]
+    r = rec["roofline"]
+    row = {"argument_bytes": args, "real_bytes": real_bytes,
+           "flops": rec["cost"]["flops"], "real_flops": real_flops,
+           "peak_bytes": rec["per_device_bytes"],
+           "real_max_allocated": full["max_allocated_bytes"],
+           "compute_ms": r["compute_s"] * 1e3,
+           "memory_ms": r["memory_s"] * 1e3, "step_ms": full["p50_ms"],
+           "bound_ms": full["bound_ms"], "trace_s": rec["lower_s"]}
+    log(f"  15(b) dry-run at 14(a)'s cell on the card's (1, 1) mesh: "
+        f"argument bytes {args} against the real state's {real_bytes}; "
+        f"FLOPs {row['flops']:.6e} against FlopCounterMode's "
+        f"{real_flops:.6e} over a real eager step; predicted peak "
+        f"{row['peak_bytes'] / 2**30:.2f} GiB against 14(a)'s max "
+        f"allocated {row['real_max_allocated'] / 2**30:.2f} GiB; terms: "
+        f"compute {row['compute_ms']:.1f} ms, memory "
+        f"{row['memory_ms']:.1f} ms (dominant {r['dominant']}) against "
+        f"14(a)'s {row['step_ms']:.1f} ms a step and its "
+        f"{row['bound_ms']:.1f} ms causal bound; traced in "
+        f"{rec['lower_s']} s")
+    if args != real_bytes:
+        raise AssertionError(f"15(b): argument bytes {args} != {real_bytes}")
+    if row["flops"] != real_flops:
+        raise AssertionError(f"15(b): FLOPs {row['flops']} != {real_flops}")
+    return row
+
+
+def mesh_trainer(dev, resume: dict) -> dict:
+    """15(c): ``launch.train.main`` at SMOKE on a 1-rank NCCL mesh (its
+    default), cut after step 3's checkpoint and relaunched, against
+    14(d)'s unsharded run (``--mesh none``): the same loss and state, bit
+    for bit.  Then a mesh train step alone: its graphs and the syncs of a
+    steady step."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model, shardctx
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import init_opt_state, make_train_step
+    root = Path("out/train_ckpt")
+    for d in ("mesh_a", "mesh_b"):
+        shutil.rmtree(root / d, ignore_errors=True)
+    args = ["--arch", TRAIN_ARCH, "--smoke", "--steps", "6", "--batch", "2",
+            "--seq", "16", "--ckpt-every", "3", "--log-every", "3"]
+    full = launch_train.main(args + ["--ckpt-dir", str(root / "mesh_a")])
+    launch_train.main(args + ["--ckpt-dir", str(root / "mesh_b")])
+    shutil.rmtree(root / "mesh_b" / "step_6")
+    (root / "mesh_b" / "latest").write_text("3")
+    resumed = launch_train.main(args + ["--ckpt-dir", str(root / "mesh_b")])
+    plain, _ = ck.restore(str(root / "a"), device="cpu")
+    flat = ck._flatten(plain)
+    same = {}
+    for d in ("mesh_a", "mesh_b"):
+        got, _ = ck.restore(str(root / d), device="cpu")
+        got = ck._flatten(got)
+        same[d] = got.keys() == flat.keys() and all(
+            torch.equal(got[k], flat[k]) for k in flat)
+    ok = full == resumed == resume["loss"] and all(same.values())
+    log(f"  15(c) launch.train on a 1-rank NCCL mesh, cut at step 3 and "
+        f"relaunched: loss {resumed!r}, uninterrupted {full!r}, 14(d)'s "
+        f"unsharded {resume['loss']!r}; state against 14(d)'s: "
+        + ", ".join(f"{d} {'bit for bit' if v else 'DIFFERS'}"
+                    for d, v in same.items()))
+    if not ok:
+        raise AssertionError("15(c): the mesh trainer differs from 14(d)")
+
+    cfg = get_config(TRAIN_ARCH, smoke=True)
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(TRAIN_SEED))
+    opt = init_opt_state(params)
+    mesh = make_local_mesh()
+    shardctx.set_mesh_axes(mesh.mesh_dim_names, mesh)
+    try:
+        psh = SH.place_params(params, mesh, cfg)
+        SH.place_opt_state(opt, SH.opt_shardings(psh, mesh))
+        pipe = TokenPipeline(cfg, 2, 16, seed=TRAIN_SEED, device=dev)
+        step_fn = make_train_step(model)
+        for _ in range(3):
+            step_fn(params, opt, SH.place_batch(pipe.next(), mesh))
+        b = SH.place_batch(pipe.next(), mesh)
+        syncs = count_syncs(lambda: step_fn(params, opt, b))
+    finally:
+        shardctx.clear()
+    log(f"  15(c) a mesh train step (DTensor parameters, 1-rank NCCL "
+        f"mesh): {step_fn.captures} graph(s) captured over 4 steps, "
+        f"{syncs} syncs a steady step")
+    return {"loss": full, "resumed": resumed, "state": same,
+            "captures": step_fn.captures, "syncs": syncs}
+
+
+def start_dryrun_cells() -> dict:
+    """15(a)'s five cells, each started as its own process.  They run on
+    the host's CPU (fake tensors: nothing is allocated on the card) and
+    are started before phase 14, whose steps are captured graphs the card
+    replays, so that their tracing overlaps it; phase 15 reads them."""
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    for f in DRYRUN_DIR.glob("*.json"):
+        f.unlink()
+    log(f"15(a): {len(DRYRUN_CELLS)} dry-run cells started beside phase 14")
+    return {(a, s): (_dryrun(a, s, "single", DRYRUN_DIR / f"{a}_{s}.json"),
+                     DRYRUN_DIR / f"{a}_{s}.json") for a, s in DRYRUN_CELLS}
+
+
+def run_dryrun(dev, main_launches: dict, train: dict, procs: dict) -> dict:
+    """Phase 15: 15(b)'s local cell starts as a subprocess; meanwhile
+    15(b)'s real step and 15(c) run here; then the five cells of 15(a)
+    (started before phase 14) are read.  No kernel of the TiLT path lies
+    on it: the launch-count window reads 0 for every kernel."""
+    import gc
+    import torch
+    t0 = time.perf_counter()
+    local_out = DRYRUN_DIR / "local.json"
+    local = _dryrun(TRAIN_ARCH, "train_4k", "local", local_out, "--batch",
+                    str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--micro", "1")
+    res = {}
+
+    def go():
+        res["trainer"] = mesh_trainer(dev, train["resume"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["card"] = dryrun_against_card(
+            dev, _dryrun_result("local", local, local_out), train["full"])
+
+    try:
+        drive(main_launches, go)
+    finally:
+        if local.poll() is None:
+            local.kill()
+            local.wait()
+    if any(main_launches.values()):
+        raise AssertionError(f"a TiLT kernel launched on the sharding "
+                             f"path: {main_launches}")
+    cells = {}
+    for (a, s), (proc, out) in procs.items():
+        rec = _dryrun_result(f"{a} {s}", proc, out)
+        r = rec["roofline"]
+        cells[f"{a}/{s}"] = rec
+        gb = rec["per_device_bytes"] / 1e9
+        log(f"  15(a) {a} {s} on the (16, 16) mesh: {gb:.2f} GB a device "
+            f"({'fits' if gb * 1e9 <= HBM_BYTES else 'exceeds'} 80 GB), "
+            f"dominant {r['dominant']} (compute {r['compute_s']:.3f} s, "
+            f"memory {r['memory_s']:.3f} s, collective "
+            f"{r['collective_s']:.3f} s), roofline fraction "
+            f"{r['roofline_fraction']:.4f}, traced in {rec['lower_s']} s")
+    res["cells"] = cells
+    res["seconds"] = time.perf_counter() - t0
+    log(f"sharding and dry-run phase: {res['seconds']:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "prefix_scan": ("src/repro_torch/kernels/csrc/window_reduce.cu",
@@ -3670,12 +3918,23 @@ def main() -> int:
     dist.destroy_process_group()
     lm_launches, train_launches = {}, {}
     lm = phase("13 LM serving", run_lm, dev, lm_launches)
-    train = phase("14 LM training", run_train, dev, train_launches)
+    dryrun_procs = start_dryrun_cells()
+    dryrun_launches = {}
+    try:
+        train = phase("14 LM training", run_train, dev, train_launches)
+        dryrun = phase("15 sharding and dry-run", run_dryrun, dev,
+                       dryrun_launches, train, dryrun_procs)
+    finally:
+        for proc, _ in dryrun_procs.values():   # every process it started
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     windows = {"partition_run": single, "batch_run": keyed_launches,
                "runner": runner_launches, "sparse_run": one_shot_launches,
                "session": session_launches, "ingest": ingest_launches,
                "serve": serve_launches, "mesh": mesh_launches,
-               "lm": lm_launches, "train": train_launches}
+               "lm": lm_launches, "train": train_launches,
+               "dryrun": dryrun_launches}
     launches = {k: sum(w.get(k, 0) for w in windows.values())
                 for k in KERNELS}
     for k in ("seg_dirty",):
@@ -3698,6 +3957,7 @@ def main() -> int:
               "runner": runners, "sparse_run": one_shot,
               "session": sessions, "ingest": ingest, "serve": serving,
               "mesh": mesh, "audit": audit, "lm": lm, "train": train,
+              "dryrun": dryrun,
               "phase_seconds": PHASE_SECONDS,
               "kernels": {f"{k}/{lab}": v for (k, lab), v in rows.items()},
               "launches": dict(windows, total=launches)}

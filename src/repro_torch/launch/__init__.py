@@ -1,2 +1,2 @@
-"""Entry points (port of ``repro.launch``): device meshes, the LM
-serving loop and the LM training loop."""
+"""Entry points (port of ``repro.launch``): device meshes, the sharding
+rules, the dry-run, the LM serving loop and the LM training loop."""

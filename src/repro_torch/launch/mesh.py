@@ -55,13 +55,15 @@ def group_serial(group) -> int:
     return hit[1]
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda") -> DeviceMesh:
     """The reference's production shapes and axis names (``(16, 16)`` over
     ``("data", "model")``, or ``(2, 16, 16)`` with a ``pod`` axis), over
-    the ranks of the default process group, built only when called."""
+    the ranks of the default process group (for the dry-run, a ``fake``
+    group of 256 or 512 ranks in one process), built only when called."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return init_device_mesh("cuda", shape, mesh_dim_names=axes)
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 def make_local_mesh(n_data: Optional[int] = None, n_model: int = 1,

@@ -3,25 +3,31 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
         --smoke --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt \
-        [--device cpu]
+        [--device cpu] [--mesh local|none]
 
 It runs on the CUDA card unless ``--device cpu`` is given (and raises when
-there is none); on the card every steady step is one replay of a captured
-CUDA graph (``train.train_step``).  Fault-tolerance contract, as the
-reference's:
+there is none).  As the reference does, it trains on a mesh over the
+ranks of the default process group (``make_local_mesh``: a 1-rank group
+over an in-memory store when none runs; start N processes under one
+group for N ranks): the mesh's axes are declared to ``models.shardctx``,
+the parameters and AdamW state are laid out by ``launch.sharding``'s
+rules (``DTensor`` objects), and each batch by ``place_batch``.
+``--mesh none`` trains without a mesh, on plain tensors, where every
+steady step on the card is one replay of a captured CUDA graph
+(``train.train_step``).  Fault-tolerance contract, as the reference's:
 
 * atomic checkpoints every ``--ckpt-every`` steps (async write);
 * on start, the latest checkpoint (params, opt state, pipeline cursor) is
   restored if present — crash/preemption recovery is just re-launching;
   a restore writes into the live tensors, so a captured step replays on;
 * step-level exceptions trigger a restore-and-retry once before aborting
-  (transient-failure mitigation; persistent failures abort loudly).
+  (transient-failure mitigation; persistent failures abort loudly);
+* restores lay the checkpoint over the current mesh (``shardings=``), so
+  a run restarts on fewer or more ranks (elastic restart).
 
-There is no mesh yet (the reference's ``shardctx``, ``launch/sharding``
-and ``make_local_mesh`` placement come with the dry-run slice): on one
-device the reference's mesh replicates everything, so the numbers are the
-same.  A checkpoint holds ``{"params": {name: tensor}, "opt": {m, v,
-step}}`` in the reference's on-disk format.
+A checkpoint holds ``{"params": {name: tensor}, "opt": {m, v, step}}`` in
+the reference's on-disk format, whole, whatever the mesh (rank 0 writes
+it).
 """
 from __future__ import annotations
 
@@ -33,10 +39,13 @@ import torch
 from ..configs.base import get_config
 from ..data.pipeline import TokenPipeline
 from ..device import resolve
+from ..models import shardctx
 from ..models.model import build_model
 from ..train import checkpoint as ck
 from ..train.optimizer import AdamWConfig, init_opt_state
 from ..train.train_step import make_train_step
+from . import sharding as SH
+from .mesh import make_local_mesh
 
 __all__ = ["main"]
 
@@ -56,13 +65,36 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="cpu to run on the CPU (default: the CUDA card)")
+    ap.add_argument("--mesh", default="local", choices=["local", "none"],
+                    help="local: a mesh over the default process group's "
+                    "ranks (the reference's); none: plain tensors")
     args = ap.parse_args(argv)
-
     dev = resolve(args.device)
+    if args.mesh == "none":
+        return _train(args, dev, None)
+    mesh = make_local_mesh(device=dev)
+    shardctx.set_mesh_axes(mesh.mesh_dim_names, mesh)
+    try:
+        return _train(args, dev, mesh)
+    finally:
+        shardctx.clear()
+
+
+def _scalar(t) -> float:
+    """A metric's value on the host (a ``DTensor`` gathered first)."""
+    return float(t.full_tensor() if hasattr(t, "full_tensor") else t)
+
+
+def _train(args, dev, mesh):
     cfg = get_config(args.arch, smoke=args.smoke)
     model = build_model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     opt_state = init_opt_state(params)
+    shardings = None
+    if mesh is not None:
+        psh = SH.place_params(params, mesh, cfg)
+        shardings = {"params": psh, "opt": SH.opt_shardings(psh, mesh)}
+        SH.place_opt_state(opt_state, shardings["opt"])
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(args.steps // 20, 1))
     pipe = TokenPipeline(cfg, args.batch, args.seq, device=dev)
@@ -72,7 +104,8 @@ def main(argv=None):
     mgr = ck.CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     start = 0
     if mgr is not None:
-        restored, manifest = mgr.restore_latest(into=live)
+        restored, manifest = mgr.restore_latest(into=live,
+                                                shardings=shardings)
         if restored is not None:
             pipe.restore(manifest["extra"]["pipeline"])
             start = manifest["step"]
@@ -86,23 +119,25 @@ def main(argv=None):
     metrics = None
     while step < args.steps:
         batch = pipe.next()
+        if mesh is not None:
+            batch = SH.place_batch(batch, mesh)
         try:
             params, opt_state, metrics = step_fn(params, opt_state, batch)
         except Exception as e:  # transient-failure path: restore, retry
             if retried or mgr is None:
                 raise
             print(f"[train] step {step} failed ({e}); restoring")
-            _, manifest = mgr.restore_latest(into=live)
+            _, manifest = mgr.restore_latest(into=live, shardings=shardings)
             pipe.restore(manifest["extra"]["pipeline"])
             step = manifest["step"]
             retried = True
             continue
         step += 1
         if step % args.log_every == 0 or step == args.steps:
-            loss = float(metrics["loss"])
+            loss = _scalar(metrics["loss"])
             dt = (time.time() - t0) / max(step - start, 1)
             print(f"[train] step {step} loss {loss:.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
+                  f"gnorm {_scalar(metrics['grad_norm']):.3f} "
                   f"({dt*1e3:.0f} ms/step)", flush=True)
         if mgr is not None and step % args.ckpt_every == 0:
             mgr.save(step, live, extra={"pipeline": pipe.state()})
@@ -110,7 +145,7 @@ def main(argv=None):
         mgr.save(args.steps, live, extra={"pipeline": pipe.state()},
                  blocking=True)
         mgr.wait()
-    return None if metrics is None else float(metrics["loss"])
+    return None if metrics is None else _scalar(metrics["loss"])
 
 
 if __name__ == "__main__":

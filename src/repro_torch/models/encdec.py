@@ -21,10 +21,12 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from . import layers as L
-from .transformer import cross_entropy, positions, remat, reset_cache
+from .shardctx import hint, linear
+from .transformer import (cross_entropy, embed_lookup, flat_axes, positions,
+                          remat, reset_cache)
 
 __all__ = ["EncDec", "init", "forward_encoder", "init_cache", "decode_step",
-           "prefill", "train_loss"]
+           "prefill", "train_loss", "param_axes", "cache_axes"]
 
 
 def _init_enc_block(gen, cfg, device) -> dict:
@@ -43,6 +45,19 @@ def _init_dec_block(gen, cfg, device) -> dict:
             "attn": L.init_attention(gen, cfg, device),
             "xattn": L.init_attention(gen, cfg, device),
             "mlp": L.init_mlp(gen, cfg, device)}
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """Each parameter's logical axes by its ``named_parameters`` name (the
+    reference's tree, the stacks' leading ``"layers"`` dropped)."""
+    enc = {"ln1": (None,), "ln2": (None,), "attn": L.attention_axes(cfg),
+           "mlp": L.mlp_axes(cfg)}
+    dec = {"ln1": (None,), "lnx": (None,), "ln2": (None,),
+           "attn": L.attention_axes(cfg), "xattn": L.attention_axes(cfg),
+           "mlp": L.mlp_axes(cfg)}
+    return flat_axes({"embed": ("vocab", "embed"), "ln_f": (None,),
+                      "ln_enc": (None,), "enc": [enc] * cfg.n_enc_layers,
+                      "dec": [dec] * cfg.n_layers})
 
 
 class EncDec(L.Params):
@@ -97,6 +112,8 @@ def forward_encoder(params, cfg: ModelConfig, frames):
     pos = positions(B, S, None, frames.device)
 
     def body(x, ps):
+        if cfg.seq_parallel:  # head-unshardable fallback
+            x = hint(x, "dp", "model", None)
         h = L.rms_norm(x, ps["ln1"])
         h, _ = L.attention(ps["attn"], h, cfg, "bidir", pos)
         x, h = L.add_norm(x, h, ps["ln2"])
@@ -114,9 +131,11 @@ def _decoder(params, cfg: ModelConfig, tokens, enc_out, caches=None,
     unembeds only the last ``last`` positions.  Returns (logits, caches)."""
     B, T = tokens.shape
     pos = positions(B, T, pos0, tokens.device)
-    x = params["embed"][tokens.long()].to(L.dtype_of(cfg.dtype))
+    x = embed_lookup(params["embed"], tokens, L.dtype_of(cfg.dtype))
 
     def body(x, ps, st, enc_out):
+        if cfg.seq_parallel and x.shape[1] > 1:
+            x = hint(x, "dp", "model", None)
         h = L.rms_norm(x, ps["ln1"])
         h, _ = L.attention(ps["attn"], h, cfg, "global", pos, cache=st)
         x, h = L.add_norm(x, h, ps["lnx"])
@@ -134,8 +153,8 @@ def _decoder(params, cfg: ModelConfig, tokens, enc_out, caches=None,
     if last is not None:
         x = x[:, -last:]
     x = L.rms_norm(x, params["ln_f"])
-    logits = torch.matmul(x, params["embed"].T.to(x.dtype)).float()
-    return logits, caches
+    logits = linear(x, params["embed"].T.to(x.dtype)).float()
+    return hint(logits, "dp", None, "model"), caches
 
 
 def train_loss(params, cfg: ModelConfig, batch, aux_weight: float = 0.0):
@@ -152,6 +171,13 @@ def init_cache(cfg: ModelConfig, B: int, S_max: int, device) -> list:
                       torch.zeros((B, N, S_max, K), dtype=dt, device=device),
                       torch.zeros((), dtype=torch.int32, device=device), 0)
             for _ in range(cfg.n_layers)]
+
+
+def cache_axes(cfg: ModelConfig, S_max: int) -> list:
+    """:func:`init_cache`'s mirror in logical-axis strings (the reference's
+    names over the port's (B, N, S, K) buffers)."""
+    kv = "batch,kv_heads,time,none"
+    return [L.KVCache(kv, kv, "scalar", 0) for _ in range(cfg.n_layers)]
 
 
 def prefill(params, cfg: ModelConfig, tokens, frames, max_len: int = None,

@@ -27,6 +27,7 @@ gives it back in the reference's ``(B, S, N, K)``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -36,11 +37,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
+from .shardctx import (batch_axes, hint, is_sharded, linear, model_axis,
+                       placements, replicated)
 
 __all__ = [
-    "Params", "dtype_of", "rms_norm", "add_norm", "layer_norm", "rope", "init_attention",
-    "attention", "init_mlp", "mlp", "init_moe", "moe_ffn", "KVCache",
-    "sigmoid", "silu", "gelu_tanh",
+    "Params", "dtype_of", "rms_norm", "add_norm", "layer_norm", "rope",
+    "init_attention", "attention_axes", "attention", "init_mlp", "mlp_axes",
+    "mlp", "init_moe", "moe_axes", "moe_ffn", "KVCache", "sigmoid", "silu",
+    "gelu_tanh",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -202,6 +206,17 @@ def init_attention(gen, cfg: ModelConfig, device) -> dict:
     return p
 
 
+def attention_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of :func:`init_attention`'s parameters (the
+    reference's axes tree; ``launch.sharding`` maps them onto a mesh)."""
+    a = {"wq": ("embed", "heads", None), "wk": ("embed", "kv_heads", None),
+         "wv": ("embed", "kv_heads", None), "wo": ("heads", None, "embed")}
+    if cfg.qk_norm:
+        a["q_norm"] = (None,)
+        a["k_norm"] = (None,)
+    return a
+
+
 def _mask(kind: str, q_pos, k_pos, window: int):
     """Additive mask from absolute positions. q_pos (B,T), k_pos (B,S)."""
     ok = k_pos[:, None, :] >= 0
@@ -217,6 +232,18 @@ def _put(buf, idx, src):
     device indices.  An f8 cache is written through its bytes, which every
     device's ``index_copy_`` takes."""
     src = src.to(buf.dtype)
+    if is_sharded(buf):
+        # on a mesh, whatever axis the cache is laid over: a decode write
+        # selects its slot over the whole buffer; a prefill's rows fill
+        # the head of an empty cache (its start is 0)
+        S, T = buf.shape[2], src.shape[2]
+        if T > 1:
+            new = src if T == S else torch.cat([src, buf[:, :, T:]], dim=2)
+        else:
+            hit = torch.arange(S, device=buf.device) == idx
+            new = torch.where(hit[None, None, :, None], src, buf)
+        buf.copy_(new)
+        return
     if buf.element_size() == 1 and buf.is_floating_point():
         buf, src = buf.view(torch.uint8), src.view(torch.uint8)
     buf.index_copy_(2, idx.long(), src)
@@ -243,6 +270,9 @@ def _write_cache(cache: KVCache, k, v, T: int):
                 shift = (T - W) % W
                 cache.k.copy_(torch.roll(kh[:, :, -W:], shift, dims=2))
                 cache.v.copy_(torch.roll(vh[:, :, -W:], shift, dims=2))
+            elif is_sharded(cache.k):
+                _put(cache.k, None, kh)
+                _put(cache.v, None, vh)
             else:
                 cache.k[:, :, :T].copy_(kh)
                 cache.v[:, :, :T].copy_(vh)
@@ -275,6 +305,16 @@ def _write_cache(cache: KVCache, k, v, T: int):
     return k_pos
 
 
+def _heads_proj(x, w):
+    """x (B, T, D) times w (D, n, K): (B, T, n, K), formed flat as
+    (B, T, n*K) by :func:`linear` (the same product on one device and on
+    a mesh, so a 1-rank mesh keeps the bits; on a mesh the weight's heads
+    lie over ``model`` only where they divide it, so n*K is split only
+    where n is)."""
+    D, n, K = w.shape
+    return linear(x, w.flatten(1)).unflatten(-1, (n, K))
+
+
 def attention(p, x, cfg: ModelConfig, kind: str, q_pos,
               cache: Optional[KVCache] = None,
               kv_x: Optional[torch.Tensor] = None,
@@ -288,13 +328,11 @@ def attention(p, x, cfg: ModelConfig, kind: str, q_pos,
            place and returned.
     """
     B, T, D = x.shape
-    H, N, K = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    G = H // N
 
-    q = torch.einsum("btd,dhk->bthk", x, p["wq"].to(x.dtype))
+    q = _heads_proj(x, p["wq"].to(x.dtype))
     src = x if kv_x is None else kv_x
-    k = torch.einsum("bsd,dnk->bsnk", src, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dnk->bsnk", src, p["wv"].to(x.dtype))
+    k = _heads_proj(src, p["wk"].to(x.dtype))
+    v = _heads_proj(src, p["wv"].to(x.dtype))
 
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
@@ -319,12 +357,26 @@ def attention(p, x, cfg: ModelConfig, kind: str, q_pos,
             k_pos = q_pos if kv_pos is None else kv_pos
         kh, vh = _heads(k), _heads(v)
 
+    kh, vh = kh.to(x.dtype), vh.to(x.dtype)  # upcast quantized cache
+    mask_kind = "bidir" if kind in ("cross", "bidir") else kind
+    core = functools.partial(_attend, cfg=cfg, mask_kind=mask_kind)
+    if is_sharded(q):
+        out = _attend_sharded(core, q, kh, vh, q_pos, k_pos)
+    else:
+        out = core(q, kh, vh, q_pos, k_pos)
+    out = linear(out.flatten(2), p["wo"].to(x.dtype).flatten(0, 1))
+    return out, cache
+
+
+def _attend(q, kh, vh, q_pos, k_pos, cfg: ModelConfig, mask_kind: str):
+    """Attention's core: q (B, T, H, K) over kh, vh (B, N, S, K), masked by
+    the positions q_pos (B, T) and k_pos (B, S); (B, T, H, K) out."""
+    B, T, H, K = q.shape
+    N, S = kh.shape[1], kh.shape[2]
+    G = H // N
     # (B, N, T*G, K): the query heads of one kv head side by side
     qh = q.reshape(B, T, N, G, K).permute(0, 2, 1, 3, 4).reshape(
         B, N, T * G, K)
-    kh, vh = kh.to(x.dtype), vh.to(x.dtype)  # upcast quantized cache
-    mask_kind = "bidir" if kind in ("cross", "bidir") else kind
-    S = kh.shape[2]
     if S > _CHUNKED_KV_THRESHOLD and T > 1:
         out = _attn_chunked(qh, kh, vh, cfg, mask_kind, q_pos, k_pos, T, G)
     else:
@@ -335,12 +387,29 @@ def attention(p, x, cfg: ModelConfig, kind: str, q_pos,
             scores = c * torch.tanh(scores / c)
         m = _mask(mask_kind, q_pos, k_pos, cfg.window)
         scores = scores + m[:, None, :, None, :]               # (B,N,T,G,S)
-        w = torch.softmax(scores, dim=-1).to(x.dtype)
+        w = torch.softmax(scores, dim=-1).to(q.dtype)
         out = torch.matmul(w.reshape(B, N, T * G, S), vh)
-    out = out.reshape(B, N, T, G, K).permute(0, 2, 1, 3, 4).reshape(
+    return out.reshape(B, N, T, G, K).permute(0, 2, 1, 3, 4).reshape(
         B, T, H, K)
-    out = torch.einsum("bthk,hkd->btd", out, p["wo"].to(x.dtype))
-    return out, cache
+
+
+def _attend_sharded(core, q, kh, vh, q_pos, k_pos):
+    """:func:`_attend` over ``DTensor`` operands, run on each rank's shard
+    (``local_map``): batch over the data-parallel axes and kv heads over
+    ``model`` where they divide (else replicated), as GSPMD partitions
+    the reference's attention; the key axis is whole on every rank."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    batch = batch_axes(mesh, q.shape[0])
+    tp = model_axis(mesh, kh.shape[1])
+    q_spec = placements((batch, None, tp, None), mesh)
+    kv_spec = placements((batch, tp, None, None), mesh)
+    pos_spec = placements((batch, None), mesh)
+    return local_map(core, out_placements=q_spec,
+                     in_placements=(q_spec, kv_spec, kv_spec, pos_spec,
+                                    pos_spec),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, kh, vh, replicated(q_pos, mesh), replicated(k_pos, mesh))
 
 
 _CHUNKED_KV_THRESHOLD = 2048   # dense scores up to 2k keys; flash beyond
@@ -434,15 +503,22 @@ def init_mlp(gen, cfg: ModelConfig, device) -> dict:
     return p
 
 
+def mlp_axes(cfg: ModelConfig) -> dict:
+    a = {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
+    if cfg.mlp_gated:
+        a["wg"] = ("embed", "mlp")
+    return a
+
+
 def mlp(p, x, cfg: ModelConfig):
     act = _ACTS[cfg.mlp_act]
-    h = torch.matmul(x, p["wi"].to(x.dtype))
+    h = linear(x, p["wi"].to(x.dtype))
     if cfg.mlp_gated:
-        g = torch.matmul(x, p["wg"].to(x.dtype))
+        g = linear(x, p["wg"].to(x.dtype))
         h = act(g) * h
     else:
         h = act(h)
-    return torch.matmul(h, p["wo"].to(x.dtype))
+    return linear(h, p["wo"].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -457,6 +533,13 @@ def init_moe(gen, cfg: ModelConfig, device) -> dict:
         "wg": _init(gen, (E, D, F_), D ** -0.5, _pdt(cfg), device),
         "wo": _init(gen, (E, F_, D), F_ ** -0.5, _pdt(cfg), device),
     }
+
+
+def moe_axes(cfg: ModelConfig) -> dict:
+    return {"router": ("embed", None),
+            "wi": ("expert", "embed", "mlp_moe"),
+            "wg": ("expert", "embed", "mlp_moe"),
+            "wo": ("expert", "mlp_moe", "embed")}
 
 
 _MOE_GROUPS = 32  # dispatch groups, as the reference's
@@ -474,29 +557,20 @@ def moe_capacity(cfg: ModelConfig, n_tokens: int):
     return G, Ng, C
 
 
-def _dispatch(p, x, cfg: ModelConfig):
-    """Route the tokens of ``x`` (B, T, D) and fill the per-group expert
-    buffers.  Returns ``(buf (G, E, C, D), meta, aux)``; ``meta`` holds
-    what the combine needs (sorted order, token of each pick, slots, kept
-    picks, gate weights)."""
-    B, T, D = x.shape
+def _route(xf, router, cfg: ModelConfig, C: int):
+    """Route each group's tokens xf (G, Ng, D) and fill its expert buffer.
+    Returns ``(buf (G, E, C, D), meta, probs, sel)``: ``meta`` holds what
+    the combine needs (sorted order, token of each pick, slots, kept
+    picks, gate weights); ``probs`` (G, Ng, E) and the picks ``sel``
+    (G, Ng, K) feed the load-balance loss.  Every step is within a
+    group."""
+    G, Ng, D = xf.shape
     E, K = cfg.n_experts, cfg.topk
-    N = B * T
-    G, Ng, C = moe_capacity(cfg, N)
-    xf = x.reshape(G, Ng, D)
-    dev = x.device
-
-    logits = torch.matmul(xf.float(), p["router"].float())
+    dev = xf.device
+    logits = torch.matmul(xf.float(), router.float())
     probs = torch.softmax(logits, dim=-1)
     gate, sel = torch.topk(probs, K, dim=-1)                   # (G, Ng, K)
     gate = gate / torch.sum(gate, dim=-1, keepdim=True)
-
-    # aux load-balance loss (Switch): E * Σ_e f_e · P_e (global)
-    me = torch.mean(probs, dim=(0, 1))
-    ce = torch.zeros((E,), dtype=torch.float32, device=dev).scatter_add_(
-        0, sel.reshape(-1), torch.ones((N * K,), dtype=torch.float32,
-                                       device=dev)) / (N * K)
-    aux = E * torch.sum(me * ce)
 
     # one group per row: a stable sort by expert, each pick's position
     # among its expert's picks, and its slot (E*C: dropped)
@@ -504,21 +578,117 @@ def _dispatch(p, x, cfg: ModelConfig):
     order = torch.argsort(sel_f, dim=-1, stable=True)
     sorted_e = torch.gather(sel_f, 1, order)
     token_of = order // K
-    counts = torch.zeros((G, E), dtype=torch.int64, device=dev).scatter_add_(
-        1, sel_f, torch.ones_like(sel_f))
+    # histograms as one-hot sums: exact counts, as the scatter-adds were
+    counts = torch.sum(F.one_hot(sel_f, E), dim=1)
     starts = torch.cumsum(counts, dim=1) - counts
     pos_in_e = (torch.arange(Ng * K, device=dev)[None, :]
                 - torch.gather(starts, 1, sorted_e))
     keep = pos_in_e < C
     slot = torch.where(keep, sorted_e * C + pos_in_e, E * C)
     rows = torch.gather(xf, 1, token_of[..., None].expand(-1, -1, D))
-    rows = rows * keep[..., None].to(x.dtype)
+    rows = rows * keep[..., None].to(xf.dtype)
     # slot E*C is the sentinel row every dropped pick writes (zeros)
-    buf = torch.zeros((G, E * C + 1, D), dtype=x.dtype, device=dev)
+    buf = torch.zeros((G, E * C + 1, D), dtype=xf.dtype, device=dev)
     buf.scatter_(1, slot[..., None].expand(-1, -1, D), rows)
-    w = torch.gather(gate.reshape(G, Ng * K), 1, order).to(x.dtype)
-    return (buf[:, :-1].reshape(G, E, C, D),
-            (order, token_of, slot, keep, w, C), aux)
+    w = torch.gather(gate.reshape(G, Ng * K), 1, order).to(xf.dtype)
+    return (buf[:, :-1].reshape(G, E, C, D), (order, token_of, slot, keep, w),
+            probs, sel)
+
+
+def _dispatch(p, x, cfg: ModelConfig):
+    """Route the tokens of ``x`` (B, T, D) and fill the per-group expert
+    buffers.  Returns ``(buf (G, E, C, D), meta, aux)``; ``meta``: the
+    route's, then the capacity ``C``."""
+    B, T, D = x.shape
+    E, K = cfg.n_experts, cfg.topk
+    N = B * T
+    G, Ng, C = moe_capacity(cfg, N)
+    buf, meta, probs, sel = _route(x.reshape(G, Ng, D), p["router"], cfg, C)
+    # aux load-balance loss (Switch): E * Σ_e f_e · P_e (global)
+    me = torch.mean(probs, dim=(0, 1))
+    ce = torch.sum(F.one_hot(sel.reshape(-1), E).float(), dim=0) / (N * K)
+    return buf, (*meta, C), E * torch.sum(me * ce)
+
+
+def _dispatch_sharded(p, x, cfg: ModelConfig):
+    """:func:`_dispatch` over a ``DTensor`` ``x``: the groups are split
+    over the data-parallel axes (``G`` is a multiple of every data degree
+    the batch takes, so each rank's rows are whole groups) and each rank
+    routes its own (``local_map``, as the reference vmaps per group under
+    GSPMD); the loss's two global means are sums over the ranks."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    B, T, D = x.shape
+    E, K = cfg.n_experts, cfg.topk
+    N = B * T
+    G, Ng, C = moe_capacity(cfg, N)
+    mesh = x.device_mesh
+    batch = batch_axes(mesh, B)
+    rows = placements((batch,), mesh)
+    whole = placements((), mesh)
+    part = [Partial() if r.is_shard() else r for r in rows]
+
+    def local(xl, router):
+        Bl = xl.shape[0]
+        buf, meta, probs, sel = _route(
+            xl.reshape(Bl * G // B, Ng, D), router, cfg, C)
+        return (buf, *meta, torch.sum(probs, dim=(0, 1)),
+                torch.sum(F.one_hot(sel.reshape(-1), E).float(), dim=0))
+
+    # each rank's router gradient sums over its own groups only: partial
+    buf, *meta, psum, cnt = local_map(
+        local, out_placements=(rows,) * 6 + (part, part),
+        in_placements=(rows, whole), in_grad_placements=(rows, part),
+        device_mesh=mesh, redistribute_inputs=True)(x, p["router"])
+    aux = E * torch.sum((psum / N) * (cnt / (N * K)))
+    return buf, (*meta, C), aux
+
+
+def _experts(buf, wi, wg, wo, act):
+    """The experts' gated MLP over their buffers (G, E, C, D)."""
+    h = torch.einsum("gecd,edf->gecf", buf, wi)
+    g = torch.einsum("gecd,edf->gecf", buf, wg)
+    return torch.einsum("gecf,efd->gecd", act(g) * h, wo)
+
+
+def _experts_sharded(experts, buf, w):
+    """:func:`_experts` on a mesh, as GShard lays it out: each rank runs
+    its groups (over the data axes) through its experts (over ``model``
+    where they divide it), the weights gathered over their FSDP axis; a
+    weight's gradient is each rank's sum over its own groups, partial
+    over the data axes (``local_map``)."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    mesh = buf.device_mesh
+    ep = model_axis(mesh, buf.shape[1])
+    batch = batch_axes(mesh, buf.shape[0])
+    bufs = placements((batch, ep), mesh)
+    ws = placements((ep,), mesh)
+    dp = placements((batch,), mesh)
+    wgrad = [Partial() if d.is_shard() else p for d, p in zip(dp, ws)]
+    return local_map(experts, out_placements=bufs,
+                     in_placements=(bufs, ws, ws, ws),
+                     in_grad_placements=(bufs, wgrad, wgrad, wgrad),
+                     device_mesh=mesh, redistribute_inputs=True)(buf, *w)
+
+
+def _combine(y, token_of, slot, keep, w, K: int):
+    """Each token's K weighted expert outputs from y (G, E, C, D), summed
+    in the order the reference's scatter-add applies them (ascending
+    expert), one add at a time in y's dtype: (G, Ng, D)."""
+    G, E, C, D = y.shape
+    y_tok = y.reshape(G, E * C, D)
+    picked = torch.gather(y_tok, 1, torch.clamp(slot, 0, E * C - 1)[
+        ..., None].expand(-1, -1, D))
+    picked = torch.where(keep[..., None], picked, 0.0) * w[..., None]
+    # the sorted picks of each token, in sorted (ascending expert) order
+    by_token = torch.argsort(token_of, dim=-1, stable=True)
+    c = torch.gather(picked, 1, by_token[..., None].expand(-1, -1, D))
+    c = c.reshape(G, -1, K, D)
+    out = c[:, :, 0]
+    for j in range(1, K):
+        out = out + c[:, :, j]
+    return out
 
 
 def moe_ffn(p, x, cfg: ModelConfig):
@@ -529,26 +699,27 @@ def moe_ffn(p, x, cfg: ModelConfig):
 
     The combine sums each token's K weighted expert outputs in the order
     the reference's scatter-add applies them (ascending expert), one add
-    at a time in ``x.dtype``: a gather and a sum, no atomic adds."""
+    at a time in ``x.dtype``: a gather and a sum, no atomic adds.  On a
+    mesh, routing and combine run on each rank's groups and the expert
+    buffers are laid out (dp over G, model over E): the all-to-all."""
     B, T, D = x.shape
-    E, K = cfg.n_experts, cfg.topk
-    buf, (order, token_of, slot, keep, w, C), aux = _dispatch(p, x, cfg)
-    G, Ng = buf.shape[0], (B * T) // buf.shape[0]
-
-    h = torch.einsum("gecd,edf->gecf", buf, p["wi"].to(x.dtype))
-    g = torch.einsum("gecd,edf->gecf", buf, p["wg"].to(x.dtype))
-    h = _ACTS[cfg.mlp_act](g) * h
-    y = torch.einsum("gecf,efd->gecd", h, p["wo"].to(x.dtype))
-
-    y_tok = y.reshape(G, E * C, D)
-    picked = torch.gather(y_tok, 1, torch.clamp(slot, 0, E * C - 1)[
-        ..., None].expand(-1, -1, D))
-    picked = torch.where(keep[..., None], picked, 0.0) * w[..., None]
-    # the sorted picks of each token, in sorted (ascending expert) order
-    by_token = torch.argsort(token_of, dim=-1, stable=True)
-    c = torch.gather(picked, 1, by_token[..., None].expand(-1, -1, D))
-    c = c.reshape(G, Ng, K, D)
-    out = c[:, :, 0]
-    for j in range(1, K):
-        out = out + c[:, :, j]
+    K = cfg.topk
+    sharded = is_sharded(x)
+    buf, meta, aux = (_dispatch_sharded if sharded else _dispatch)(p, x, cfg)
+    buf = hint(buf, "dp", "model", None, None)
+    w = [p[k].to(x.dtype) for k in ("wi", "wg", "wo")]
+    experts = functools.partial(_experts, act=_ACTS[cfg.mlp_act])
+    if sharded:
+        y = _experts_sharded(experts, buf, w)
+    else:
+        y = experts(buf, *w)
+    y = hint(y, "dp", "model", None, None)
+    if not sharded:
+        return _combine(y, *meta[1:5], K).reshape(B, T, D), aux
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    rows = placements((batch_axes(mesh, B),), mesh)
+    out = local_map(lambda *a: _combine(*a, K), out_placements=rows,
+                    in_placements=(rows,) * 5, device_mesh=mesh,
+                    redistribute_inputs=True)(y, *meta[1:5])
     return out.reshape(B, T, D), aux

@@ -7,9 +7,15 @@ reference's parameter tree, where the scanned superblocks and encdec's
 layer stacks carry a leading layer axis: weight decay, checkpoints in the
 reference's layout and the weight conversions read it.
 
-The reference's ``input_specs`` and ``cache_axes`` (dry-run and sharding
-metadata) belong to the slice that ports ``launch/dryrun.py`` and
-``launch/sharding.py``.
+The sharding metadata the dry-run and ``launch.sharding`` read:
+``param_axes()`` (each parameter's logical axes, the reference's axes
+tree by ``named_parameters`` name), ``input_specs(shape)`` (the inputs of
+a step of that shape as ``meta`` tensors, the counterpart of
+``jax.ShapeDtypeStruct``) and ``cache_axes(S_max)`` (the decode caches'
+logical axes).  The loss, prefill and decode functions run under
+:func:`repro_torch.models.shardctx.scope`, so parameters laid over a mesh
+as ``DTensor`` objects meet the plain tensors the model makes as
+replicated.
 """
 from __future__ import annotations
 
@@ -19,9 +25,10 @@ from typing import Callable, Optional
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, Shape
 from ..device import resolve
-from . import encdec, transformer
+from . import encdec, shardctx, transformer
+from .layers import dtype_of
 
 __all__ = ["Model", "build_model", "ref_location"]
 
@@ -35,6 +42,9 @@ class Model:
     prefill: Callable       # (params, tokens, [frames,] max_len=None, caches=None)
     decode_step: Callable   # (params, caches, tokens, pos[, enc_out])
     init_cache: Callable    # (B, S_max) -> caches
+    param_axes: Callable    # () -> {parameter name: logical axes}
+    input_specs: Callable   # Shape -> {input name: meta tensor (or caches)}
+    cache_axes: Callable    # (S_max) -> caches of logical-axis strings
 
     def param_count(self, params) -> int:
         return sum(p.numel() for p in params.parameters())
@@ -43,10 +53,46 @@ class Model:
 def _init(mod, cfg: ModelConfig, device: torch.device,
           generator: Optional[torch.Generator] = None):
     """Parameters drawn from ``generator`` (a fresh one seeded 0 on the
-    model's device when none is given)."""
-    if generator is None:
+    model's device when none is given; on ``meta``, shapes only)."""
+    if generator is None and device.type != "meta":
         generator = torch.Generator(device=device).manual_seed(0)
     return mod.init(generator, cfg, device)
+
+
+def _scoped(fn):
+    """``fn`` run under :func:`shardctx.scope`."""
+    def call(*args, **kwargs):
+        with shardctx.scope():
+            return fn(*args, **kwargs)
+    return call
+
+
+def _input_specs(mod, cfg: ModelConfig, shape: Shape) -> dict:
+    """The inputs of a step of ``shape`` as ``meta`` tensors with the
+    reference's keys, shapes and dtypes (token ids int32, as the
+    reference's, though the port's embedding reads them as int64); a
+    decode shape's ``caches`` are the port's cache objects on ``meta``."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+
+    def spec(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device=meta)
+
+    dt = dtype_of(cfg.dtype)
+    out = {}
+    if mod is encdec and shape.kind != "decode":
+        out["frames"] = spec((B, cfg.enc_seq, cfg.d_model), dt)
+    if shape.kind in ("train", "prefill"):
+        out["tokens"] = spec((B, S), torch.int32)
+        if shape.kind == "train":
+            out["labels"] = spec((B, S), torch.int32)
+        return out
+    out["caches"] = mod.init_cache(cfg, B, S, meta)
+    out["tokens"] = spec((B, 1), torch.int32)
+    out["pos"] = spec((), torch.int32)
+    if mod is encdec:
+        out["enc_out"] = spec((B, cfg.enc_seq, cfg.d_model), dt)
+    return out
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
@@ -71,9 +117,13 @@ def build_model(cfg: ModelConfig, device=None) -> Model:
                   transformer.decode_step(params, cfg, caches, tokens, pos))
     return Model(
         cfg=cfg, device=dev,
-        init=functools.partial(_init, mod, cfg, dev), train_loss=loss,
-        prefill=prefill, decode_step=decode,
-        init_cache=lambda B, S_max: mod.init_cache(cfg, B, S_max, dev))
+        init=functools.partial(_init, mod, cfg, dev),
+        train_loss=_scoped(loss), prefill=_scoped(prefill),
+        decode_step=_scoped(decode),
+        init_cache=lambda B, S_max: mod.init_cache(cfg, B, S_max, dev),
+        param_axes=functools.partial(mod.param_axes, cfg),
+        input_specs=functools.partial(_input_specs, mod, cfg),
+        cache_axes=functools.partial(mod.cache_axes, cfg))
 
 
 def ref_location(cfg: ModelConfig, name: str):

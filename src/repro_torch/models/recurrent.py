@@ -15,6 +15,7 @@ buffers in place):
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -22,9 +23,12 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from .layers import _dt, _init, _pdt, gelu_tanh, sigmoid, silu
+from .shardctx import (batch_axes, is_sharded, linear, model_axis,
+                       placements, replicated)
 
-__all__ = ["init_rglru_block", "rglru_block", "init_rglru_state",
-           "init_rwkv_mix", "rwkv_mix", "init_rwkv_channel", "rwkv_channel",
+__all__ = ["init_rglru_block", "rglru_axes", "rglru_block",
+           "init_rglru_state", "init_rwkv_mix", "rwkv_mix_axes", "rwkv_mix",
+           "init_rwkv_channel", "rwkv_channel_axes", "rwkv_channel",
            "init_rwkv_state"]
 
 _C_RGLRU = 8.0  # Griffin's fixed recurrence sharpness constant
@@ -52,6 +56,14 @@ def init_rglru_block(gen, cfg: ModelConfig, device) -> dict:
                                            dtype=torch.float32),
         "wo": _init(gen, (W, D), W ** -0.5, _pdt(cfg), device),
     }
+
+
+def rglru_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of :func:`init_rglru_block`'s parameters."""
+    return {"wx": ("embed", "lru"), "wy": ("embed", "lru"),
+            "conv_w": (None, "lru"), "conv_b": ("lru",),
+            "wa": ("lru_in", "lru"), "wi": ("lru_in", "lru"),
+            "lam": ("lru",), "wo": ("lru", "embed")}
 
 
 def _causal_conv(x, w, b, tail: Optional[torch.Tensor]):
@@ -85,8 +97,8 @@ def _linear_scan(a, b):
 def rglru_block(p, x, cfg: ModelConfig, state: Optional[dict] = None):
     """Griffin recurrent block.  Returns (y, new_state)."""
     B, T, D = x.shape
-    u = torch.matmul(x, p["wx"].to(x.dtype))
-    gate = gelu_tanh(torch.matmul(x, p["wy"].to(x.dtype)))
+    u = linear(x, p["wx"].to(x.dtype))
+    gate = gelu_tanh(linear(x, p["wy"].to(x.dtype)))
 
     tail = state["conv"] if state is not None else None
     u, acc, new_tail = _causal_conv(u, p["conv_w"], p["conv_b"], tail)
@@ -94,8 +106,8 @@ def rglru_block(p, x, cfg: ModelConfig, state: Optional[dict] = None):
     # as the compiled reference does (see layers.add_norm)
     u32 = acc.float() + p["conv_b"].to(x.dtype).float()
 
-    r = sigmoid(torch.matmul(u, p["wa"].to(u.dtype)).float())
-    i = sigmoid(torch.matmul(u, p["wi"].to(u.dtype)).float())
+    r = sigmoid(linear(u, p["wa"].to(u.dtype)).float())
+    i = sigmoid(linear(u, p["wi"].to(u.dtype)).float())
     log_lam = torch.log(torch.clamp(p["lam"], 1e-6, 1 - 1e-6))
     log_a = _C_RGLRU * r * log_lam[None, None, :]            # (B,T,W) ≤ 0
     a = torch.exp(log_a)
@@ -115,7 +127,7 @@ def rglru_block(p, x, cfg: ModelConfig, state: Optional[dict] = None):
         new_h = hs[:, -1]
 
     y = hs.to(x.dtype) * gate
-    out = torch.matmul(y, p["wo"].to(x.dtype))
+    out = linear(y, p["wo"].to(x.dtype))
     return out, {"h": new_h, "conv": new_tail}
 
 
@@ -150,6 +162,22 @@ def init_rwkv_mix(gen, cfg: ModelConfig, device) -> dict:
         "ln_w": torch.ones((D,), dtype=_pdt(cfg), device=device),
         "wo": _init(gen, (D, D), D ** -0.5, _pdt(cfg), device),
     }
+
+
+def rwkv_mix_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of :func:`init_rwkv_mix`'s parameters, by the
+    reference's rule: a (D, D) matrix is ``("embed", "heads_rw")``, the
+    output projection ``("heads_rw", "embed")``, anything else replicated
+    (a shape test, so at D = 64 the LoRA factors count as (D, D) too)."""
+    D, H, K, lora = cfg.d_model, cfg.n_heads, cfg.hd, 64
+    shapes = {"mu_r": (D,), "mu_k": (D,), "mu_v": (D,), "mu_w": (D,),
+              "mu_g": (D,), "wr": (D, D), "wk": (D, D), "wv": (D, D),
+              "wg": (D, D), "w0": (D,), "wA": (D, lora), "wB": (lora, D),
+              "u": (H, K), "ln_w": (D,), "wo": (D, D)}
+    a = {k: (("embed", "heads_rw") if s == (D, D) else (None,) * len(s))
+         for k, s in shapes.items()}
+    a["wo"] = ("heads_rw", "embed")
+    return a
 
 
 def _rwkv_chunked(r, k, v, logw, S0, u, L: int):
@@ -200,6 +228,30 @@ def _token_shift(x, mu, tail, f32_out: bool = False):
     return prev + d
 
 
+def _recur_sharded(recur, r, k, v, w, S, u):
+    """The RWKV-6 recurrence over ``DTensor`` operands, on each rank's
+    rows and heads (``local_map``): batch over the data axes and heads
+    over ``model`` where they divide it; the bonus ``u``'s gradient sums
+    over this rank's rows, partial over the data axes."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    mesh = r.device_mesh
+    batch = batch_axes(mesh, r.shape[0])
+    heads = model_axis(mesh, r.shape[2])
+    seq = placements((batch, None, heads), mesh)
+    state = placements((batch, heads), mesh)
+    bonus = placements((heads,), mesh)
+    rows = placements((batch,), mesh)
+    bonus_grad = [Partial() if d.is_shard() else p
+                  for d, p in zip(rows, bonus)]
+    return local_map(
+        recur, out_placements=(state, seq),
+        in_placements=(seq, seq, seq, seq, state, bonus),
+        in_grad_placements=(seq, seq, seq, seq, state, bonus_grad),
+        device_mesh=mesh, redistribute_inputs=True)(
+        r, k, v, w, replicated(S, mesh), u)
+
+
 def _rwkv_steps(r, k, v, w, S, u):
     """The token-by-token recurrence: o_t = r·(S + u⊙k v^T);
     S' = diag(w) S + k v^T.  Returns (S_new, o (B,T,H,K))."""
@@ -225,7 +277,7 @@ def rwkv_mix(p, x, cfg: ModelConfig, state: Optional[dict] = None):
 
     def proj(mu_key, w_key):
         xs = _token_shift(x, p[mu_key], tail)
-        return torch.matmul(xs, p[w_key].to(x.dtype))
+        return linear(xs, p[w_key].to(x.dtype))
 
     r = proj("mu_r", "wr").reshape(B, T, H, K)
     k = proj("mu_k", "wk").reshape(B, T, H, K)
@@ -235,8 +287,8 @@ def rwkv_mix(p, x, cfg: ModelConfig, state: Optional[dict] = None):
     # the decay reads its token shift's last add unrounded, as the
     # compiled reference does (see layers.add_norm)
     xw32 = _token_shift(x, p["mu_w"], tail, f32_out=True)
-    ww = p["w0"].float() + torch.matmul(
-        torch.matmul(xw32, p["wA"].float()), p["wB"].float())
+    ww = p["w0"].float() + linear(
+        linear(xw32, p["wA"].float()), p["wB"].float())
     logw = -torch.exp(ww)                      # log decay ≤ 0, (B,T,D)
     w = torch.exp(logw).reshape(B, T, H, K)
 
@@ -250,16 +302,21 @@ def rwkv_mix(p, x, cfg: ModelConfig, state: Optional[dict] = None):
 
     L = cfg.rwkv_chunk
     if L and T >= 2 * L and T % L == 0:
-        S_new, o = _rwkv_chunked(r32, k32, v32, logw, S0, u, L)
+        recur = functools.partial(_rwkv_chunked, L=L)
+        args = (r32, k32, v32, logw, S0, u)
     else:
-        S_new, o = _rwkv_steps(r32, k32, v32, w.float(), S0, u)
+        recur, args = _rwkv_steps, (r32, k32, v32, w.float(), S0, u)
+    if is_sharded(r32):
+        S_new, o = _recur_sharded(recur, *args)
+    else:
+        S_new, o = recur(*args)
 
     # per-head group norm then gate
     o = o.reshape(B, T, H, K)
     o = o * torch.rsqrt(torch.mean(o * o, dim=-1, keepdim=True) + 1e-5)
     o = (o.reshape(B, T, D) * p["ln_w"].float()).to(x.dtype)
     o = o * g
-    out = torch.matmul(o, p["wo"].to(x.dtype))
+    out = linear(o, p["wo"].to(x.dtype))
     return out, {"S": S_new, "x_tail": x[:, -1]}
 
 
@@ -288,13 +345,18 @@ def init_rwkv_channel(gen, cfg: ModelConfig, device) -> dict:
     }
 
 
+def rwkv_channel_axes(cfg: ModelConfig) -> dict:
+    return {"mu_k": (None,), "mu_r": (None,), "wk": ("embed", "mlp"),
+            "wv": ("mlp", "embed"), "wr": ("embed", "heads_rw")}
+
+
 def rwkv_channel(p, x, cfg: ModelConfig, state: Optional[dict] = None):
     B, T, D = x.shape
     tail = (state["c_tail"] if state is not None
             else torch.zeros((B, D), dtype=x.dtype, device=x.device))
     xk = _token_shift(x, p["mu_k"], tail)
     xr = _token_shift(x, p["mu_r"], tail)
-    k = torch.square(F.relu(torch.matmul(xk, p["wk"].to(x.dtype))))
-    kv = torch.matmul(k, p["wv"].to(x.dtype))
-    r = sigmoid(torch.matmul(xr, p["wr"].to(x.dtype)))
+    k = torch.square(F.relu(linear(xk, p["wk"].to(x.dtype))))
+    kv = linear(k, p["wv"].to(x.dtype))
+    r = sigmoid(linear(xr, p["wr"].to(x.dtype)))
     return r * kv, {"c_tail": x[:, -1]}

@@ -37,9 +37,12 @@ from torch import nn
 from ..configs.base import ModelConfig
 from . import layers as L
 from . import recurrent as R
+from .shardctx import (batch_axes, hint, is_sharded, linear, model_axis,
+                       placements)
 
 __all__ = ["Block", "LM", "init", "forward", "init_cache", "decode_step",
-           "prefill", "layer_paths", "train_loss", "remat"]
+           "prefill", "layer_paths", "train_loss", "remat", "param_axes",
+           "cache_axes", "flat_axes", "embed_lookup"]
 
 
 # ---------------------------------------------------------------------------
@@ -72,12 +75,39 @@ def _init_block(gen, cfg: ModelConfig, kind: str, device) -> dict:
     return p
 
 
+def _block_axes(cfg: ModelConfig, kind: str) -> dict:
+    """The logical axes of :func:`_init_block`'s parameters."""
+    a: dict = {"ln1": (None,), "ln2": (None,)}
+    if kind in ("global", "local", "bidir"):
+        a["attn"] = L.attention_axes(cfg)
+    elif kind == "rec":
+        a["rec"] = R.rglru_axes(cfg)
+    else:
+        a["mix"] = R.rwkv_mix_axes(cfg)
+    if kind == "rwkv":
+        a["chan"] = R.rwkv_channel_axes(cfg)
+    elif cfg.is_moe:
+        a["moe"] = L.moe_axes(cfg)
+    else:
+        a["mlp"] = L.mlp_axes(cfg)
+    if cfg.softcap_attn:
+        a["ln1_post"] = (None,)
+        a["ln2_post"] = (None,)
+    return a
+
+
 def _block(p, x, cfg: ModelConfig, kind: str, pos, state, x32=None):
     """One block. state: kind-specific decode state or None.  ``x32``:
     the input before its last rounding, which the first norm reads where
     the reference compiles this block together with what came before it.
     Returns (x, x before its last rounding, new_state, aux)."""
     aux = None
+    if cfg.seq_parallel:
+        # residual stream sharded over (dp, model-on-T): norms run local,
+        # attention/MLP boundaries become all-gather / reduce-scatter pairs
+        x = hint(x, "dp", "model", None)
+        if x32 is not None:
+            x32 = hint(x32, "dp", "model", None)
     h = L.rms_norm(x, p["ln1"], x32=x32)
     if kind in ("global", "local", "bidir"):
         h, new_state = L.attention(p["attn"], h, cfg, kind, pos, cache=state)
@@ -187,25 +217,68 @@ def init(gen: torch.Generator, cfg: ModelConfig, device) -> LM:
     return LM(cfg, tree, blocks)
 
 
+def flat_axes(tree, prefix: str = "") -> dict:
+    """An axes tree (dicts and lists of tuple leaves) as ``{name: axes}``
+    under the names ``named_parameters`` gives."""
+    if isinstance(tree, tuple):
+        return {prefix[:-1]: tree}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {}
+    for k, v in items:
+        out.update(flat_axes(v, f"{prefix}{k}."))
+    return out
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """Each parameter's logical axes, by its name in ``named_parameters``:
+    the reference's axes tree, a stacked leaf's leading ``"layers"``
+    dropped (the port keeps one module per layer)."""
+    tree: dict = {"embed": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        tree["head"] = ("embed", "vocab")
+    tree["ln_f"] = (None,)
+    tree["blocks"] = [_block_axes(cfg, kind) for kind in layer_kinds(cfg)]
+    return flat_axes(tree)
+
+
 # ---------------------------------------------------------------------------
 # forward passes
 # ---------------------------------------------------------------------------
 
+def embed_lookup(table, tokens, dtype):
+    """Rows of ``table`` at ``tokens`` in ``dtype`` (``F.embedding``, a
+    gather).  On a mesh the table is gathered whole first (ZeRO-3's
+    gather of its FSDP axis, and of its vocab axis too), so the lookup
+    runs on each rank's batch rows with no collective.  DTensor's own
+    lookup into a vocab-sharded table is a masked partial sum, whose
+    gradient it can neither add to the unembedding's (tied tables) nor
+    build from a partial one (dbrx), and which it reorders against
+    batch-sharded ids (its mask then misses the rows)."""
+    if is_sharded(table):
+        from torch.distributed.tensor import Replicate
+        table = table.redistribute(table.device_mesh,
+                                   [Replicate()] * table.device_mesh.ndim)
+    return torch.nn.functional.embedding(tokens.long(), table).to(dtype)
+
+
 def _embed(params, cfg: ModelConfig, tokens):
     """The embedded tokens, and the same before their last rounding."""
     dt = L.dtype_of(cfg.dtype)
-    x = params["embed"][tokens.long()].to(dt)
+    x = embed_lookup(params["embed"], tokens, dt)
     if cfg.tie_embeddings:
         # the reference scales by sqrt(D) already rounded to the dtype
-        x32 = x.float() * L._const(cfg.d_model ** 0.5, dt)
+        x32 = hint(x.float() * L._const(cfg.d_model ** 0.5, dt), "dp",
+                   None, None)
         return x32.to(dt), x32
+    x = hint(x, "dp", None, None)
     return x, x.float()
 
 
 def _unembed(params, cfg: ModelConfig, x, x32=None):
     x = L.rms_norm(x, params["ln_f"], x32=x32)
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    logits = torch.matmul(x, w.to(x.dtype)).float()
+    logits = hint(linear(x, w.to(x.dtype)).float(), "dp", None,
+                  "model")
     if cfg.softcap_final:
         c = cfg.softcap_final
         logits = c * torch.tanh(logits / c)
@@ -271,15 +344,50 @@ def forward(params, cfg: ModelConfig, tokens, caches=None, pos0=None,
 
 def cross_entropy(logits, labels):
     """Mean next-token cross-entropy over the labels ``>= 0``, as the
-    reference computes it: ``logsumexp - gold`` in f32.  (The reference
-    picks the gold logit with a masked sum; a gather gives the same
-    bits.)"""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        labels.clamp(min=0).long()[..., None])[..., 0]
+    reference computes it: ``logsumexp - gold`` in f32 (the gold logit
+    picked with a gather: the reference's masked sum gives the same bits
+    and a second (B, S, V) buffer).  On a mesh: :func:`_sharded_ce`."""
+    if is_sharded(logits):
+        logz, gold = _sharded_ce(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
     return (torch.sum((logz - gold) * mask)
             / torch.clamp(torch.sum(mask), min=1.0))
+
+
+def _sharded_ce(logits, labels):
+    """``(logsumexp, gold logit)`` of vocab-sharded ``logits`` without
+    gathering them: each rank takes the logsumexp of its vocab shard and
+    picks its gold logit with the reference's masked sum (zero where the
+    label lies in another shard), on its own rows (``local_map``); the
+    shards' logsumexps are combined by one more logsumexp over ranks and
+    the gold picks by a sum."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
+    names = mesh.mesh_dim_names
+    batch = batch_axes(mesh, logits.shape[0])
+    vocab = model_axis(mesh, logits.shape[-1])
+    rows = placements((batch,), mesh)
+
+    def local(lg, lb):
+        lo = (mesh.get_local_rank("model") * lg.shape[-1]) if vocab else 0
+        iota = torch.arange(lo, lo + lg.shape[-1], device=lg.device)
+        gold = torch.sum(torch.where(iota == lb[..., None], lg, 0.0), dim=-1)
+        return torch.logsumexp(lg, dim=-1)[..., None], gold
+
+    per_rank = [Shard(2) if n == "model" and vocab else p
+                for n, p in zip(names, rows)]
+    partial = [Partial() if n == "model" and vocab else p
+               for n, p in zip(names, rows)]
+    lse, gold = local_map(
+        local, out_placements=(per_rank, partial),
+        in_placements=(placements((batch, None, vocab), mesh), rows),
+        device_mesh=mesh, redistribute_inputs=True)(logits, labels)
+    return torch.logsumexp(lse, dim=-1), gold
 
 
 def train_loss(params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
@@ -313,6 +421,29 @@ def _init_block_state(cfg: ModelConfig, kind: str, B: int, S_max: int,
 def init_cache(cfg: ModelConfig, B: int, S_max: int, device) -> list:
     return [_init_block_state(cfg, kind, B, S_max, device)
             for kind in layer_kinds(cfg)]
+
+
+def _block_state_axes(cfg: ModelConfig, kind: str, S_max: int):
+    """Logical axes of one layer's decode state, as comma-joined strings:
+    the reference's, laid over the port's buffers.  A KV buffer is
+    (B, N, S, K) here against the reference's (B, S, N, K): the names
+    follow the dimensions."""
+    if kind in ("global", "local"):
+        kv = "batch,kv_heads,time,none"
+        return L.KVCache(kv, kv, "scalar",
+                         min(cfg.window, S_max) if kind == "local" else 0)
+    if kind == "rec":
+        return {"h": "batch,lru", "conv": "batch,none,lru"}
+    if kind == "rwkv":
+        return {"S": "batch,heads,none,none", "x_tail": "batch,none",
+                "c_tail": "batch,none"}
+    raise KeyError(kind)  # pragma: no cover
+
+
+def cache_axes(cfg: ModelConfig, S_max: int) -> list:
+    """A mirror of :func:`init_cache` carrying logical-axis strings, read
+    by ``launch.sharding.cache_shardings``."""
+    return [_block_state_axes(cfg, kind, S_max) for kind in layer_kinds(cfg)]
 
 
 def reset_cache(caches) -> None:

@@ -18,6 +18,13 @@ package restores what the other saved:
   (``copy_``), so a captured train step goes on replaying over them.
   Without a step it falls back past a corrupt or partial newest
   checkpoint with a warning; an explicitly requested step raises.
+* **Elastic restart** — a ``DTensor`` leaf (a tensor laid over a mesh) is
+  saved whole, gathered on every rank and written by rank 0 alone, in
+  the same layout as an unsharded one; ``restore(..., shardings=)`` lays
+  each leaf over the current mesh (a tree or one sharding with a
+  ``mesh`` and ``placements``, as ``launch.sharding.NamedSharding``), so a
+  checkpoint saved on 8 ranks restores onto 4, sharded restores
+  unsharded, and the reverse.
 * **Async** — ``save(..., blocking=False)`` copies the leaves to the host
   first, then writes on a thread; training continues.
 """
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..models.shardctx import is_sharded
 
 __all__ = ["save", "restore", "latest_step", "CheckpointManager"]
 
@@ -44,12 +52,25 @@ _EXOTIC = {"bfloat16": (torch.bfloat16, torch.int16, np.uint16),
            "float8_e5m2": (torch.float8_e5m2, torch.uint8, np.uint8)}
 
 
+def _whole(x):
+    """A leaf as one tensor: a ``DTensor`` gathered (a collective: every
+    rank of its mesh calls it)."""
+    return x.full_tensor() if is_sharded(x) else x
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0 of the default
+    process group, or the only process."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_storable(x):
     """``(array, logical dtype name)`` of a leaf (a tensor or an array)."""
     if not torch.is_tensor(x):
         a = np.array(x, copy=True)
         return a, a.dtype.name
-    t = x.detach().cpu().contiguous()
+    t = _whole(x.detach()).cpu().contiguous()
     for name, (dt, bits, view) in _EXOTIC.items():
         if t.dtype == dt:
             return t.view(bits).numpy().view(view).copy(), name
@@ -96,10 +117,15 @@ def save(ckpt_dir: str, step: int, tree: Dict[str, Any],
          extra: Optional[dict] = None, blocking: bool = True):
     """Save a tree of tensors or arrays atomically.  Returns the final
     path, or with ``blocking=False`` the writer thread (the leaves are on
-    the host before it starts)."""
+    the host before it starts).  Under a process group every rank calls
+    it (``DTensor`` leaves are gathered) and rank 0 writes: the others
+    return the path, or None for a thread."""
     host, logical_dtypes = {}, {}
     for k, v in _flatten(tree).items():
         host[k], logical_dtypes[k] = _to_storable(v)
+    if not _writer():
+        return None if not blocking else os.path.join(ckpt_dir,
+                                                      f"step_{step}")
 
     def write():
         tmp = os.path.join(ckpt_dir, f"step_{step}.tmp")
@@ -173,8 +199,31 @@ def _load_step(ckpt_dir: str, step: int) -> tuple:
     return flat, manifest
 
 
-def _place(flat: dict, device, into) -> Any:
+def _laid(flat: dict, shardings) -> dict:
+    """``flat``'s leaves laid over their shardings' meshes (``DTensor``
+    objects); a leaf with no sharding stays as it is."""
+    from torch.distributed.tensor import distribute_tensor
+    per_leaf = _flatten(shardings) if isinstance(shardings, dict) else None
+    out = {}
+    for k, v in flat.items():
+        sh = per_leaf.get(k) if per_leaf is not None else shardings
+        if sh is None:
+            out[k] = v
+            continue
+        mesh = sh.mesh
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if mesh.device_type == "cuda" else torch.device("cpu"))
+        out[k] = distribute_tensor(v.to(dev), mesh, sh.placements,
+                                   src_data_rank=None)
+    return out
+
+
+def _place(flat: dict, device, into, shardings=None) -> Any:
+    if shardings is not None:
+        flat = _laid(flat, shardings)
     if into is None:
+        if shardings is not None:
+            return _unflatten(flat)
         dev = resolve(device)
         return _unflatten({k: v.to(dev) for k, v in flat.items()})
     target = _flatten(into)
@@ -188,16 +237,26 @@ def _place(flat: dict, device, into) -> Any:
                              f"{t.dtype}")
     with torch.no_grad():
         for k, t in target.items():
-            t.copy_(flat[k])
+            v = flat[k]
+            if is_sharded(t) and not is_sharded(v):
+                # the whole leaf, laid as the live tensor is laid
+                from torch.distributed.tensor import distribute_tensor
+                v = distribute_tensor(v.to(t.to_local().device),
+                                      t.device_mesh, t.placements,
+                                      src_data_rank=None)
+            t.copy_(v)
     return into
 
 
 def restore(ckpt_dir: str, step: Optional[int] = None, device=None,
-            into=None):
+            into=None, shardings=None):
     """Restore a checkpoint: ``(tree, manifest)``, the tree's leaves as
-    tensors on ``device`` (CUDA unless ``"cpu"`` is asked for), or written
-    into ``into`` (a tree of tensors with the same leaves, shapes and
-    dtypes), which is returned.  ``(None, None)`` when there is none.
+    tensors on ``device`` (CUDA unless ``"cpu"`` is asked for), or laid
+    over a mesh by ``shardings`` (a tree of the same leaves, or one for
+    all: each with a ``mesh`` and ``placements``), or written into
+    ``into`` (a tree of tensors with the same leaves, shapes and dtypes;
+    a ``DTensor`` there takes the leaf laid as it is), which is returned.
+    ``(None, None)`` when there is none.
 
     With ``step=None`` (restart discovery), a corrupt or partially
     written newest checkpoint — a truncated ``arrays.npz`` or
@@ -206,11 +265,11 @@ def restore(ckpt_dir: str, step: Optional[int] = None, device=None,
     An explicitly requested ``step`` still raises: the caller asked for
     *that* state.  Nothing is written into ``into`` unless a whole
     checkpoint was read."""
-    if into is None:
+    if into is None and shardings is None:
         resolve(device)
     if step is not None:
         flat, manifest = _load_step(ckpt_dir, step)
-        return _place(flat, device, into), manifest
+        return _place(flat, device, into, shardings), manifest
     newest = latest_step(ckpt_dir)
     candidates = _available_steps(ckpt_dir)
     if newest is not None:
@@ -230,7 +289,7 @@ def restore(ckpt_dir: str, step: Optional[int] = None, device=None,
                 f"checkpoint step_{prev} is corrupt or incomplete "
                 f"({type(err).__name__}: {err}); restored step_{s} instead",
                 RuntimeWarning, stacklevel=2)
-        return _place(flat, device, into), manifest
+        return _place(flat, device, into, shardings), manifest
     raise RuntimeError(
         f"no restorable checkpoint in {ckpt_dir!r}: "
         + "; ".join(f"step_{s}: {type(e).__name__}: {e}"
@@ -261,11 +320,18 @@ class CheckpointManager:
             self._pending.join()
             self._pending = None
 
-    def restore_latest(self, device=None, into=None):
+    def restore_latest(self, device=None, into=None, shardings=None):
+        """The newest checkpoint (see :func:`restore`).  Under a process
+        group every rank calls it, after rank 0's write in flight."""
+        import torch.distributed as dist
         self.wait()
-        return restore(self.dir, None, device, into)
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
+        return restore(self.dir, None, device, into, shardings)
 
     def _gc(self):
+        if not _writer():
+            return
         steps = sorted(
             int(d.split("_")[1]) for d in os.listdir(self.dir)
             if d.startswith("step_") and not d.endswith(".tmp"))

@@ -45,6 +45,7 @@ import torch
 
 from ..engine import capture
 from ..models import layers as L
+from ..models import shardctx
 from ..models.model import Model
 from .optimizer import AdamWConfig, adamw_update
 
@@ -62,14 +63,33 @@ def value_and_grad(model: Model, params, batch) -> tuple:
     ``params``."""
     params.requires_grad_(True)
     names, leaves = zip(*params.named_parameters())
-    with torch.enable_grad():
+    with torch.enable_grad(), shardctx.scope():
         loss = model.train_loss(params, batch)
         grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
     return loss.detach(), dict(zip(names, grads))
 
 
-def _micro(x, n_micro: int):
-    return x.reshape((n_micro, x.shape[0] // n_micro) + x.shape[1:])
+def _micro_batches(batch: dict, n_micro: int) -> list:
+    """``batch`` split into ``n_micro`` microbatches along its rows.  A
+    ``DTensor`` leaf (a batch laid over a mesh) is split on each rank's
+    own rows, so every microbatch keeps the batch's layout (a global
+    reshape would split the sharded row axis unevenly).  The microbatches
+    then group the global rows otherwise than the plain split; the mean
+    loss over them is the same wherever each counts as many labels."""
+    parts = {}
+    for k, x in batch.items():
+        if shardctx.is_sharded(x):
+            from torch.distributed.tensor import DTensor
+            loc = x.to_local()
+            loc = loc.reshape((n_micro, loc.shape[0] // n_micro)
+                              + loc.shape[1:])
+            parts[k] = [DTensor.from_local(loc[i], x.device_mesh,
+                                           x.placements, run_check=False)
+                        for i in range(n_micro)]
+        else:
+            parts[k] = x.reshape((n_micro, x.shape[0] // n_micro)
+                                 + x.shape[1:])
+    return [{k: v[i] for k, v in parts.items()} for i in range(n_micro)]
 
 
 class _TrainStep:
@@ -86,13 +106,11 @@ class _TrainStep:
         if self.n_micro == 1:
             loss, grads = value_and_grad(self.model, params, batch)
         else:
-            mb = {k: _micro(v, self.n_micro) for k, v in batch.items()}
             loss = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
             grads = None
-            for i in range(self.n_micro):
-                li, gi = value_and_grad(self.model, params,
-                                        {k: v[i] for k, v in mb.items()})
+            for mb in _micro_batches(batch, self.n_micro):
+                li, gi = value_and_grad(self.model, params, mb)
                 loss = loss + li
                 grads = gi if grads is None else {
                     k: grads[k] + g for k, g in gi.items()}

@@ -86,6 +86,19 @@ def test_the_rules_cover_the_training_modules():
             "launch/train.py"} <= paths
 
 
+def test_the_rules_cover_the_sharding_and_roofline_modules():
+    """Sharding (the hints, the rules), the dry-run and the roofline are
+    among the modules imported and scanned below."""
+    assert {"repro_torch.models.shardctx", "repro_torch.launch.sharding",
+            "repro_torch.launch.dryrun", "repro_torch.roofline",
+            "repro_torch.roofline.analysis", "repro_torch.roofline.recompute",
+            "repro_torch.roofline.report"} <= set(_modules())
+    paths = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {"models/shardctx.py", "launch/sharding.py", "launch/dryrun.py",
+            "roofline/analysis.py", "roofline/recompute.py",
+            "roofline/report.py"} <= paths
+
+
 def test_importing_the_port_loads_no_jax_and_no_reference():
     code = ("import importlib, sys\n"
             f"for m in {_modules()!r}:\n"
