@@ -183,7 +183,7 @@ Phases (each raises on failure; the script then exits non-zero):
    the f32 variant also run in f64 on both (every f32 op promoted): card
    and CPU within 1e-10, and each one's f32 gradients held against that
    f64 result.  (d)
-   ``launch.train.main`` at SMOKE (``--mesh none``: plain tensors) with
+   ``launch.train.main`` at SMOKE (on its 1-rank NCCL mesh) with
    checkpoints under ``out/``, cut
    after step 3's checkpoint and relaunched, ends bit for bit with the
    uninterrupted run; a checkpoint restored into a live captured step
@@ -197,15 +197,18 @@ Phases (each raises on failure; the script then exits non-zero):
    qwen3-1.7b at train_4k, prefill_32k and decode_32k, granite-moe-1b-
    a400m and dbrx-132b at train_4k; each must be ``ok``, and prints its
    GB a device against 80 GB, its dominant roofline term and its roofline
-   fraction on the H100's constants.  (b) The same at 14(a)'s cell on
-   ``--mesh local`` (a (1, 1) mesh over a real 1-rank NCCL group): its
+   fraction on the H100's constants; each must have traced CUDA tensors
+   over a CUDA mesh (``device_type`` ``cuda``).  (b) The same at 14(a)'s
+   cell on ``--mesh local`` (a (1, 1) mesh over a real 1-rank NCCL
+   group), also ``cuda``: its
    argument bytes equal the real parameters, AdamW state and batch
    exactly, and its FLOPs ``FlopCounterMode``'s over one real eager step;
    its predicted peak beside 14(a)'s ``max_memory_allocated``, its terms
-   beside 14(a)'s ms a step and bound.  (c) ``launch.train.main`` at
-   SMOKE on a 1-rank NCCL mesh (its default), cut at step 3 and
-   relaunched, equals 14(d)'s unsharded run (``--mesh none``) bit for
-   bit; a mesh train step's graphs and the syncs of a steady step.
+   beside 14(a)'s ms a step and bound.  (c) 14(d)'s ``launch.train.main``
+   runs (a 1-rank NCCL mesh, ``DTensor`` parameters), uninterrupted and
+   cut at step 3 and relaunched, equal a plain ``make_train_step`` loop
+   over plain tensors with the same seeds and settings bit for bit; a
+   mesh train step's graphs and the syncs of a steady step.
 16. One JSON line with every kernel's launches on the main path (the sum
    of the windows of phases 3-11 and 13-15), its error against its plain
    version, its times and its bound.  ``fused_trend`` has no caller on any
@@ -3543,8 +3546,7 @@ def lm_train_resume(dev) -> dict:
     root = Path("out/train_ckpt")
     shutil.rmtree(root, ignore_errors=True)
     args = ["--arch", TRAIN_ARCH, "--smoke", "--steps", "6", "--batch", "2",
-            "--seq", "16", "--ckpt-every", "3", "--log-every", "3",
-            "--mesh", "none"]
+            "--seq", "16", "--ckpt-every", "3", "--log-every", "3"]
     full = launch_train.main(args + ["--ckpt-dir", str(root / "a")])
     launch_train.main(args + ["--ckpt-dir", str(root / "b")])
     shutil.rmtree(root / "b" / "step_6")
@@ -3663,6 +3665,9 @@ def _dryrun_result(label: str, proc, out: Path) -> dict:
         raise AssertionError(f"15: dry-run {label} failed (exit "
                              f"{proc.returncode}): {rec.get('error')}\n"
                              f"{tail}")
+    if rec.get("device_type") != "cuda":
+        raise AssertionError(f"15: dry-run {label} traced "
+                             f"{rec.get('device_type')!r} tensors, not cuda")
     return rec
 
 
@@ -3723,9 +3728,11 @@ def dryrun_against_card(dev, rec: dict, full: dict) -> dict:
 
 
 def mesh_trainer(dev, resume: dict) -> dict:
-    """15(c): ``launch.train.main`` at SMOKE on a 1-rank NCCL mesh (its
-    default), cut after step 3's checkpoint and relaunched, against
-    14(d)'s unsharded run (``--mesh none``): the same loss and state, bit
+    """15(c): 14(d)'s ``launch.train.main`` runs at SMOKE (on a 1-rank
+    NCCL mesh, ``DTensor`` parameters and AdamW state), the uninterrupted
+    one and the one cut after step 3's checkpoint and relaunched, against
+    a plain ``make_train_step`` loop over plain tensors with
+    ``launch.train``'s seeds and settings: the same loss and state, bit
     for bit.  Then a mesh train step alone: its graphs and the syncs of a
     steady step."""
     import shutil
@@ -3733,40 +3740,47 @@ def mesh_trainer(dev, resume: dict) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.launch import sharding as SH
-    from repro_torch.launch import train as launch_train
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import build_model, shardctx
     from repro_torch.train import checkpoint as ck
     from repro_torch.train import init_opt_state, make_train_step
+    from repro_torch.train.optimizer import AdamWConfig
+    steps = 6
+    cfg = get_config(TRAIN_ARCH, smoke=True)
+    model = build_model(cfg, device=dev)
+    # launch.train's: seed 0, the pipeline's default seed, lr 3e-3,
+    # warmup max(steps // 20, 1), one microbatch
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    opt = init_opt_state(params)
+    pipe = TokenPipeline(cfg, 2, 16, device=dev)
+    step_fn = make_train_step(model, AdamWConfig(
+        lr=3e-3, total_steps=steps, warmup_steps=max(steps // 20, 1)))
+    for _ in range(steps):
+        _, _, metrics = step_fn(params, opt, pipe.next())
+    loss = float(metrics["loss"])
     root = Path("out/train_ckpt")
-    for d in ("mesh_a", "mesh_b"):
-        shutil.rmtree(root / d, ignore_errors=True)
-    args = ["--arch", TRAIN_ARCH, "--smoke", "--steps", "6", "--batch", "2",
-            "--seq", "16", "--ckpt-every", "3", "--log-every", "3"]
-    full = launch_train.main(args + ["--ckpt-dir", str(root / "mesh_a")])
-    launch_train.main(args + ["--ckpt-dir", str(root / "mesh_b")])
-    shutil.rmtree(root / "mesh_b" / "step_6")
-    (root / "mesh_b" / "latest").write_text("3")
-    resumed = launch_train.main(args + ["--ckpt-dir", str(root / "mesh_b")])
-    plain, _ = ck.restore(str(root / "a"), device="cpu")
-    flat = ck._flatten(plain)
+    shutil.rmtree(root / "plain", ignore_errors=True)
+    ck.save(str(root / "plain"), steps,
+            {"params": dict(params.named_parameters()), "opt": opt})
+    del params, opt
+    flat = ck._flatten(ck.restore(str(root / "plain"), device="cpu")[0])
     same = {}
-    for d in ("mesh_a", "mesh_b"):
+    for d in ("a", "b"):
         got, _ = ck.restore(str(root / d), device="cpu")
         got = ck._flatten(got)
         same[d] = got.keys() == flat.keys() and all(
             torch.equal(got[k], flat[k]) for k in flat)
-    ok = full == resumed == resume["loss"] and all(same.values())
-    log(f"  15(c) launch.train on a 1-rank NCCL mesh, cut at step 3 and "
-        f"relaunched: loss {resumed!r}, uninterrupted {full!r}, 14(d)'s "
-        f"unsharded {resume['loss']!r}; state against 14(d)'s: "
-        + ", ".join(f"{d} {'bit for bit' if v else 'DIFFERS'}"
-                    for d, v in same.items()))
+    ok = resume["loss"] == resume["resumed"] == loss and all(same.values())
+    log(f"  15(c) 14(d)'s launch.train on a 1-rank NCCL mesh against a "
+        f"plain make_train_step loop: loss {resume['loss']!r} "
+        f"uninterrupted, {resume['resumed']!r} relaunched, {loss!r} plain; "
+        f"state: " + ", ".join(
+            f"{'uninterrupted' if d == 'a' else 'relaunched'} "
+            f"{'bit for bit' if v else 'DIFFERS'}" for d, v in same.items()))
     if not ok:
-        raise AssertionError("15(c): the mesh trainer differs from 14(d)")
+        raise AssertionError("15(c): the mesh trainer differs from the "
+                             "plain loop")
 
-    cfg = get_config(TRAIN_ARCH, smoke=True)
-    model = build_model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(TRAIN_SEED))
     opt = init_opt_state(params)
     mesh = make_local_mesh()
@@ -3785,8 +3799,8 @@ def mesh_trainer(dev, resume: dict) -> dict:
     log(f"  15(c) a mesh train step (DTensor parameters, 1-rank NCCL "
         f"mesh): {step_fn.captures} graph(s) captured over 4 steps, "
         f"{syncs} syncs a steady step")
-    return {"loss": full, "resumed": resumed, "state": same,
-            "captures": step_fn.captures, "syncs": syncs}
+    return {"loss": loss, "state": same, "captures": step_fn.captures,
+            "syncs": syncs}
 
 
 def start_dryrun_cells() -> dict:

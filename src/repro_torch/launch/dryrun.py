@@ -8,13 +8,20 @@ runs one *eager* step of the cell, in one process, over:
 1. a ``fake`` process group of 256 (``single``: the (16, 16) mesh) or 512
    (``multi``: (2, 16, 16)) ranks, whose collectives do nothing, or with
    ``--mesh local`` a (1, 1) mesh over a real 1-rank group (NCCL on the
-   card, gloo on a CPU-only build);
+   card; gloo with ``--device cpu``);
 2. the production mesh and its axes declared to ``models.shardctx``;
 3. parameters, AdamW state and the shape's inputs as fake tensors
    (``FakeTensorMode``: shapes, dtypes and devices, no memory), laid out
-   as ``DTensor`` objects by ``launch.sharding``; on a build with CUDA they
-   are on ``cuda``, on a CPU-only build on ``cpu`` (PyTorch cannot take a
-   view of a fake CUDA tensor there), which changes no count;
+   as ``DTensor`` objects by ``launch.sharding``, on ``cuda`` (the card
+   is the target, and nothing is allocated on it) unless ``--device cpu``
+   asks for ``cpu``: there is no other way on a host without a card,
+   where PyTorch cannot slice a fake CUDA tensor, and it is not the
+   card's program: PyTorch picks some kernels by device type, and
+   DTensor's sharding strategies and collectives with them (qwen3-1.7b's
+   train cell runs 112 more all-reduces on CUDA tensors, and DTensor
+   moves a shard between dimensions by all-to-all on CUDA groups but by
+   all-gather on CPU ones), so the collective record differs.  Every
+   record says which (``device_type``);
 4. the step, traced by :class:`repro_torch.roofline.analysis.StepTrace`:
    ``make_train_step(model, AdamWConfig(), n_micro)``'s eager step for a
    train shape (4 microbatches, as the reference), the prefill, or one
@@ -32,10 +39,11 @@ traceback).  The reference's second, layers-unrolled lowering has no
 counterpart (an eager trace sees every FLOP once), so ``scan_layers`` is
 ignored.
 
-Usage:
+Usage (without a card, add ``--device cpu``):
   python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k \\
       --mesh single --json out/cell.json
   python -m repro_torch.launch.dryrun --all --out-dir out/dryrun --mesh both
+  python -m repro_torch.launch.dryrun --all --shape train_4k --jobs 5
 """
 from __future__ import annotations
 
@@ -53,12 +61,12 @@ __all__ = ["run_cell", "trace_cell", "all_cells", "main"]
 SIZES = {"single": 256, "multi": 512}
 
 
-def _start_group(mesh_kind: str):
-    """The cell's process group and mesh (see the module docstring)."""
-    import torch
+def _start_group(mesh_kind: str, device=None):
+    """The cell's process group and mesh, and its device type: ``cuda``
+    unless ``device`` says otherwise (see the module docstring)."""
     import torch.distributed as dist
     from .mesh import make_local_mesh, make_production_mesh
-    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    dev = _device_type(device)
     if mesh_kind == "local":
         return make_local_mesh(device=dev), dev
     from torch.testing._internal.distributed.fake_pg import FakeStore
@@ -171,6 +179,11 @@ def _trace_step(cfg, shape, mesh, dev, n_micro: int):
         return trace, args_bytes, time.time() - t0
 
 
+def _device_type(device) -> str:
+    from ..device import resolve
+    return resolve(device).type
+
+
 def _parse_override(kv: str):
     k, v = kv.split("=", 1)
     if v.lower() in ("true", "false"):
@@ -219,7 +232,8 @@ def trace_cell(cfg, shape, mesh, dev, n_micro: int) -> dict:
 
 
 def _cell(arch: str, shape_name: str, mesh_kind: str, trace_dir=None,
-          overrides=(), micro=None, batch=None, seq=None) -> dict:
+          overrides=(), micro=None, batch=None, seq=None,
+          device=None) -> dict:
     from ..configs.base import SHAPES, get_config
     cfg = get_config(arch)
     if overrides:
@@ -229,7 +243,7 @@ def _cell(arch: str, shape_name: str, mesh_kind: str, trace_dir=None,
         shape = dataclasses.replace(shape, global_batch=batch or
                                     shape.global_batch,
                                     seq_len=seq or shape.seq_len)
-    mesh, dev = _start_group(mesh_kind)
+    mesh, dev = _start_group(mesh_kind, device)
     res = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
            **trace_cell(cfg, shape, mesh, dev,
                         micro or (4 if shape.kind == "train" else 1))}
@@ -244,14 +258,15 @@ def _cell(arch: str, shape_name: str, mesh_kind: str, trace_dir=None,
 
 
 def run_cell(arch, shape, mesh_kind, json_path=None, trace_dir=None,
-             overrides=(), micro=None, batch=None, seq=None):
+             overrides=(), micro=None, batch=None, seq=None, device=None):
     try:
         res = _cell(arch, shape, mesh_kind, trace_dir, overrides, micro,
-                    batch, seq)
+                    batch, seq, device)
         if overrides:
             res["overrides"] = dict(overrides)
     except Exception as e:  # record failures as data, not crashes
-        res = {"arch": arch, "shape": shape, "mesh": mesh_kind, "ok": False,
+        res = {"arch": arch, "shape": shape, "mesh": mesh_kind,
+               "device_type": _device_type(device), "ok": False,
                "error": f"{type(e).__name__}: {e}"[:2000],
                "trace": traceback.format_exc()[-2000:]}
     if json_path:
@@ -291,11 +306,19 @@ def main(argv=None):
                     help="the shape's global batch, overridden")
     ap.add_argument("--seq", type=int, default=None,
                     help="the shape's sequence length, overridden")
-    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="cpu to trace CPU tensors over CPU groups, where "
+                    "there is no card (default: cuda)")
+    ap.add_argument("--all", action="store_true",
+                    help="every cell of all_cells() (only those of --arch "
+                    "and --shape where given), each in its own process")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="with --all, cells traced at once")
     ap.add_argument("--out-dir", default="out/dryrun")
     ap.add_argument("--timeout", type=int, default=2400)
     args = ap.parse_args(argv)
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    _device_type(args.device)   # no card and no --device cpu: raise
 
     if not args.all:
         if len(meshes) > 1:
@@ -305,14 +328,17 @@ def main(argv=None):
                        for mk in meshes)
         ov = tuple(_parse_override(kv) for kv in args.set)
         res = run_cell(args.arch, args.shape, meshes[0], args.json,
-                       args.trace_dir, ov, args.micro, args.batch, args.seq)
+                       args.trace_dir, ov, args.micro, args.batch, args.seq,
+                       args.device)
         print(json.dumps({k: v for k, v in res.items()
                           if k not in ("trace", "coll")}, indent=1))
         return 0 if res["ok"] else 1
 
     os.makedirs(args.out_dir, exist_ok=True)
-    failures = 0
+    todo = []
     for arch, shape in all_cells():
+        if args.arch not in (None, arch) or args.shape not in (None, shape):
+            continue
         for mk in meshes:
             out = os.path.join(args.out_dir, f"{arch}_{shape}_{mk}.json")
             if os.path.exists(out):
@@ -321,11 +347,18 @@ def main(argv=None):
                 if prev.get("ok"):
                     print(f"SKIP (cached) {arch} {shape} {mk}", flush=True)
                     continue
-            t0 = time.time()
-            rc, _ = _subprocess(arch, shape, mk, out, args)
-            failures += rc != 0
-            print(f"{'OK  ' if rc == 0 else 'FAIL'} {arch:24s} {shape:12s} "
-                  f"{mk} ({time.time() - t0:.0f}s)", flush=True)
+            todo.append((arch, shape, mk, out))
+
+    def one(cell):
+        t0 = time.time()
+        rc, _ = _subprocess(*cell, args)
+        print(f"{'OK  ' if rc == 0 else 'FAIL'} {cell[0]:24s} {cell[1]:12s} "
+              f"{cell[2]} ({time.time() - t0:.0f}s)", flush=True)
+        return rc
+
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max(args.jobs, 1)) as pool:
+        failures = sum(rc != 0 for rc in pool.map(one, todo))
     return 1 if failures else 0
 
 
@@ -346,7 +379,7 @@ def _subprocess(arch, shape, mesh_kind, out, args):
         cmd += ["--trace-dir", args.trace_dir]
     for kv in args.set:
         cmd += ["--set", kv]
-    for flag in ("micro", "batch", "seq"):
+    for flag in ("micro", "batch", "seq", "device"):
         if getattr(args, flag):
             cmd += [f"--{flag}", str(getattr(args, flag))]
     try:
@@ -357,6 +390,7 @@ def _subprocess(arch, shape, mesh_kind, out, args):
         if out:
             with open(out, "w") as f:
                 json.dump({"arch": arch, "shape": shape, "mesh": mesh_kind,
+                           "device_type": _device_type(args.device),
                            "ok": False, "error": "trace timeout"}, f)
         return 1, ""
 

@@ -3,7 +3,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
         --smoke --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt \
-        [--device cpu] [--mesh local|none]
+        [--device cpu]
 
 It runs on the CUDA card unless ``--device cpu`` is given (and raises when
 there is none).  As the reference does, it trains on a mesh over the
@@ -11,10 +11,10 @@ ranks of the default process group (``make_local_mesh``: a 1-rank group
 over an in-memory store when none runs; start N processes under one
 group for N ranks): the mesh's axes are declared to ``models.shardctx``,
 the parameters and AdamW state are laid out by ``launch.sharding``'s
-rules (``DTensor`` objects), and each batch by ``place_batch``.
-``--mesh none`` trains without a mesh, on plain tensors, where every
-steady step on the card is one replay of a captured CUDA graph
-(``train.train_step``).  Fault-tolerance contract, as the reference's:
+rules (``DTensor`` objects), and each batch by ``place_batch``.  On one
+rank every placement is the whole tensor, and every steady step on the
+card is one replay of a captured CUDA graph (``train.train_step``).
+Fault-tolerance contract, as the reference's:
 
 * atomic checkpoints every ``--ckpt-every`` steps (async write);
 * on start, the latest checkpoint (params, opt state, pipeline cursor) is
@@ -65,13 +65,8 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="cpu to run on the CPU (default: the CUDA card)")
-    ap.add_argument("--mesh", default="local", choices=["local", "none"],
-                    help="local: a mesh over the default process group's "
-                    "ranks (the reference's); none: plain tensors")
     args = ap.parse_args(argv)
     dev = resolve(args.device)
-    if args.mesh == "none":
-        return _train(args, dev, None)
     mesh = make_local_mesh(device=dev)
     shardctx.set_mesh_axes(mesh.mesh_dim_names, mesh)
     try:
@@ -90,11 +85,9 @@ def _train(args, dev, mesh):
     model = build_model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     opt_state = init_opt_state(params)
-    shardings = None
-    if mesh is not None:
-        psh = SH.place_params(params, mesh, cfg)
-        shardings = {"params": psh, "opt": SH.opt_shardings(psh, mesh)}
-        SH.place_opt_state(opt_state, shardings["opt"])
+    psh = SH.place_params(params, mesh, cfg)
+    shardings = {"params": psh, "opt": SH.opt_shardings(psh, mesh)}
+    SH.place_opt_state(opt_state, shardings["opt"])
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(args.steps // 20, 1))
     pipe = TokenPipeline(cfg, args.batch, args.seq, device=dev)
@@ -118,9 +111,7 @@ def _train(args, dev, mesh):
     retried = False
     metrics = None
     while step < args.steps:
-        batch = pipe.next()
-        if mesh is not None:
-            batch = SH.place_batch(batch, mesh)
+        batch = SH.place_batch(pipe.next(), mesh)
         try:
             params, opt_state, metrics = step_fn(params, opt_state, batch)
         except Exception as e:  # transient-failure path: restore, retry

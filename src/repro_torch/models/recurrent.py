@@ -81,6 +81,38 @@ def _causal_conv(x, w, b, tail: Optional[torch.Tensor]):
     return out + b.to(x.dtype), out, xp[:, -(cw - 1):]
 
 
+def _conv_sharded(x, w, b, tail: Optional[torch.Tensor]):
+    """:func:`_causal_conv` over ``DTensor`` operands, on each rank's rows
+    and channels (``local_map``): batch over the data axes and channels
+    over ``model`` where they divide it (the time axis whole, as the conv
+    needs it); the kernel's and bias's gradients sum over this rank's
+    rows, partial over the data axes.  DTensor's own padding strategy is
+    not used: PyTorch 2.11's redistribution planner fails on it at the
+    (16, 16) mesh."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    batch = batch_axes(mesh, x.shape[0])
+    lru = model_axis(mesh, x.shape[2])
+    seq = placements((batch, None, lru), mesh)
+    kernel = placements((None, lru), mesh)
+    bias = placements((lru,), mesh)
+    rows = placements((batch,), mesh)
+    kernel_grad, bias_grad = ([Partial() if d.is_shard() else p
+                               for d, p in zip(rows, pl)]
+                              for pl in (kernel, bias))
+    ins, grads = [seq, kernel, bias], [seq, kernel_grad, bias_grad]
+    if tail is None:
+        conv, args = functools.partial(_causal_conv, tail=None), (x, w, b)
+    else:
+        ins, grads = ins + [seq], grads + [seq]
+        conv, args = _causal_conv, (x, w, b, replicated(tail, mesh))
+    return local_map(conv, out_placements=(seq, seq, seq),
+                     in_placements=tuple(ins),
+                     in_grad_placements=tuple(grads), device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
 def _linear_scan(a, b):
     """h_t = a_t h_{t-1} + b_t along axis 1 from h_{-1} = 0, by doubling:
     log2(T) whole-tensor steps of the reference's combine
@@ -101,7 +133,8 @@ def rglru_block(p, x, cfg: ModelConfig, state: Optional[dict] = None):
     gate = gelu_tanh(linear(x, p["wy"].to(x.dtype)))
 
     tail = state["conv"] if state is not None else None
-    u, acc, new_tail = _causal_conv(u, p["conv_w"], p["conv_b"], tail)
+    conv = _conv_sharded if is_sharded(u) else _causal_conv
+    u, acc, new_tail = conv(u, p["conv_w"], p["conv_b"], tail)
     # the input term reads the conv output's last add (the bias) unrounded,
     # as the compiled reference does (see layers.add_norm)
     u32 = acc.float() + p["conv_b"].to(x.dtype).float()

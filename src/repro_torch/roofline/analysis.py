@@ -15,7 +15,9 @@ process group, and :class:`StepTrace`, a ``TorchDispatchMode``, sees the
 *local* program every rank runs: each aten op on the rank's shards and
 each functional collective DTensor runs
 (``_c10d_functional.all_gather_into_tensor``, ``reduce_scatter_tensor``,
-``all_reduce``, ``all_to_all_single``), with its bytes and group size.
+``all_reduce``, ``all_to_all_single``, and ``_dtensor.shard_dim_alltoall``,
+its all-to-all between two shard dimensions on CUDA groups), with its
+bytes and group size.
 The collective records convert to bytes on the wire with the reference's
 ring factors:
 
@@ -58,12 +60,14 @@ class HW:
     hbm_bytes: float = 80e9
 
 
-# functional collective -> the reference's HLO kind
-_KINDS = {"all_gather_into_tensor": "all-gather",
-          "all_gather_into_tensor_out": "all-gather",
-          "reduce_scatter_tensor": "reduce-scatter",
-          "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
-          "all_to_all_single": "all-to-all"}
+# (namespace, functional collective) -> the reference's HLO kind
+_KINDS = {("_c10d_functional", "all_gather_into_tensor"): "all-gather",
+          ("_c10d_functional", "all_gather_into_tensor_out"): "all-gather",
+          ("_c10d_functional", "reduce_scatter_tensor"): "reduce-scatter",
+          ("_c10d_functional", "all_reduce"): "all-reduce",
+          ("_c10d_functional", "all_reduce_"): "all-reduce",
+          ("_c10d_functional", "all_to_all_single"): "all-to-all",
+          ("_dtensor", "shard_dim_alltoall"): "all-to-all"}
 
 
 def _wire(kind: str, size: float, g: int) -> float:
@@ -175,9 +179,11 @@ def _group_size(func, args) -> int:
     for a, v in zip(schema.arguments, args):
         if a.name == "group_size":
             return int(v)
-    name = args[[a.name for a in schema.arguments].index("group_name")]
-    from torch.distributed.distributed_c10d import _resolve_process_group
-    return _resolve_process_group(name).size()
+    group = args[[a.name for a in schema.arguments].index("group_name")]
+    if isinstance(group, str):
+        from torch.distributed.distributed_c10d import _resolve_process_group
+        group = _resolve_process_group(group)
+    return group.size()
 
 
 def _propagating() -> bool:
@@ -249,9 +255,8 @@ class StepTrace(TorchDispatchMode):
         if _propagating():
             return out
         ns = func.namespace
-        name = func._schema.name.split("::")[-1]
-        if ns == "_c10d_functional" and name in _KINDS:
-            kind = _KINDS[name]
+        kind = _KINDS.get((ns, func._schema.name.split("::")[-1]))
+        if kind is not None:
             ref = out if kind in ("all-gather", "reduce-scatter") else args[0]
             key = (kind, _nbytes(ref), _group_size(func, args))
             self.collectives[key] = self.collectives.get(key, 0) + 1
@@ -260,7 +265,8 @@ class StepTrace(TorchDispatchMode):
             self.flops += int(self._flop_fns[packet](*args, **kwargs,
                                                      out_val=out))
         aliased = any(r.alias_info is not None for r in func._schema.returns)
-        if ns not in ("_c10d_functional", "prim") and not func.is_view:
+        if (kind is None and ns not in ("_c10d_functional", "prim")
+                and not func.is_view):
             self.bytes += sum(_nbytes(t) for t in tree_leaves((args, kwargs))
                               if isinstance(t, torch.Tensor))
             if not aliased:

@@ -7,7 +7,8 @@ Usage: PYTHONPATH=src python -m repro_torch.roofline.report \\
 Replaces the ``<!-- DRYRUN_SUMMARY -->`` and ``<!-- ROOFLINE_TABLE -->``
 markers of the given markdown file (the reference writes
 ``EXPERIMENTS.md``, which this repo does not have); the fit limit is one
-H100's 80 GB.
+H100's 80 GB.  Every row names the device type its cell was traced on
+("traced on"): only a ``cuda`` trace is the card's program.
 """
 from __future__ import annotations
 
@@ -42,27 +43,32 @@ def dryrun_summary(cells):
         f"({len(single)} single-pod + {len(multi)} multi-pod); "
         f"{len(fits)}/{len(ok)} fit in {HBM / 1e9:.0f} GB per device.",
         "",
-        "| arch | shape | mesh | devices | GB/device | fits | trace s |",
-        "|---|---|---|---|---|---|---|",
+        "| arch | shape | mesh | traced on | devices | GB/device | fits "
+        "| trace s |",
+        "|---|---|---|---|---|---|---|---|",
     ]
     for c in ok:
         gb = c.get("per_device_bytes", 0) / 1e9
         lines.append(
-            f"| {c['arch']} | {c['shape']} | {c['mesh']} | {c['devices']} "
-            f"| {gb:.2f} | {'✓' if gb * 1e9 <= HBM else '✗'} "
+            f"| {c['arch']} | {c['shape']} | {c['mesh']} | {_on(c)} "
+            f"| {c['devices']} | {gb:.2f} | {'✓' if gb * 1e9 <= HBM else '✗'} "
             f"| {c.get('lower_s', 0)} |")
     for c in fail:
-        lines.append(f"| {c['arch']} | {c['shape']} | {c['mesh']} | - | - | "
-                     f"FAIL: {c.get('error', '?')[:60]} | - |")
+        lines.append(f"| {c['arch']} | {c['shape']} | {c['mesh']} | {_on(c)} "
+                     f"| - | - | FAIL: {c.get('error', '?')[:60]} | - |")
     return "\n".join(lines)
+
+
+def _on(cell) -> str:
+    return cell.get("device_type", "-")
 
 
 def roofline_table(cells):
     rows = [c for c in cells if c.get("ok") and c.get("roofline")]
     lines = [
-        "| arch | shape | compute s | memory s | collective s | dominant "
-        "| useful | roofline frac | one-line next step |",
-        "|---|---|---|---|---|---|---|---|---|",
+        "| arch | shape | traced on | compute s | memory s | collective s "
+        "| dominant | useful | roofline frac | one-line next step |",
+        "|---|---|---|---|---|---|---|---|---|---|",
     ]
 
     def nextstep(c):
@@ -84,7 +90,7 @@ def roofline_table(cells):
     for c in rows:
         r = c["roofline"]
         lines.append(
-            f"| {c['arch']} | {c['shape']} | {r['compute_s']:.3f} "
+            f"| {c['arch']} | {c['shape']} | {_on(c)} | {r['compute_s']:.3f} "
             f"| {r['memory_s']:.3f} | {r['collective_s']:.3f} "
             f"| **{r['dominant']}** | {r['useful_ratio']:.2f} "
             f"| {r['roofline_fraction']:.4f} | {nextstep(c)} |")

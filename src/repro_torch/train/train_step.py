@@ -70,25 +70,24 @@ def value_and_grad(model: Model, params, batch) -> tuple:
 
 
 def _micro_batches(batch: dict, n_micro: int) -> list:
-    """``batch`` split into ``n_micro`` microbatches along its rows.  A
-    ``DTensor`` leaf (a batch laid over a mesh) is split on each rank's
-    own rows, so every microbatch keeps the batch's layout (a global
-    reshape would split the sharded row axis unevenly).  The microbatches
-    then group the global rows otherwise than the plain split; the mean
-    loss over them is the same wherever each counts as many labels."""
+    """``batch`` split into ``n_micro`` microbatches along its rows, as the
+    reference's reshape splits it: the i-th holds rows ``i·B/n`` to
+    ``(i+1)·B/n``.  A ``DTensor`` leaf (a batch laid over a mesh) is
+    gathered whole over the ranks its rows are split across (one
+    all-gather of the leaf a step), and each microbatch is laid out as
+    the batch was."""
     parts = {}
     for k, x in batch.items():
+        m = x.shape[0] // n_micro
         if shardctx.is_sharded(x):
-            from torch.distributed.tensor import DTensor
-            loc = x.to_local()
-            loc = loc.reshape((n_micro, loc.shape[0] // n_micro)
-                              + loc.shape[1:])
-            parts[k] = [DTensor.from_local(loc[i], x.device_mesh,
-                                           x.placements, run_check=False)
+            from torch.distributed.tensor import Replicate
+            mesh, placements = x.device_mesh, x.placements
+            whole = x.redistribute(mesh, [Replicate()] * mesh.ndim)
+            parts[k] = [whole[i * m:(i + 1) * m].redistribute(mesh,
+                                                               placements)
                         for i in range(n_micro)]
         else:
-            parts[k] = x.reshape((n_micro, x.shape[0] // n_micro)
-                                 + x.shape[1:])
+            parts[k] = x.reshape((n_micro, m) + x.shape[1:])
     return [{k: v[i] for k, v in parts.items()} for i in range(n_micro)]
 
 

@@ -13,7 +13,10 @@ real eager step of the same configuration and batch.
 
 A full-size cell made to fail (qwen3-1.7b with 3 kv heads, which divide
 none of its 16 query heads) comes back from the command line as data,
-``ok: false`` with its error, and exit code 1.  ``all_cells()`` equals
+``ok: false`` with its error, and exit code 1; so does a cell past
+``--timeout`` under ``--all``, which traces only the cells its
+``--arch``/``--shape`` name.  With no card visible and no ``--device
+cpu``, the command line raises before tracing anything.  ``all_cells()`` equals
 the reference's (computed in a subprocess: importing the reference's
 dry-run sets XLA's device count for the whole process).
 """
@@ -130,8 +133,9 @@ def _env():
     return env
 
 
-def _run(args, ok=True):
-    p = subprocess.run([sys.executable, *args], cwd=ROOT, env=_env(),
+def _run(args, ok=True, env=None):
+    p = subprocess.run([sys.executable, *args], cwd=ROOT,
+                       env={**_env(), **(env or {})},
                        capture_output=True, text=True, timeout=TIMEOUT)
     if ok:
         assert p.returncode == 0, f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}"
@@ -190,13 +194,56 @@ def test_a_failing_cell_is_data(tmp_path):
     out = tmp_path / "cell.json"
     p = _run(["-m", "repro_torch.launch.dryrun", "--arch", "qwen3-1.7b",
               "--shape", "train_4k", "--mesh", "single", "--set",
-              "n_kv_heads=3", "--json", str(out)], ok=False)
+              "n_kv_heads=3", "--json", str(out), "--device", "cpu"],
+             ok=False)
     assert p.returncode == 1, p.stderr[-3000:]
     res = json.loads(out.read_text())
     assert res["ok"] is False and res["arch"] == "qwen3-1.7b"
+    assert res["device_type"] == "cpu"
     assert res["error"].startswith("RuntimeError")
     assert res["error"].split(":")[-1].strip() in res["trace"]
     assert '"ok": false' in p.stdout
+
+
+@pytest.mark.parametrize("mesh", ["single", "local"])
+def test_no_card_and_no_device_flag_traces_nothing(tmp_path, mesh):
+    """Without a card (none visible) the dry-run traces only when
+    ``--device cpu`` asks for the CPU: it raises before any cell, and
+    records none."""
+    out = tmp_path / "cell.json"
+    p = _run(["-m", "repro_torch.launch.dryrun", "--arch", "qwen3-1.7b",
+              "--shape", "train_4k", "--mesh", mesh, "--json", str(out)],
+             ok=False, env={"CUDA_VISIBLE_DEVICES": ""})
+    assert p.returncode != 0 and "device='cpu'" in p.stderr
+    assert not out.exists()
+
+
+def test_all_runs_the_cells_asked_for(tmp_path):
+    """``--all --arch A --shape S`` traces only that cell, in its own
+    process; a second run skips it as cached."""
+    args = ["-m", "repro_torch.launch.dryrun", "--all", "--arch",
+            "qwen3-1.7b", "--shape", "decode_32k", "--out-dir",
+            str(tmp_path), "--device", "cpu", "--jobs", "2"]
+    p = _run(args)
+    assert "OK   qwen3-1.7b" in p.stdout
+    assert [f.name for f in tmp_path.iterdir()] == [
+        "qwen3-1.7b_decode_32k_single.json"]
+    rec = json.loads((tmp_path / "qwen3-1.7b_decode_32k_single.json")
+                     .read_text())
+    assert rec["ok"] and rec["devices"] == 256 and rec["device_type"] == "cpu"
+    assert "SKIP (cached) qwen3-1.7b decode_32k single" in _run(args).stdout
+
+
+def test_a_cell_past_its_timeout_is_data(tmp_path):
+    p = _run(["-m", "repro_torch.launch.dryrun", "--all", "--arch",
+              "qwen3-1.7b", "--shape", "train_4k", "--out-dir",
+              str(tmp_path), "--device", "cpu", "--timeout", "1"], ok=False)
+    assert p.returncode == 1 and "FAIL qwen3-1.7b" in p.stdout
+    rec = json.loads((tmp_path / "qwen3-1.7b_train_4k_single.json")
+                     .read_text())
+    assert rec == {"arch": "qwen3-1.7b", "shape": "train_4k",
+                   "mesh": "single", "device_type": "cpu", "ok": False,
+                   "error": "trace timeout"}
 
 
 def test_all_cells_equal_the_reference():

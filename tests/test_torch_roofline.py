@@ -105,15 +105,15 @@ def _cells():
                       2e14).to_dict()
     return [
         {"arch": "qwen3-1.7b", "shape": "train_4k", "mesh": "single",
-         "ok": True, "devices": 256, "per_device_bytes": 14.3e9,
+         "device_type": "cuda", "ok": True, "devices": 256, "per_device_bytes": 14.3e9,
          "lower_s": 73.4, "roofline": roof, "cost": {
              "flops": 1e15, "bytes accessed": 1e13}, "coll": FLAT},
         {"arch": "dbrx-132b", "shape": "train_4k", "mesh": "multi",
-         "ok": True, "devices": 512, "per_device_bytes": 134e9,
+         "device_type": "cpu", "ok": True, "devices": 512, "per_device_bytes": 134e9,
          "lower_s": 127.0, "roofline": roof, "cost": {
              "flops": 1e15, "bytes accessed": 1e13}, "coll": FLAT},
         {"arch": "rwkv6-7b", "shape": "train_4k", "mesh": "single",
-         "ok": False, "error": "trace timeout"}]
+         "device_type": "cuda", "ok": False, "error": "trace timeout"}]
 
 
 def test_report_renders_fixture_cells(tmp_path):
@@ -121,12 +121,16 @@ def test_report_renders_fixture_cells(tmp_path):
     summary = report.dryrun_summary(cells)
     assert "Traced OK: **2/3** runs (1 single-pod + 1 multi-pod)" in summary
     assert "1/2 fit in 80 GB per device" in summary
-    assert "| qwen3-1.7b | train_4k | single | 256 | 14.30 | ✓ | 73.4 |" in (
+    assert ("| qwen3-1.7b | train_4k | single | cuda | 256 | 14.30 | ✓ "
+            "| 73.4 |") in summary
+    assert "| dbrx-132b | train_4k | multi | cpu | 512 | 134.00 | ✗ |" in (
         summary)
-    assert "| dbrx-132b | train_4k | multi | 512 | 134.00 | ✗ |" in summary
-    assert "FAIL: trace timeout" in summary
+    assert ("| rwkv6-7b | train_4k | single | cuda | - | - | FAIL: trace "
+            "timeout") in summary
     table = report.roofline_table(cells)
     assert table.count("**memory**") == 2
+    assert "| qwen3-1.7b | train_4k | cuda | " in table
+    assert "| dbrx-132b | train_4k | cpu | " in table
     for c in cells:
         (tmp_path / f"{c['arch']}_{c['shape']}_{c['mesh']}.json").write_text(
             json.dumps(c))
