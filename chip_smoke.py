@@ -209,12 +209,28 @@ Phases (each raises on failure; the script then exits non-zero):
    cut at step 3 and relaunched, equal a plain ``make_train_step`` loop
    over plain tensors with the same seeds and settings bit for bit; a
    mesh train step's graphs and the syncs of a steady step.
-16. One JSON line with every kernel's launches on the main path (the sum
-   of the windows of phases 3-11 and 13-15), its error against its plain
+16. The examples (``examples_torch/``, from a temporary working
+   directory, removed after): (a) each at its shipped size on the card
+   through its ``main`` with no ``--device``, in the phase's launch-count
+   window (``sliding_assoc`` and ``seg_dirty`` must each launch in it;
+   no example reaches ``prefix_scan``): ``serving_loop`` twice on one fresh cache directory
+   (``plan=cold`` then ``plan=warm``, its steady tail under
+   ``set_sync_debug_mode("error")``), ``train_lm --full-100m --steps
+   100`` with its checkpoints in the temporary directory (losses finite,
+   the last below the first), ``late_data``'s bit-identity,
+   ``plan_audit`` clean then an error, ``metrics_observability``'s schema
+   and no retraces, ``serve_lm``'s 8 requests and 128 tokens, the
+   dashboard's breakout and momentum heads bit for bit against solo
+   runners; (b) each TiLT example on the card against the CPU at the CPU
+   tests' sizes, under their rules (``tests/torch_examples_common.py``:
+   exact figures, outputs within ``tolerance``); (c) ``python
+   examples_torch/quickstart.py`` as a subprocess exits 0 on the card.
+17. One JSON line with every kernel's launches on the main path (the sum
+   of the windows of phases 3-11 and 13-16), its error against its plain
    version, its times and its bound.  ``fused_trend`` has no caller on any
    path (nor in the reference), so its launches are 0; phase 2 holds it
    against its plain version.
-17. The last line: ``{"ok": true, "device": {...}}``.
+18. The last line: ``{"ok": true, "device": {...}}``.
 
 Every phase prints its wall seconds and the card's SM clock, temperature
 and power draw after it (``nvidia-smi``).
@@ -225,6 +241,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -3865,6 +3882,201 @@ def run_dryrun(dev, main_launches: dict, train: dict, procs: dict) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 16: the examples (examples_torch/)
+# ---------------------------------------------------------------------------
+
+EXAMPLE_TRAIN_STEPS = 100       # train_lm's own default, at --full-100m
+_TRAIN_LOSS = re.compile(r"\[train\] step (\d+) loss (\S+)")
+
+
+def _example_summary(name: str, r: dict) -> dict:
+    """The figures an example printed, without its tensors."""
+    if name == "quickstart":
+        return {k: r[k] for k in ("uptrend_ticks", "intervals")}
+    if name == "stream_analytics":
+        return {app: {"events_per_s": a["events_per_s"],
+                      "output_events": a["output_events"], "mode": a["mode"]}
+                for app, a in r.items()}
+    if name == "multikey_analytics":
+        f, d = r["fraud"], r["dashboard"]
+        return {"events_per_s": f["events_per_s"], "flagged": f["flagged"],
+                "caught": f["caught"], "injected": f["injected"],
+                "query_events_per_s": d["query_events_per_s"],
+                "sharing_ratio": d["sharing_ratio"]}
+    if name == "late_data":
+        return {k: v for k, v in r.items() if k not in ("value", "valid")}
+    if name == "metrics_observability":
+        c = r["snapshot"]["counters"]
+        h = r["snapshot"]["histograms"]["runner.step_seconds"]
+        return {"chunks": c["runner.chunks"]["value"],
+                "dirty_units": c["runner.dirty_units"]["value"],
+                "bucket_picks": r["bucket_picks"],
+                "captures": sum(r["captures"].values()),
+                "step_p50_s": h["p50"], "step_p99_s": h["p99"]}
+    if name == "plan_audit":
+        return {"verdict": r["verdict"], "bad_verdict": r["bad_verdict"],
+                "bad_codes": [f.code for f in r["bad_findings"]]}
+    if name == "serving_loop":
+        return {k: r[k] for k in ("plan_source", "flagged", "first_s",
+                                  "p50_s", "p99_s", "admitted",
+                                  "sealed_chunks", "shed",
+                                  "admit_to_result_p50_s")} | {
+            "captures": sum(r["captures"].values())}
+    if name == "serve_lm":
+        return {"sequences": r["sequences"], "tokens": r["tokens"]}
+    return {k: r[k] for k in ("arch", "n_params", "final_loss", "losses")}
+
+
+def _train_example(mod, ckpt: str) -> dict:
+    """``train_lm --full-100m`` with its checkpoints in ``ckpt``; the
+    losses it logged, read back from what it printed (and printed
+    again)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        r = mod.main(["--full-100m", "--steps", str(EXAMPLE_TRAIN_STEPS),
+                      "--ckpt-dir", ckpt])
+    sys.stdout.write(buf.getvalue())
+    r["losses"] = [float(v) for _, v in _TRAIN_LOSS.findall(buf.getvalue())]
+    return r
+
+
+def run_examples(dev, main_launches: dict) -> dict:
+    """Phase 16: (a) every example of ``examples_torch/`` at its shipped
+    size on the card, through its ``main`` with no ``--device``, in one
+    launch-count window, each with its own checks; (b) each TiLT example
+    on the card against the CPU at the CPU tests' sizes
+    (``tests/torch_examples_common.py``: exact figures, outputs within
+    ``tolerance``); (c) ``python examples_torch/quickstart.py`` from a
+    shell.  All from a temporary working directory, removed after."""
+    import contextlib
+    import io
+    import math
+    import shutil
+    import tempfile
+    import torch
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_examples_common as C
+    from repro_torch import obs
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    res = {"card": card, "seconds": {}, "figures": {}}
+    tmp = tempfile.mkdtemp(prefix="examples_")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        # (a) the shipped sizes, on the card
+        runs = [(n, n) for n in C.TILT if n != "serving_loop"]
+        runs += [("serving_loop", "serving_loop"),
+                 ("serving_loop", "serving_loop (again)"),
+                 ("serve_lm", "serve_lm"), ("train_lm", "train_lm")]
+        shipped = {}
+        for name, label in runs:
+            mod = C.load(name)
+            if name == "train_lm":
+                ckpt = os.path.join(tmp, "ckpt")
+                r, dt = drive(main_launches,
+                              lambda: _train_example(mod, ckpt))
+                shutil.rmtree(ckpt)
+            else:
+                r, dt = drive(main_launches, lambda: mod.main([]))
+            shipped[label] = r
+            res["seconds"][label] = dt
+            res["figures"][label] = _example_summary(name, r)
+            log(f"16(a) {label}: {dt:.2f} s on {card}: "
+                f"{json.dumps(res['figures'][label], default=str)}")
+        # each example's own checks (late_data's bit-identity and
+        # metrics_observability's schema are asserted inside the example;
+        # serving_loop's steady tail ran under set_sync_debug_mode("error"))
+        pa = shipped["plan_audit"]
+        if (pa["verdict"], pa["bad_verdict"]) != ("clean", "error"):
+            raise AssertionError(f"plan_audit: {pa['verdict']}, "
+                                 f"{pa['bad_verdict']}")
+        mo = shipped["metrics_observability"]
+        if obs.validate_snapshot(mo["snapshot"]) or mo["compiles"][
+                "retraces"]:
+            raise AssertionError(f"metrics_observability: retraces "
+                                 f"{mo['compiles']['retraces']}")
+        plans = [shipped[k]["plan_source"]
+                 for k in ("serving_loop", "serving_loop (again)")]
+        if plans != ["cold", "warm"]:
+            raise AssertionError(f"serving_loop plans {plans}")
+        if (shipped["serve_lm"]["sequences"],
+                shipped["serve_lm"]["tokens"]) != (8, 128):
+            raise AssertionError(f"serve_lm: {shipped['serve_lm']}")
+        losses = shipped["train_lm"]["losses"]
+        if not (losses and all(map(math.isfinite, losses))
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"train_lm losses {losses}")
+        mk = C.load("multikey_analytics")
+        res["session_vs_solo"] = C.hold_vol_heads_solo(
+            shipped["multikey_analytics"],
+            {"N_TICKS": mk.N_TICKS, "N_PARTS": mk.N_PARTS}, 64, dev)
+        # no example sums a window under 8 ticks or asks for
+        # sum_algo="soe", so none reaches prefix_scan
+        for k in ("sliding_assoc", "seg_dirty"):
+            if not main_launches.get(k, 0):
+                raise AssertionError(f"{k} was never launched by the "
+                                     "examples")
+        del shipped
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the card against the CPU at the tests' sizes
+        held = {}
+        for name in C.TILT:
+            mod = C.load(name)
+            consts, argv = C.SIZES[name]
+            pairs = []
+            with contextlib.redirect_stdout(io.StringIO()):
+                for where, extra in (("cuda", []), ("cpu", ["--device",
+                                                            "cpu"])):
+                    more = ({"CACHE": os.path.join(tmp, f"cache_{where}")}
+                            if name == "serving_loop" else {})
+                    with C.sized(mod, {**consts, **more}):
+                        n = 2 if name == "serving_loop" else 1
+                        pairs.append([mod.main(argv + extra)
+                                      for _ in range(n)])
+            held[name] = [C.hold(name, C.figures(name, card_r),
+                                 C.figures(name, cpu_r))
+                          for card_r, cpu_r in zip(*pairs)]
+            if name == "multikey_analytics":
+                C.hold_vol_heads_solo(pairs[0][0], consts,
+                                      int(argv[0]), dev)
+            diffs = [v["max_abs_diff"] for h in held[name] for v in h.values()]
+            log(f"16(b) {name}: card = CPU at the tests' sizes (exact "
+                f"figures; {len(diffs)} outputs, largest difference "
+                f"{max(diffs, default=0.0):.3g})")
+        res["card_vs_cpu"] = held
+
+        # (c) from a shell
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples_torch" / "quickstart.py")],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
+        name = torch.cuda.get_device_name(0)
+        if proc.returncode or f"(device {name})" not in proc.stdout:
+            raise AssertionError(f"quickstart from a shell: rc "
+                                 f"{proc.returncode}\n{proc.stdout}\n"
+                                 f"{proc.stderr[-2000:]}")
+        res["seconds"]["quickstart (shell)"] = time.perf_counter() - t0
+        log(f"16(c) python examples_torch/quickstart.py: exit 0 on {name} "
+            f"in {res['seconds']['quickstart (shell)']:.1f} s")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["launches"] = dict(main_launches)
+    res["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"examples phase: {res['phase_seconds']:.1f} s; launches "
+        f"{main_launches}")
+    return res
+
+
 KERNELS = {
     "prefix_scan": ("src/repro_torch/kernels/csrc/window_reduce.cu",
                     "src/repro/kernels/window_reduce.py:78"),
@@ -3943,12 +4155,14 @@ def main() -> int:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    example_launches = {}
+    examples = phase("16 examples", run_examples, dev, example_launches)
     windows = {"partition_run": single, "batch_run": keyed_launches,
                "runner": runner_launches, "sparse_run": one_shot_launches,
                "session": session_launches, "ingest": ingest_launches,
                "serve": serve_launches, "mesh": mesh_launches,
                "lm": lm_launches, "train": train_launches,
-               "dryrun": dryrun_launches}
+               "dryrun": dryrun_launches, "examples": example_launches}
     launches = {k: sum(w.get(k, 0) for w in windows.values())
                 for k in KERNELS}
     for k in ("seg_dirty",):
@@ -3971,12 +4185,12 @@ def main() -> int:
               "runner": runners, "sparse_run": one_shot,
               "session": sessions, "ingest": ingest, "serve": serving,
               "mesh": mesh, "audit": audit, "lm": lm, "train": train,
-              "dryrun": dryrun,
+              "dryrun": dryrun, "examples": examples,
               "phase_seconds": PHASE_SECONDS,
               "kernels": {f"{k}/{lab}": v for (k, lab), v in rows.items()},
               "launches": dict(windows, total=launches)}
-    Path("out/chip_smoke.json").write_text(json.dumps(detail,
-                                                              indent=1))
+    Path("out/chip_smoke.json").write_text(json.dumps(detail, indent=1,
+                                                      default=str))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve"]
+__all__ = ["name", "resolve", "synchronize"]
 
 
 def resolve(device=None) -> torch.device:
@@ -26,3 +26,20 @@ def resolve(device=None) -> torch.device:
                 "pass device='cpu' to run the plain PyTorch path on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def name(device) -> str:
+    """What a printed rate or latency ran on: the card's name, or the
+    device type (``cpu``)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return torch.cuda.get_device_name(dev)
+    return dev.type
+
+
+def synchronize(device) -> None:
+    """Wait for the work issued on ``device`` (a no-op off CUDA), so a host
+    clock read after it times the work and not its issue."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..configs.base import get_config
-from ..device import resolve
+from ..device import name as device_name, resolve
 from ..models.model import Model, build_model
 from ..train.train_step import make_serve_steps
 
@@ -124,7 +124,8 @@ def main(argv=None):
     dt = time.time() - t0
     n_tok = len(done) * args.gen
     print(f"[serve] {len(done)} sequences, {n_tok} tokens, "
-          f"{n_tok/dt:.1f} tok/s, sample: {done[0][:8]}")
+          f"{n_tok/dt:.1f} tok/s on {device_name(dev)}, "
+          f"sample: {done[0][:8]}")
     return done
 
 

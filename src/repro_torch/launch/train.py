@@ -38,7 +38,7 @@ import torch
 
 from ..configs.base import get_config
 from ..data.pipeline import TokenPipeline
-from ..device import resolve
+from ..device import name as device_name, resolve
 from ..models import shardctx
 from ..models.model import build_model
 from ..train import checkpoint as ck
@@ -129,7 +129,8 @@ def _train(args, dev, mesh):
             dt = (time.time() - t0) / max(step - start, 1)
             print(f"[train] step {step} loss {loss:.4f} "
                   f"gnorm {_scalar(metrics['grad_norm']):.3f} "
-                  f"({dt*1e3:.0f} ms/step)", flush=True)
+                  f"({dt*1e3:.0f} ms/step on {device_name(dev)})",
+                  flush=True)
         if mgr is not None and step % args.ckpt_every == 0:
             mgr.save(step, live, extra={"pipeline": pipe.state()})
     if mgr is not None:

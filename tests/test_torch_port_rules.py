@@ -19,6 +19,8 @@ from repro_torch.engine import keyed_grid
 from repro_torch.ingest import IngestRunner, ReorderBuffer
 from repro_torch.launch.mesh import make_local_mesh
 
+import torch_examples_common as C
+
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 
@@ -116,16 +118,59 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|jaxlib|repro)\b|from\s+(jax|jaxlib|repro)\b"
+    r"^\s*(import\s+(jax|jaxlib|repro|examples)\b"
+    r"|from\s+(jax|jaxlib|repro|examples)\b"
     r"|from\s+\.\.+\s*import\s+repro\b)", re.M)
+EXAMPLES = ROOT / "examples_torch"
 
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + [p.relative_to(ROOT).as_posix() for p in EXAMPLES.glob("*.py")]
+    + ["chip_smoke.py", "tests/torch_examples_common.py"]))
 def test_sources_import_neither_jax_nor_the_reference(path):
     text = (ROOT / path).read_text()
     assert not _FORBIDDEN.search(text), path
+    if path.startswith("examples_torch/"):
+        # nor the reference's example, by path
+        assert "examples/" not in text.replace("examples_torch/", ""), path
+
+
+def test_the_rules_cover_every_example():
+    """Each of the reference's examples has its port, under its name."""
+    names = sorted(p.stem for p in (ROOT / "examples").glob("*.py"))
+    assert sorted(p.stem for p in EXAMPLES.glob("*.py")) == names
+    assert sorted(C.TILT + C.LM) == names
+
+
+def _example_argv(name, mod, monkeypatch, tmp_path):
+    """A cheap run of one example: the examples tests' sizes, one train
+    step into ``tmp_path``."""
+    if name == "train_lm":
+        from repro_torch.configs import base
+        base.registry()                 # the example registers its config
+        monkeypatch.setattr(base, "_REGISTRY", dict(base._REGISTRY))
+        return ["--steps", "1", "--ckpt-dir", str(tmp_path / "ckpt")]
+    if name == "serve_lm":
+        return []
+    consts, argv = C.SIZES[name]
+    for k, v in consts.items():
+        monkeypatch.setattr(mod, k, v)
+    return argv
+
+
+@pytest.mark.parametrize("name", C.TILT + C.LM)
+def test_examples_raise_without_cuda_unless_asked_for_cpu(name, monkeypatch,
+                                                          tmp_path):
+    monkeypatch.chdir(tmp_path)
+    mod = C.load(name)
+    argv = _example_argv(name, mod, monkeypatch, tmp_path)
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main([])
+    assert not (tmp_path / "out").exists()
+    res = mod.main(argv + ["--device", "cpu"])
+    assert isinstance(res, dict) and res
 
 
 def _ingest_runner(**kw):
