@@ -29,8 +29,16 @@ Phases (each raises on failure; the script then exits non-zero):
    the card, in 16 partitions of 2**20 ticks; ysb once more with the
    subtract-on-evict sum.  The first two partitions are compared with the
    same query run on the CPU (plain versions) at identical partitioning.
+   ``partition_run`` is staged: one captured graph replayed per partition
+   (``engine.capture.Staged``, captured at the first use of the shape).
+   Beside it, outside the launch-count windows, the same call compiled
+   with ``jit=False`` (eager): both timed in turns, each one's device busy
+   time and idle share, its synchronizing calls (the staged one must make
+   none) and the staged one's replays (one per partition); then both over
+   the app's inputs floored to integers, which must agree bit for bit.
 4. The main path, keyed: trend, fraud and ysb through ``batch_run`` at 4096
-   keys x 4096 ticks, the first 64 keys compared with the CPU.
+   keys x 4096 ticks, the first 64 keys compared with the CPU; staged (one
+   replay) against ``jit=False`` as in phase 3.
 5. The chunked runner, single stream (``repro_torch.engine.Runner``): the
    fraud-style query of the reference's sparse benchmark over a 2**24-tick
    burst stream (1% of ticks change, bursts of 128), 512-tick segments,
@@ -41,7 +49,10 @@ Phases (each raises on failure; the script then exits non-zero):
    the keys active), 64-tick segments, 2 per chunk, 16 chunks, at both
    bodies.
 7. The one-shot ``sparse_run``: the fraud query over a 2**20-tick burst
-   stream at 1%, 512-tick segments, against ``partition_run``.
+   stream at 1%, 512-tick segments, against ``partition_run``; staged
+   against ``jit=False`` as in phase 3, fused (one switched graph whose
+   bucket is picked on the card: no synchronizing call) and three-phase
+   (its mask eager, the count read on the host, one graph).
    Phases 5-7 check that the sparse output equals the dense one bit for
    bit, that the first two chunks (first 64 keys) agree with the same run
    on the CPU, and that a sparse run computed fewer units than it was
@@ -107,6 +118,10 @@ Phases (each raises on failure; the script then exits non-zero):
    query with the subtract-on-evict sum) over 2**24 ticks, dense and
    sparse, against ``partition_run(..., n_parts=1)``; ``shard_union_run``
    of phase 8's 16 dashboard queries over 2**24 ticks against the session;
+   both staged (one replay a call and no synchronizing call: the
+   exchange, the body, the NCCL gather; the sparse step picks its body on
+   the card), ``shard_map_run`` held bit for bit against, and timed
+   beside, ``jit=False`` as in phase 3;
    ``Runner(placement=mesh_placement(mesh))`` in phase 6's keyed fraud
    cells (16384 keys, 1% and 100% active, dense and sparse) and phase 5's
    single-stream fraud sparse cell, against the local runner over the same
@@ -1321,6 +1336,106 @@ def _profile_text(p: dict) -> str:
                 f"{k} {v:.4f}" for k, v in p["top"]))
 
 
+def _bits_equal(a, b) -> bool:
+    """Two output grids the same bits at every tick, φ ticks included."""
+    import torch
+    from torch.utils._pytree import tree_leaves
+    la, lb = tree_leaves((a.value, a.valid)), tree_leaves((b.value, b.valid))
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(
+            x.contiguous().view(torch.uint8), y.contiguous().view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+def staged_against_eager(label: str, staged, eager, per: int,
+                         replays: int, syncs=0) -> dict:
+    """A staged one-shot call beside the same call compiled with
+    ``jit=False`` (eager), outside every launch-count window: both after
+    their first use, timed in turns (eager, staged, staged, eager; the
+    smaller of each), their device busy time and idle share by
+    ``torch.profiler``, their span on the card by CUDA events (from before
+    a call's first operation to after its last, the smallest of three: a
+    check on the profiler, which can drop a replay's device events), each
+    call's synchronizing calls, and the staged call's graph replays, which
+    must be ``replays`` (its syncs ``syncs``, unless ``None``).  ``per``
+    divides the times (partitions a call)."""
+    from repro_torch.engine import capture
+    staged()
+    eager()
+    _, te1 = _timed(eager)
+    _, ts1 = _timed(staged)
+    _, ts2 = _timed(staged)
+    _, te2 = _timed(eager)
+    ts, te = min(ts1, ts2), min(te1, te2)
+    r0 = capture.replays["graph"]
+    n_syncs = count_syncs(staged)
+    n_replays = capture.replays["graph"] - r0
+    eager_syncs = count_syncs(eager)
+    if (syncs is not None and n_syncs != syncs) or n_replays != replays:
+        raise AssertionError(f"{label}: a steady staged call made {n_syncs} "
+                             f"synchronizing calls (want {syncs}) and "
+                             f"{n_replays} replays (want {replays})")
+    ps, pe = device_profile(staged, ts), device_profile(eager, te)
+    out = {"staged_ms": ts * 1e3 / per, "eager_ms": te * 1e3 / per,
+           "staged_busy_ms": _per(ps["device_ms"], per),
+           "eager_busy_ms": _per(pe["device_ms"], per),
+           "staged_idle": ps["idle_share"], "eager_idle": pe["idle_share"],
+           "staged_span_ms": _span_ms(staged) / per,
+           "eager_span_ms": _span_ms(eager) / per,
+           "staged_syncs": n_syncs, "eager_syncs": eager_syncs,
+           "replays": n_replays}
+    log(f"  {label}: staged {out['staged_ms']:.4f} ms (busy "
+        f"{_fmt(out['staged_busy_ms'])}, idle {_fmt(ps['idle_share'])}, "
+        f"span {out['staged_span_ms']:.4f}, {n_syncs} syncs, {n_replays} "
+        f"replays) against jit=False {out['eager_ms']:.4f} ms (busy "
+        f"{_fmt(out['eager_busy_ms'])}, idle {_fmt(pe['idle_share'])}, span "
+        f"{out['eager_span_ms']:.4f}, {eager_syncs} syncs), a "
+        f"{'partition' if per > 1 else 'call'}; x{te / ts:.2f}")
+    return out
+
+
+def _span_ms(fn, reps: int = 3) -> float:
+    """The smallest CUDA-event span of ``fn()`` on the current stream."""
+    import torch
+    spans = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        spans.append(a.elapsed_time(b))
+    return min(spans)
+
+
+def _per(v, n: int):
+    return None if v is None else v / n
+
+
+def _fmt(v) -> str:
+    return "not reported" if v is None else f"{v:.4f}"
+
+
+def hold_bits(label: str, staged, eager) -> None:
+    """The staged call and its ``jit=False`` twin on integer data: the
+    same bits at every tick."""
+    if not _bits_equal(staged(), eager()):
+        raise AssertionError(f"{label}: staged != jit=False on integer "
+                             "data")
+
+
+def _floored(data: dict) -> dict:
+    """An app's inputs floored to integers (validity kept)."""
+    out = {}
+    for name, d in data.items():
+        v = d["value"]
+        out[name] = dict(d, value=({k: np.floor(a) for k, a in v.items()}
+                                   if isinstance(v, dict) else np.floor(v)))
+    return out
+
+
 def run_apps(dev, main_launches: dict, n_ticks: int, part: int, n_cmp: int,
              seed: int = 0):
     """Every app over ``n_ticks`` in partitions of ``part`` ticks on the
@@ -1336,8 +1451,10 @@ def run_apps(dev, main_launches: dict, n_ticks: int, part: int, n_cmp: int,
         app = A.make_app(name)
         data = app.make_input(n_ticks, seed)
         grids = A.make_grids(data, device=dev)
-        exe = qc.compile_query(app.query.node, out_len=part // app.query.prec,
-                               sum_algo=algo)
+        exe, eager = (qc.compile_query(app.query.node,
+                                       out_len=part // app.query.prec,
+                                       sum_algo=algo, jit=jit)
+                      for jit in (True, False))
         n_parts = n_ticks // part
         partition_run(exe, grids, 0, 1)          # first use of every shape
         res, dt = drive(main_launches,
@@ -1351,14 +1468,24 @@ def run_apps(dev, main_launches: dict, n_ticks: int, part: int, n_cmp: int,
         head = res.replace(value=tree_map(lambda x: x[:k], res.value),
                            valid=res.valid[:k])
         stats = compare(name, head, cpu)
-        out[f"{name}/{algo}"] = dict(stats, events_per_s=n_ticks / dt,
-                                     seconds=dt, profile=prof)
         log(f"app {name:10s} {algo:5s}: {n_ticks / dt:.4g} events/s "
             f"({dt * 1e3:.2f} ms for {n_parts} partitions of {part}); "
             f"vs cpu max diff {stats['max_abs_diff']:.3g}, "
             f"{stats['flips']} gate flips")
         log(f"  one partition: {_profile_text(prof)}")
-        del grids, res
+        del res
+        vs = staged_against_eager(
+            f"{name} {algo}", lambda: partition_run(exe, grids, 0, n_parts),
+            lambda: partition_run(eager, grids, 0, n_parts), n_parts,
+            replays=n_parts)
+        del grids
+        ints = A.make_grids(_floored(data), device=dev)
+        hold_bits(f"{name} {algo}",
+                  lambda: partition_run(exe, ints, 0, n_parts),
+                  lambda: partition_run(eager, ints, 0, n_parts))
+        out[f"{name}/{algo}"] = dict(stats, events_per_s=n_ticks / dt,
+                                     seconds=dt, profile=prof, staged=vs)
+        del ints
     return out
 
 
@@ -1376,8 +1503,9 @@ def run_keyed(dev, main_launches: dict, n_keys: int, n_ticks: int,
         app = A.make_keyed_app(name)
         data = app.make_keyed_input(n_keys, n_ticks, seed)
         grids = A.make_grids(data, device=dev)
-        exe = qc.compile_query(app.query.node,
-                               out_len=n_ticks // app.query.prec)
+        exe, eager = (qc.compile_query(app.query.node,
+                                       out_len=n_ticks // app.query.prec,
+                                       jit=jit) for jit in (True, False))
         batch_run(exe, grids)                    # first use of every shape
         res, dt = drive(main_launches, lambda: batch_run(exe, grids))
         if res.valid.shape != (n_keys, exe.out_len):
@@ -1392,13 +1520,22 @@ def run_keyed(dev, main_launches: dict, n_keys: int, n_ticks: int,
                            valid=res.valid[:n_cmp])
         stats = compare(name, head, cpu)
         events = n_keys * n_ticks
-        out[name] = dict(stats, events_per_s=events / dt, seconds=dt,
-                         profile=prof)
         log(f"keyed {name:6s}: {events / dt:.4g} events/s ({dt * 1e3:.2f} "
             f"ms for {n_keys} keys x {n_ticks} ticks); vs cpu max diff "
             f"{stats['max_abs_diff']:.3g}, {stats['flips']} gate flips")
         log(f"  one batch: {_profile_text(prof)}")
-        del grids, res
+        del res
+        vs = staged_against_eager(f"batch_run {name}",
+                                  lambda: batch_run(exe, grids),
+                                  lambda: batch_run(eager, grids), 1,
+                                  replays=1)
+        del grids
+        ints = A.make_grids(_floored(data), device=dev)
+        hold_bits(f"batch_run {name}", lambda: batch_run(exe, ints),
+                  lambda: batch_run(eager, ints))
+        out[name] = dict(stats, events_per_s=events / dt, seconds=dt,
+                         profile=prof, staged=vs)
+        del ints
     return out
 
 
@@ -1582,8 +1719,9 @@ def run_one_shot(dev, main_launches: dict) -> dict:
     from repro_torch.data import streams
     n, seg = ONE_SHOT_TICKS, RUN_SEG
     n_parts = n // seg
-    exe = qc.compile_query(streams.fraud_query(FRAUD_WINDOW).node,
-                           out_len=seg, sparse=True)
+    exe, eager = (qc.compile_query(streams.fraud_query(FRAUD_WINDOW).node,
+                                   out_len=seg, sparse=True, jit=jit)
+                  for jit in (True, False))
     grids = streams.burst_grids(n, 0.01, 0, device=dev)
     sparse_run(exe, grids, 0, n_parts)           # first use of every shape
     partition_run(exe, grids, 0, 1)
@@ -1611,9 +1749,24 @@ def run_one_shot(dev, main_launches: dict) -> dict:
         f"{n / dt_d:.4g} events/s ({dt_d * 1e3:.2f} ms): equal bit for bit;"
         f" vs cpu max diff {stats['max_abs_diff']:.3g}")
     log(f"  one call: {_profile_text(prof)}")
+    # the burst stream is integer-valued: staged ≡ jit=False bit for bit
+    vs = {}
+    for fused in (True, False):
+        hold_bits(f"sparse_run fused={fused}",
+                  lambda f=fused: sparse_run(exe, grids, 0, n_parts, fused=f),
+                  lambda f=fused: sparse_run(eager, grids, 0, n_parts,
+                                             fused=f))
+        # fused: one switched graph, no host read; three-phase: the mask
+        # eagerly (its planning ranges reach the card every call), the
+        # count's host read, then one graph: its syncs are only printed
+        vs[f"fused={fused}"] = staged_against_eager(
+            f"sparse_run fused={fused}",
+            lambda f=fused: sparse_run(exe, grids, 0, n_parts, fused=f),
+            lambda f=fused: sparse_run(eager, grids, 0, n_parts, fused=f),
+            1, replays=1, syncs=0 if fused else None)
     return dict(stats, events_per_s=n / dt, seconds=dt,
                 dense_events_per_s=n / dt_d, dense_seconds=dt_d,
-                dirty_fraction=dirty / segs, profile=prof)
+                dirty_fraction=dirty / segs, profile=prof, staged=vs)
 
 
 # ---------------------------------------------------------------------------
@@ -2420,17 +2573,21 @@ def _timed(fn):
     return res, time.perf_counter() - t0
 
 
-def _in_turns(launches: dict, seen: dict, local_fn, mesh_fn) -> tuple:
+def _in_turns(launches: dict, seen: dict, local_fn, mesh_fn,
+              rounds: int = 1) -> tuple:
     """One mesh call inside a launch-count window, the shapes its kernels
     are called at recorded into ``seen`` (not timed); then the local call
-    and the mesh call timed in turns (local, mesh, mesh, local).  Returns
-    both results and the smaller time of each."""
+    and the mesh call timed in turns (local, mesh, mesh, local), ``rounds``
+    times.  Returns both results and the smallest time of each."""
     got, _ = drive(launches, recording(seen, mesh_fn))
-    want, tl1 = _timed(local_fn)
-    _, tm1 = _timed(mesh_fn)
-    _, tm2 = _timed(mesh_fn)
-    _, tl2 = _timed(local_fn)
-    return want, got, min(tl1, tl2), min(tm1, tm2)
+    want, tl = _timed(local_fn)
+    tls, tms = [tl], []
+    for r in range(rounds):
+        if r:
+            tls.append(_timed(local_fn)[1])
+        tms += [_timed(mesh_fn)[1], _timed(mesh_fn)[1]]
+        tls.append(_timed(local_fn)[1])
+    return want, got, min(tls), min(tms)
 
 
 def mesh_one_shot(dev, mesh, launches: dict, seen: dict) -> dict:
@@ -2453,8 +2610,9 @@ def mesh_one_shot(dev, mesh, launches: dict, seen: dict) -> dict:
     out = {}
     for name, q, grids, algo in cells:
         for sparse in (False, True):
-            exe = qc.compile_query(q, out_len=n, sparse=sparse,
-                                   sum_algo=algo)
+            exe, eager = (qc.compile_query(q, out_len=n, sparse=sparse,
+                                           sum_algo=algo, jit=jit)
+                          for jit in (True, False))
             # the first use of each is not timed
             recording(seen, lambda: shard_map_run(exe, grids, mesh))()
             partition_run(exe, grids, 0, 1)
@@ -2465,16 +2623,25 @@ def mesh_one_shot(dev, mesh, launches: dict, seen: dict) -> dict:
             if not _same_bits(want, got):
                 raise AssertionError(f"mesh shard_map_run {label} != "
                                      "partition_run")
-            out[label] = {"ms": tm * 1e3, "local_ms": tl * 1e3}
             log(f"mesh shard_map_run {label} 2**24: {tm * 1e3:.3f} ms "
                 f"against partition_run {tl * 1e3:.3f} ms (mesh - local "
                 f"{(tm - tl) * 1e3:+.3f} ms); equal bit for bit")
+            hold_bits(f"mesh shard_map_run {label}",
+                      lambda: shard_map_run(exe, grids, mesh),
+                      lambda: shard_map_run(eager, grids, mesh))
+            vs = staged_against_eager(
+                f"shard_map_run {label}",
+                lambda: shard_map_run(exe, grids, mesh),
+                lambda: shard_map_run(eager, grids, mesh), 1, replays=1)
+            out[label] = {"ms": tm * 1e3, "local_ms": tl * 1e3,
+                          "staged": vs}
     return out
 
 
 def mesh_union(dev, mesh, launches: dict, seen: dict) -> dict:
     """``shard_union_run`` of phase 8's dashboard queries against the
     session over the same span, on integer prices."""
+    import torch
     from repro_torch.data import apps as A
     from repro_torch.multiquery import shard_union_run
     rng = np.random.default_rng(7)
@@ -2484,21 +2651,43 @@ def mesh_union(dev, mesh, launches: dict, seen: dict) -> dict:
     sess = _dash_session(qs, MQ_TICKS, 1, False)
     sess.run(grids, 1)                                 # first use
     recording(seen, lambda: shard_union_run(qs, MQ_TICKS, grids, mesh))()
+    # three rounds: the union's capture (its first use) empties the
+    # caching allocator (torch.cuda.graph), and the session's outputs then
+    # find no free block until a round has freed some (on an H100, a
+    # session chunk that allocated its 34 blocks anew took 21.8 ms against
+    # 8.0: tools/session_yardstick.py)
     want, got, tl, tm = _in_turns(
         launches, seen, lambda: (sess.reset(), sess.run(grids, 1))[1],
-        lambda: shard_union_run(qs, MQ_TICKS, grids, mesh))
+        lambda: shard_union_run(qs, MQ_TICKS, grids, mesh), rounds=3)
     if not _same_heads(want, got):
         raise AssertionError("mesh shard_union_run != session")
-    # the one-shot union runs eagerly, the session's chunk is one captured
-    # graph: the busy time and idle share say how much is dispatch
+    # the staged union and the session's chunk are one captured graph
+    # each: the busy time and idle share say how much is dispatch
     prof = device_profile(lambda: shard_union_run(qs, MQ_TICKS, grids, mesh),
                           tm)
     log(f"mesh shard_union_run, {MQ_QUERIES} dashboard queries over 2**24 "
         f"ticks: {tm * 1e3:.3f} ms against the session's one chunk "
         f"{tl * 1e3:.3f} ms (mesh - local {(tm - tl) * 1e3:+.3f} ms); "
-        f"every head equal bit for bit")
+        f"every head equal bit for bit; allocator "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     log(f"  one call: {_profile_text(prof)}")
-    return {"ms": tm * 1e3, "local_ms": tl * 1e3, "profile": prof}
+    # always staged (the eager union of the parent commit is timed beside
+    # it by tools/one_shot_ab.py): a steady call replays one graph and
+    # makes no synchronizing call
+    from repro_torch.engine import capture
+    r0 = capture.replays["graph"]
+    syncs = count_syncs(lambda: shard_union_run(qs, MQ_TICKS, grids, mesh))
+    replays = capture.replays["graph"] - r0
+    span = _span_ms(lambda: shard_union_run(qs, MQ_TICKS, grids, mesh))
+    log(f"  shard_union_run: {syncs} syncs, {replays} replays, span "
+        f"{span:.4f} ms a call")
+    if syncs or replays != 1:
+        raise AssertionError(f"shard_union_run: a steady call made {syncs} "
+                             f"synchronizing calls and {replays} replays "
+                             "(want 0 and 1)")
+    return {"ms": tm * 1e3, "local_ms": tl * 1e3, "profile": prof,
+            "syncs": syncs, "replays": replays, "span_ms": span}
 
 
 def mesh_runner_cell(dev, mesh, launches: dict, seen: dict, label: str,

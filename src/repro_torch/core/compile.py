@@ -5,9 +5,17 @@ Every node evaluates to a ``(value, valid)`` pair of tensors on its own
 statically-planned grid.  The fused mode walks the optimized DAG once; the
 interpreted mode evaluates operator at a time with a device barrier after
 each node (the event-centric baseline of the Fig. 10 ablation).  Both go
-through the single node evaluator :func:`_eval_op`.  There is no ``jit``:
-execution is eager, on the device the input tensors live on, and every
-windowed aggregate goes through :mod:`repro_torch.kernels.ops`.
+through the single node evaluator :func:`_eval_op`, on the device the
+input tensors live on; every windowed aggregate goes through
+:mod:`repro_torch.kernels.ops`.
+
+Staging, as the reference's ``jax.jit``: ``trace_fn`` is the eager body;
+with ``jit=True`` (the default) ``fn`` is
+:class:`repro_torch.engine.capture.Staged` over it, which on a CUDA device
+replays one captured CUDA graph per input geometry (captured at its first
+use, after an eager warm-up) and on the CPU runs the same body eagerly
+over the same static buffers; ``jit=False`` makes ``fn`` the eager body
+itself.  The interpreted mode stages every node the same way.
 
 Tensors carry time on their last axis.  A keyed stream adds leading key
 axes, which every node evaluator lets ride along (the reference ``vmap``s
@@ -36,6 +44,7 @@ from . import fusion, ir
 from .plan import ChangePlan, InputSpec, QueryPlan, plan_change, plan_query
 from .reduction import get_reduction
 from ..device import resolve
+from ..engine.capture import Staged
 from ..kernels import ops as kops
 from ..kernels import ref as kref
 
@@ -251,19 +260,27 @@ def _input_device(inputs: Dict[str, tuple]) -> torch.device:
 class CompiledQuery:
     """A TiLT query compiled for a fixed partition size.
 
-    ``fn(inputs)`` evaluates the fused DAG eagerly on the inputs' device;
-    ``run_interpreted`` evaluates operator at a time with a device barrier
-    after every node (the event-centric execution model, for the Fig. 10
-    ablation).  ``plan`` is the static artifact both share.
-    ``change_plan`` is attached by ``compile_query(..., sparse=True)``.
+    ``fn(inputs)`` is the fused executable: staged (one captured graph per
+    input geometry on a CUDA device, see the module docstring) under
+    ``jit=True``, else ``trace_fn`` itself; ``jit`` records which, for the
+    entry points that stage a step of their own around ``trace_fn``.  ``trace_fn`` is the eager
+    body, which callers that stage their own step (the chunked runner, the
+    sparse bodies, the SPMD steps) call inside their capture.
+    ``run_interpreted`` evaluates operator at a time, one staged node at a
+    time, with a device barrier after every node (the event-centric
+    execution model, for the Fig. 10 ablation).  ``plan`` is the static
+    artifact everything shares.  ``change_plan`` is attached by
+    ``compile_query(..., sparse=True)``.
     """
 
     root: ir.Node
     plan: QueryPlan
+    trace_fn: Callable[[Dict[str, tuple]], tuple]
     fn: Callable[[Dict[str, tuple]], tuple]
-    _node_fns: list  # [(name, evaluator, arg node ids, node)]
+    _node_fns: list  # [(name, staged evaluator, arg node ids, node)]
     change_plan: Optional[ChangePlan] = None
     sum_algo: str = "block"
+    jit: bool = True
 
     @property
     def out_len(self) -> int:
@@ -295,13 +312,15 @@ class CompiledQuery:
 
 
 def compile_query(root: ir.Node, out_len: int, *, opt: bool = True,
-                  sum_algo: str = "block",
+                  sum_algo: str = "block", jit: bool = True,
                   sparse: bool = False) -> CompiledQuery:
     """Compile a TiLT query for partitions of ``out_len`` output ticks.
 
     ``opt`` runs the fusion passes; ``sum_algo`` picks the windowed-sum
     algorithm (``"block"`` or the paper's subtract-on-evict ``"soe"``, see
-    :func:`repro_torch.kernels.ops.sliding_sum`).  With ``sparse=True`` the
+    :func:`repro_torch.kernels.ops.sliding_sum`); ``jit=False`` leaves
+    ``fn`` (and the interpreted nodes) eager instead of staged.  With
+    ``sparse=True`` the
     executable also carries a :class:`plan.ChangePlan` (per-source
     dirty-span dilation, derived from the halo contracts), which the
     change-compressed executors need — :func:`repro_torch.core.sparse.
@@ -313,11 +332,12 @@ def compile_query(root: ir.Node, out_len: int, *, opt: bool = True,
         root = fusion.optimize(root)
     ir.validate(root)
     qp = plan_query(root, out_len)
-    return compile_planned(root, qp, sum_algo=sum_algo,
+    return compile_planned(root, qp, sum_algo=sum_algo, jit=jit,
                            change_plan=plan_change(qp) if sparse else None)
 
 
 def compile_planned(root: ir.Node, qp: QueryPlan, *, sum_algo: str = "block",
+                    jit: bool = True,
                     change_plan: Optional[ChangePlan] = None
                     ) -> CompiledQuery:
     """The evaluator of an already optimized and planned query: what
@@ -336,11 +356,13 @@ def compile_planned(root: ir.Node, qp: QueryPlan, *, sum_algo: str = "block",
         memo[id(n)] = out
         return out
 
-    def fn(inputs: Dict[str, tuple]) -> tuple:
+    def trace_fn(inputs: Dict[str, tuple]) -> tuple:
         return eval_node(root, inputs, {}, _input_device(inputs))
 
-    node_fns = [(n.name, functools.partial(_eval_op, n, qp, sum_algo),
+    stage = Staged if jit else (lambda f: f)
+    node_fns = [(n.name, stage(functools.partial(_eval_op, n, qp, sum_algo)),
                  tuple(id(a) for a in n.args), n)
                 for n in ir.topo_order(root)]
-    return CompiledQuery(root=root, plan=qp, fn=fn, _node_fns=node_fns,
-                         change_plan=change_plan, sum_algo=sum_algo)
+    return CompiledQuery(root=root, plan=qp, trace_fn=trace_fn,
+                         fn=stage(trace_fn), _node_fns=node_fns,
+                         change_plan=change_plan, sum_algo=sum_algo, jit=jit)

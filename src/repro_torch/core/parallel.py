@@ -39,6 +39,7 @@ from torch.utils._pytree import tree_leaves, tree_map
 
 from . import compile as qcompile
 from . import halo as halo_mod
+from ..engine.capture import Spec, Staged, StagedSwitch
 from ..launch.mesh import axis_comm
 from ..obs import default as _obs_default
 from .stream import SnapshotGrid
@@ -81,15 +82,59 @@ def slice_grid(grid: SnapshotGrid, t0: int, t_end: int) -> SnapshotGrid:
     return SnapshotGrid(value=v, valid=m, t0=t0, prec=p)
 
 
-def _grid_window(g: SnapshotGrid, t0: int, length: int):
+def _window_lo(g: SnapshotGrid, t0: int) -> int:
+    """The index in ``g`` of a window starting at time ``t0``."""
     # same alignment guard as slice_grid: a misaligned partition origin
     # must raise, not floor-divide into a time-shifted window
     if (t0 - g.t0) % g.prec:
         raise ValueError(
             f"partition window start {t0} misaligned with input grid "
             f"(t0={g.t0}, prec={g.prec})")
-    lo = (t0 - g.t0) // g.prec
+    return (t0 - g.t0) // g.prec
+
+
+def _grid_window(g: SnapshotGrid, t0: int, length: int):
+    lo = _window_lo(g, t0)
     return _slice_pad(g.value, g.valid, lo, lo + length)
+
+
+def _window_into(dst: torch.Tensor, src: torch.Tensor, lo: int) -> None:
+    """Ticks ``[lo, lo + L)`` of ``src`` into ``dst`` (``L`` ticks, time
+    last), zeros (φ) where they fall off ``src``'s ends."""
+    L, T = dst.shape[-1], src.shape[-1]
+    a, b = max(lo, 0), min(lo + L, T)
+    if b <= a:
+        dst.zero_()
+        return
+    if a > lo:
+        dst[..., :a - lo].zero_()
+    dst[..., a - lo:b - lo].copy_(src[..., a:b])
+    if b < lo + L:
+        dst[..., b - lo:].zero_()
+
+
+def _window_entry(stage: Staged, inputs: Dict[str, SnapshotGrid],
+                  lengths: Dict[str, int]):
+    """The entry of ``stage`` (a query's staged ``fn``) for windows of
+    ``lengths[name]`` ticks of every input, not loaded."""
+    def spec(x, L):
+        return Spec(x.device, tuple(x.shape[:-1]) + (L,), x.dtype)
+
+    return stage.entry({
+        name: (tree_map(lambda x, L=L: spec(x, L), inputs[name].value),
+               spec(inputs[name].valid, L))
+        for name, L in lengths.items()})
+
+
+def _load_windows(ent, inputs: Dict[str, SnapshotGrid],
+                  los: Dict[str, int]) -> None:
+    """Every input's window starting at index ``los[name]`` into the
+    entry's buffers, φ-padded off the grid's ends (outside the graph)."""
+    (bufs,) = ent.inputs
+    for name, lo in los.items():
+        g, (bv, bm) = inputs[name], bufs[name]
+        tree_map(lambda d, x: _window_into(d, x, lo), bv, g.value)
+        _window_into(bm, g.valid, lo)
 
 
 def partition_run(exe: qcompile.CompiledQuery,
@@ -97,21 +142,42 @@ def partition_run(exe: qcompile.CompiledQuery,
                   out_t0: int, n_parts: int,
                   interpreted: bool = False) -> SnapshotGrid:
     """Run ``n_parts`` partitions of ``exe.out_len`` output ticks each,
-    starting at ``out_t0``, stitching the outputs."""
+    starting at ``out_t0``, stitching the outputs.
+
+    One call of ``exe.fn`` per partition, as the reference makes one
+    ``jit`` dispatch per partition: staged (``jit=True``), each
+    partition's window is copied into the static input buffers (φ off the
+    grid's ends) and on the card one graph replays.  Each partition's
+    output is copied into one result allocated for all partitions.
+    ``interpreted=True`` runs ``exe.run_interpreted`` instead, one staged
+    node at a time."""
+    if n_parts < 1:
+        raise ValueError(f"n_parts must be at least 1, got {n_parts}")
     span = exe.out_len * exe.out_prec
-    outs_v, outs_m = [], []
+    specs = exe.input_specs
+    stage = exe.fn if exe.jit and not interpreted else None
+    if stage is not None:
+        ent = _window_entry(stage, inputs,
+                            {name: s.length for name, s in specs.items()})
+    out = None
     for k in range(n_parts):
         p0 = out_t0 + k * span
-        part_in = {name: _grid_window(inputs[name], p0 + spec.t0,
-                                      spec.length)
-                   for name, spec in exe.input_specs.items()}
-        res = (exe.run_interpreted(part_in) if interpreted
-               else exe.fn(part_in))
-        outs_v.append(res[0])
-        outs_m.append(res[1])
-    value = tree_map(lambda *xs: torch.cat(xs, dim=-1), *outs_v)
-    valid = torch.cat(outs_m, dim=-1)
-    return SnapshotGrid(value=value, valid=valid, t0=out_t0,
+        if stage is not None:
+            _load_windows(ent, inputs, {
+                name: _window_lo(inputs[name], p0 + s.t0)
+                for name, s in specs.items()})
+            res = stage.run(ent)
+        else:
+            part_in = {name: _grid_window(inputs[name], p0 + s.t0, s.length)
+                       for name, s in specs.items()}
+            res = (exe.run_interpreted(part_in) if interpreted
+                   else exe.fn(part_in))
+        if out is None:
+            out = tree_map(lambda x: x.new_empty(
+                x.shape[:-1] + (n_parts * x.shape[-1],)), res)
+        L = res[1].shape[-1]
+        tree_map(lambda d, x: d[..., k * L:(k + 1) * L].copy_(x), out, res)
+    return SnapshotGrid(value=out[0], valid=out[1], t0=out_t0,
                         prec=exe.out_prec)
 
 
@@ -272,21 +338,28 @@ def _hold_variant(exe: "qcompile.CompiledQuery") -> "qcompile.CompiledQuery":
             raise ValueError(
                 f"hold variant out_len {m} is not smaller than {exe.out_len}")
         exe.__dict__["_hold_variant"] = qcompile.compile_query(
-            exe.root, m, opt=False, sum_algo=exe.sum_algo)
+            exe.root, m, opt=False, sum_algo=exe.sum_algo, jit=False)
     return exe.__dict__["_hold_variant"]
 
 
 def _stage_sparse_step(exe: "qcompile.CompiledQuery",
-                       vexe: "qcompile.CompiledQuery", mesh, axis: str):
+                       vexe: "qcompile.CompiledQuery", mesh, axis: str,
+                       staged: bool):
     """The change-compressed SPMD step ``step(flag, *placed)``: the same
     halo exchange as :func:`stage_exchange_step` (the hops stay
     unconditional — every shard takes part in every hop), then this
-    shard's ``flag`` (a host bool) picks the body.  A dirty shard runs the
-    full partition body; a clean one the hold body — the minimal-
-    ``out_len`` variant on the slab prefix, tick 0 broadcast over the
-    shard's span (a clean shard's outputs provably all equal its first
-    output; see :mod:`repro_torch.core.sparse`).  The output is
-    all-gathered along time."""
+    shard's ``flag`` picks the body.  A dirty shard runs the full
+    partition body; a clean one the hold body — the minimal-``out_len``
+    variant on the slab prefix, tick 0 broadcast over the shard's span (a
+    clean shard's outputs provably all equal its first output; see
+    :mod:`repro_torch.core.sparse`).  The output is all-gathered along
+    time.
+
+    ``staged``: a :class:`repro_torch.engine.capture.StagedSwitch` whose
+    ``flag`` is an int32 0-d tensor (1 dirty): on the card one graph (the
+    exchange, a device pick between the two bodies, the gather), as the
+    reference's ``lax.cond`` inside one ``jit``.  Else eager, ``flag`` a
+    host bool."""
     comm = axis_comm(mesh, axis)
     specs = exe.input_specs
     names = sorted(specs)
@@ -296,19 +369,28 @@ def _stage_sparse_step(exe: "qcompile.CompiledQuery",
     S = exe.out_len
     vspecs = vexe.input_specs
 
+    def exchange(flat):
+        return {name: halo_mod.exchange(scheds[name], v, m, comm)
+                for name, (v, m) in zip(names, flat)}
+
     def hold_body(full):
         pref = {name: (tree_map(lambda x, L=vspecs[name].length:
                                 x[..., :L], v), m[..., :vspecs[name].length])
                 for name, (v, m) in full.items()}
-        ov, om = vexe.fn(pref)
+        ov, om = vexe.trace_fn(pref)
         return (tree_map(lambda x: x[..., :1].expand(x.shape[:-1] + (S,)),
                          ov),
                 om[..., :1].expand(om.shape[:-1] + (S,)))
 
+    if staged:
+        return StagedSwitch(
+            lambda flag, *flat: (exchange(flat), flag),
+            [hold_body, exe.trace_fn],
+            lambda out, _flag: _gather_outputs(axis, out, comm), caps=[0, 1])
+
     def step(flag: bool, *flat):
-        full = {name: halo_mod.exchange(scheds[name], v, m, comm)
-                for name, (v, m) in zip(names, flat)}
-        out = exe.fn(full) if flag else hold_body(full)
+        full = exchange(flat)
+        out = exe.trace_fn(full) if flag else hold_body(full)
         return _gather_outputs(axis, out, comm)
 
     return step
@@ -347,15 +429,19 @@ def shard_map_run(exe: qcompile.CompiledQuery,
     outputs stitch against :func:`partition_run` at any origin.
 
     ``sparse`` selects the per-shard dirty fast path: shards whose dilated
-    input lineage saw no change (the per-shard flags of
-    :func:`repro_torch.core.sparse.segment_mask` through the ``seg_dirty``
-    kernel, resolved on the global grids and read on the host once per
-    call) skip the partition body and broadcast their locally computed
-    first output tick instead — bit-identical, since a clean shard's
-    outputs all equal its first output.  ``None`` (default) enables it for
-    queries compiled with ``sparse=True`` when a smaller hold variant
-    exists; ``True`` requires it (raising when it cannot be built);
-    ``False`` forces the dense body.
+    input lineage saw no change (the per-shard flags of the ``seg_dirty``
+    kernel, resolved on the global grids) skip the partition body and
+    broadcast their locally computed first output tick instead —
+    bit-identical, since a clean shard's outputs all equal its first
+    output.  ``None`` (default) enables it for queries compiled with
+    ``sparse=True`` when a smaller hold variant exists; ``True`` requires
+    it (raising when it cannot be built); ``False`` forces the dense body.
+
+    Staged (``exe`` compiled with ``jit=True``), the step — exchange,
+    body, gather — is captured per placed geometry and replayed on the
+    card; the sparse step picks its body on the device from this shard's
+    flag, so a call reads nothing on the host.  With ``jit=False`` the
+    step is eager and the sparse one reads its flag on the host.
     """
     comm = axis_comm(mesh, axis)
     specs = exe.input_specs
@@ -378,28 +464,35 @@ def shard_map_run(exe: qcompile.CompiledQuery,
     cache = exe.__dict__.setdefault("_shard_step_cache",
                                     collections.OrderedDict())
     geo = (comm.n, comm.rank, comm.serial, axis)
+    staged = exe.jit
     if not use_sparse:
-        step = lru_step_get(
-            cache, geo,
-            lambda: stage_exchange_step(specs, exe.fn, comm, axis,
-                                        (axis, axis)),
-            _SHARD_STEP_CACHE_MAX)
+        def build():
+            step = stage_exchange_step(specs, exe.trace_fn, comm, axis,
+                                       (axis, axis))
+            return Staged(step) if staged else step
+
+        step = lru_step_get(cache, geo, build, _SHARD_STEP_CACHE_MAX)
         record_exchange(specs, placed, comm)
         val, msk = step(*placed)
         return SnapshotGrid(value=val, valid=msk, t0=out_t0,
                             prec=exe.out_prec)
 
-    from .sparse import segment_mask
+    from .sparse import fused_segment_mask, segment_mask
     # per-shard flags resolve on the global grids (cross-shard lineage is
     # just index arithmetic there, no communication) — no force_first: the
     # hold body is locally self-sufficient
-    flags = segment_mask(exe, inputs, out_t0, comm.n, force_first=False,
-                         kernel=True)
-    flag = bool(flags[comm.rank])
     step = lru_step_get(
         cache, geo + ("sparse",),
-        lambda: _stage_sparse_step(exe, vexe, comm, axis),
+        lambda: _stage_sparse_step(exe, vexe, comm, axis, staged),
         _SHARD_STEP_CACHE_MAX)
+    if staged:
+        flags = fused_segment_mask(exe, inputs, out_t0, comm.n,
+                                   force_first=False)
+        flag = flags[comm.rank].to(torch.int32)
+    else:
+        flags = segment_mask(exe, inputs, out_t0, comm.n, force_first=False,
+                             kernel=True)
+        flag = bool(flags[comm.rank])
     record_exchange(specs, placed, comm)
     val, msk = step(flag, *placed)
     return SnapshotGrid(value=val, valid=msk, t0=out_t0, prec=exe.out_prec)
@@ -410,14 +503,33 @@ def batch_run(exe: qcompile.CompiledQuery,
     """Keyed/partitioned-stream execution (paper §6.2's *other* parallelism
     axis): input grids carry a leading key axis ``(K, T)`` — one
     sub-stream per stock symbol / user / campaign — and the compiled query
-    runs once over all keys.  Each input is φ-padded by its planned halo."""
-    flat_in = {}
-    for name, spec in exe.input_specs.items():
+    runs once over all keys.  Each input is φ-padded by its planned halo:
+    ``F.pad`` under ``jit=False``; staged, the grids are copied between the
+    halos of the static input buffers of ``batch_run``'s own staging of
+    ``exe.trace_fn``, whose halo ticks stay zero from their allocation
+    (nothing else writes those buffers), and on the card one graph
+    replays."""
+    specs = exe.input_specs
+    if not exe.jit:
+        val, msk = exe.fn({
+            name: tree_map(lambda x, s=s: F.pad(x, (s.left_halo,
+                                                    s.right_halo)),
+                           (inputs[name].value, inputs[name].valid))
+            for name, s in specs.items()})
+        return SnapshotGrid(value=val, valid=msk, t0=0, prec=exe.out_prec)
+    stage = exe.__dict__.get("_batch_stage")
+    if stage is None:
+        stage = exe.__dict__["_batch_stage"] = Staged(exe.trace_fn)
+    ent = _window_entry(stage, inputs, {
+        name: s.left_halo + inputs[name].length + s.right_halo
+        for name, s in specs.items()})
+    (bufs,) = ent.inputs
+    for name, s in specs.items():
         g = inputs[name]
-        hl, hr = spec.left_halo, spec.right_halo
-        flat_in[name] = (tree_map(lambda x: F.pad(x, (hl, hr)), g.value),
-                         F.pad(g.valid, (hl, hr)))
-    val, msk = exe.fn(flat_in)
+        lo, hi = s.left_halo, s.left_halo + g.length
+        tree_map(lambda d, x: d[..., lo:hi].copy_(x), bufs[name],
+                 (g.value, g.valid))
+    val, msk = tree_map(torch.clone, stage.run(ent))
     return SnapshotGrid(value=val, valid=msk, t0=0, prec=exe.out_prec)
 
 

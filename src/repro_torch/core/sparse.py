@@ -31,11 +31,15 @@ integer-valued data across partitionings).  NaN payloads compare unequal
 to themselves and are therefore always dirty.
 
 The bucket pick: the reference picks the capacity on the device
-(``searchsorted`` + ``lax.switch``).  Eager PyTorch cannot branch on device
-data without reading it, so the port reads the dirty count once per call
-(4 bytes, device→host) and picks the bucket with :func:`bucket_capacity`
-on the host — the mechanism the reference keeps as its semantics of record
-(``sparse_run(fused=False)``).  Outputs do not depend on the bucket.
+(``searchsorted`` + ``lax.switch`` inside one ``jit``).  So does the port's
+fused :func:`sparse_run` on a CUDA device: mask, pick and compute are one
+composed graph (:class:`repro_torch.engine.capture.StagedSwitch`) whose
+body a kernel picks from the count the prefix leaves on the device, and
+the count reaches the ``sparse.dirty_segments`` counter as a lazy device
+add: a steady call reads nothing on the host.  On the CPU the count is
+read on the host.  ``sparse_run(fused=False)`` keeps the host-resolved
+bucket (:func:`bucket_capacity`), the reference's semantics of record.
+Outputs do not depend on the bucket.
 
 Layering: this module owns the change *mechanics* (dirty masks, dilation
 arithmetic, bucketing, fixed-size ids) and the one-shot :func:`sparse_run`;
@@ -44,12 +48,14 @@ keys.  Time is the last axis of every tensor.
 """
 from __future__ import annotations
 
+import collections
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_map
 
+from ..engine.capture import STAGED_CACHE_MAX, Staged, StagedSwitch
 from ..kernels import sparse_compact
 from ..obs import default as _obs_default
 from .plan import seg_range_affine
@@ -58,7 +64,7 @@ from .stream import SnapshotGrid
 __all__ = ["source_dirty", "bucket_capacity", "capacity_ladder",
            "segment_mask", "sparse_run", "seg_ranges", "range_any",
            "affine_covers", "retro_segment_mask", "staged_step",
-           "zero_seed", "compact_ids"]
+           "zero_seed", "compact_ids", "fused_segment_mask"]
 
 
 # ---------------------------------------------------------------------------
@@ -361,7 +367,8 @@ def _step_body(exe, n_segs: int, capacity: int):
 
     def step(flat, starts, seg_dirty, seed_v, seed_m):
         seg_ids, pos = compact_ids(seg_dirty, capacity)
-        out_v, out_m = exe.fn(_gather_windows(exe, flat, starts, seg_ids))
+        out_v, out_m = exe.trace_fn(
+            _gather_windows(exe, flat, starts, seg_ids))
 
         # scatter compacted results back over the segment axis
         full_v = tree_map(lambda x: x.index_select(0, pos), out_v)
@@ -400,7 +407,8 @@ def _dense_body(exe, n_segs: int):
 
     def step(flat, starts, seg_dirty, seed_v, seed_m):
         del seg_dirty, seed_v, seed_m      # every segment computes
-        out_v, out_m = exe.fn(_gather_windows(exe, flat, starts, None))
+        out_v, out_m = exe.trace_fn(
+            _gather_windows(exe, flat, starts, None))
         ov = tree_map(_stitch, out_v)
         om = _stitch(out_m)
         return ov, om, (tree_map(lambda x: x[..., -1], ov), om[-1])
@@ -410,7 +418,9 @@ def _dense_body(exe, n_segs: int):
 
 def staged_step(exe, n_segs: int, capacity: int):
     """The sparse step for a fixed (segment count, compaction capacity)
-    geometry, cached on the CompiledQuery.
+    geometry, cached on the CompiledQuery: staged (one captured graph per
+    input geometry on the card) when ``exe`` is (``jit=True``), as the
+    reference jits it.
 
     ``step(flat, starts, seg_dirty, seed_v, seed_m)`` takes the full input
     grids (``(value, valid)`` in sorted-name order), per-input segment start
@@ -420,7 +430,8 @@ def staged_step(exe, n_segs: int, capacity: int):
     cache = exe.__dict__.setdefault("_sparse_step_cache", {})
     key = (n_segs, capacity)
     if key not in cache:
-        cache[key] = _step_body(exe, n_segs, capacity)
+        body = _step_body(exe, n_segs, capacity)
+        cache[key] = Staged(body) if exe.jit else body
     return cache[key]
 
 
@@ -444,7 +455,7 @@ def zero_seed(exe, flat):
                                                dtype=x.dtype, device=dev), v),
                 torch.zeros(m.shape[:-1] + (L,), dtype=torch.bool,
                             device=dev))
-        out_v, _ = exe.fn(zeros)
+        out_v, _ = exe.trace_fn(zeros)
         cache[shapes] = (tree_map(lambda a: torch.zeros_like(a[..., 0]),
                                   out_v),
                          torch.zeros((), dtype=torch.bool, device=dev))
@@ -456,13 +467,14 @@ def zero_seed(exe, flat):
 # ---------------------------------------------------------------------------
 
 def _fused_plan(exe, n_parts: int, out_t0: int, meta: tuple,
-                dirty_names: tuple, dev: torch.device):
+                dirty_names: tuple, dev: torch.device,
+                force_first: bool = True):
     """Everything data-independent of one fused sparse run, cached on the
     CompiledQuery per geometry and device: segment starts, the static mask
     (forced first segment, grid-edge virtual changes, stream start's
     tick 0 for value-diff inputs), kernel geometries, staged ranges."""
     cache = exe.__dict__.setdefault("_sparse_run_cache", {})
-    key = (n_parts, out_t0, meta, dirty_names, str(dev))
+    key = (n_parts, out_t0, meta, dirty_names, str(dev), force_first)
     if key in cache:
         return cache[key]
     _obs_default().tracer.record_compile(
@@ -471,7 +483,7 @@ def _fused_plan(exe, n_parts: int, out_t0: int, meta: tuple,
     cp = _change_plan(exe)
     k = np.arange(n_parts, dtype=np.int64)
     static = np.zeros((n_parts,), bool)
-    static[0] = True
+    static[0] = force_first
     starts, geom, ranges = {}, {}, {}
     for name, (g_t0, T, g_prec) in zip(names, meta):
         starts[name] = torch.as_tensor(
@@ -495,6 +507,80 @@ def _fused_plan(exe, n_parts: int, out_t0: int, meta: tuple,
     return cache[key]
 
 
+def _grid_meta(inputs: Dict[str, SnapshotGrid], names) -> tuple:
+    return tuple((inputs[nm].t0, inputs[nm].length, inputs[nm].prec)
+                 for nm in names)
+
+
+def _fused_mask(plan, names, flat, dmasks, n_parts: int) -> torch.Tensor:
+    """The dirty-segment mask of one fused run on the device: the static
+    mask, OR the ``seg_dirty`` kernel over every value-diff input, OR
+    :func:`range_any` over every explicit mask.  No host read."""
+    _starts, seg, geom, ranges = plan
+    for name, (v, mk) in zip(names, flat):
+        if name in ranges:
+            seg = seg | range_any(dmasks[name], *ranges[name])
+        else:
+            mats = sparse_compact.grid_mats(v, mk)
+            seg = seg | sparse_compact.seg_dirty(
+                mats, [geom[name]] * len(mats), n_parts)
+    return seg
+
+
+def fused_segment_mask(exe, inputs: Dict[str, SnapshotGrid], out_t0: int,
+                       n_parts: int, force_first: bool = True
+                       ) -> torch.Tensor:
+    """:func:`segment_mask` (value diffs, ``kernel=True``) from the fused
+    path's cached plan: the same bits, with every data-independent part
+    made once per geometry on the device, so a call reads nothing on the
+    host and moves nothing to the device."""
+    names = sorted(exe.input_specs)
+    flat = [(inputs[nm].value, inputs[nm].valid) for nm in names]
+    dev = (flat[0][1].device if flat else torch.device("cpu"))
+    plan = _fused_plan(exe, n_parts, out_t0, _grid_meta(inputs, names), (),
+                       dev, force_first)
+    return _fused_mask(plan, names, flat, {}, n_parts)
+
+
+def _fused_step(exe, n_parts: int, plan, names):
+    """The fused sparse run of one plan, ``step(flat, dmasks) -> ((value,
+    valid), count)``: the prefix resolves the mask and leaves the int32
+    dirty count on the device, the body of the first
+    :func:`capacity_ladder` rung at or above it (the full-capacity one the
+    dense body) computes, the suffix hands out the count beside the
+    output.  Staged when ``exe`` is (one :class:`StagedSwitch`, as the
+    reference's one ``jit``); else eager, the count read on the host."""
+    starts = plan[0]
+    ladder = capacity_ladder(n_parts)
+    branches = [_step_body(exe, n_parts, c) for c in ladder[:-1]]
+    branches.append(_dense_body(exe, n_parts))
+
+    def prefix(flat, dmasks):
+        seg = _fused_mask(plan, names, flat, dmasks, n_parts)
+        return (flat, seg), seg.sum(dtype=torch.int32)
+
+    def body(branch):
+        def run(mid):
+            flat, seg = mid
+            ov, om, _ = branch(flat, starts, seg, *zero_seed(exe, flat))
+            return ov, om
+        return run
+
+    def suffix(out, count):
+        return out, count.clone()
+
+    bodies = [body(b) for b in branches]
+    if exe.jit:
+        return StagedSwitch(prefix, bodies, suffix, ladder)
+
+    def step(flat, dmasks):
+        mid, count = prefix(flat, dmasks)
+        cap = bucket_capacity(int(count), n_parts)   # the one host read
+        return suffix(bodies[ladder.index(cap)](mid), count)
+
+    return step
+
+
 def sparse_run(exe, inputs: Dict[str, SnapshotGrid], out_t0: int,
                n_parts: int, dirty: Optional[Dict[str, torch.Tensor]] = None,
                fused: bool = True) -> SnapshotGrid:
@@ -508,17 +594,18 @@ def sparse_run(exe, inputs: Dict[str, SnapshotGrid], out_t0: int,
     supplied grid) in place of the value diff.
 
     ``fused=True`` (default) resolves the mask with the fused
-    change-detection kernel (one launch per value-diff input), reads the
-    dirty count once (the call's one device→host read) and runs the
-    bucket's step, the dense body at full capacity.  ``fused=False`` keeps
-    the three-phase staged path (:func:`segment_mask` → host-resolved
-    :func:`bucket_capacity` → :func:`staged_step`), the semantics of
-    record.
+    change-detection kernel (one launch per value-diff input), picks the
+    bucket from the dirty count and runs its step, the dense body at full
+    capacity: on a CUDA device one composed graph (captured per geometry)
+    whose bucket is picked on the device, so the call issues no
+    device→host transfer; on the CPU the count is read on the host.
+    ``fused=False`` keeps the three-phase staged path (:func:`segment_mask`
+    → host-resolved :func:`bucket_capacity` → :func:`staged_step`), the
+    semantics of record.
     """
     _change_plan(exe)
     names = sorted(exe.input_specs)
     flat = [(inputs[nm].value, inputs[nm].valid) for nm in names]
-    seed_v, seed_m = zero_seed(exe, flat)
     m = _obs_default()
     m.counter("sparse.runs", "one-shot sparse_run calls").add(1)
     m.counter("sparse.segments", "segments presented to sparse_run",
@@ -526,6 +613,7 @@ def sparse_run(exe, inputs: Dict[str, SnapshotGrid], out_t0: int,
     dirty_c = m.counter("sparse.dirty_segments",
                         "segments that actually computed", "segments")
     if not fused:
+        seed_v, seed_m = zero_seed(exe, flat)
         starts = _gather_starts(exe, inputs, out_t0, n_parts)
         seg_dirty = segment_mask(exe, inputs, out_t0, n_parts, dirty=dirty)
         n = int(seg_dirty.sum())
@@ -534,23 +622,17 @@ def sparse_run(exe, inputs: Dict[str, SnapshotGrid], out_t0: int,
         ov, om, _ = step(flat, starts, seg_dirty, seed_v, seed_m)
         return SnapshotGrid(value=ov, valid=om, t0=out_t0,
                             prec=exe.out_prec)
-    dev = flat[0][1].device if flat else seed_m.device
-    meta = tuple((inputs[nm].t0, inputs[nm].length, inputs[nm].prec)
-                 for nm in names)
+    dev = flat[0][1].device if flat else zero_seed(exe, flat)[1].device
     dnames = tuple(sorted(set(dirty or ()) & set(names)))
-    starts, seg, geom, ranges = _fused_plan(exe, n_parts, out_t0, meta,
-                                            dnames, dev)
-    for name, (v, mk) in zip(names, flat):
-        if name in dnames:
-            seg = seg | range_any(dirty[name], *ranges[name])
-        else:
-            mats = sparse_compact.grid_mats(v, mk)
-            seg = seg | sparse_compact.seg_dirty(
-                mats, [geom[name]] * len(mats), n_parts)
-    n = int(seg.sum())        # the one device→host read: 4 bytes
-    dirty_c.add(n)
-    cap = bucket_capacity(n, n_parts)
-    step = (_dense_body(exe, n_parts) if cap == n_parts
-            else staged_step(exe, n_parts, cap))
-    ov, om, _ = step(flat, starts, seg, seed_v, seed_m)
+    plan = _fused_plan(exe, n_parts, out_t0, _grid_meta(inputs, names),
+                       dnames, dev)
+    from .parallel import lru_step_get
+    step = lru_step_get(
+        exe.__dict__.setdefault("_sparse_fused_steps",
+                                collections.OrderedDict()),
+        (n_parts, out_t0, _grid_meta(inputs, names), dnames, str(dev)),
+        lambda: _fused_step(exe, n_parts, plan, names),
+        STAGED_CACHE_MAX)
+    (ov, om), count = step(flat, {nm: dirty[nm] for nm in dnames})
+    dirty_c.add(count)        # a lazy device add: no host read
     return SnapshotGrid(value=ov, valid=om, t0=out_t0, prec=exe.out_prec)

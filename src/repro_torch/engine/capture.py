@@ -19,6 +19,11 @@ capture that fails raises (there is no eager fallback on the card).
   prefix, one compacted body per capacity, the suffix) into one graph
   whose bucket is picked on the device (``csrc/graph_switch.cu``): a
   sparse chunk reads nothing on the host.
+* :class:`Staged` stages a pure function as the reference's ``jax.jit``
+  stages it, for the one-shot paths (``CompiledQuery.fn``,
+  ``partition_run``, ``batch_run``, ``shard_map_run``, ``shard_union_run``):
+  one captured graph per input geometry, over static input buffers the
+  arguments are copied into, its outputs copied out.
 
 Under a mesh (``placement=mesh``) a step ends with NCCL all-gathers of
 its results (``engine.runner._gather_packed``): they are captured in the
@@ -48,17 +53,25 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import dataclasses
 import gc
 import threading
 from typing import Callable, List, Sequence, Tuple
 
 import torch
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
+from ..device import resolve
 from ..kernels import fused_query, sparse_compact, window_reduce
 from ..kernels.build import launch_stream, library
 
-__all__ = ["Captured", "Frame", "Switched", "frame", "frames", "record",
-           "replays", "warm_up"]
+__all__ = ["Captured", "Frame", "STAGED_CACHE_MAX", "Spec", "Staged",
+           "Switched", "StagedSwitch", "frame", "frames", "geometry",
+           "record", "replays", "warm_up"]
+
+# bound on the input geometries one Staged function keeps captured: a
+# graph holds its memory pool, which a jit cache entry does not
+STAGED_CACHE_MAX = 8
 
 _COUNTS = (window_reduce.launches, sparse_compact.launches,
            fused_query.launches)
@@ -235,3 +248,236 @@ class Switched:
         exe = getattr(self, "_exec", None)
         if exe:
             self._lib.gs_destroy(exe)
+
+
+# ---------------------------------------------------------------------------
+# staged functions: the one-shot paths' counterpart of ``jax.jit``
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """A tensor argument of a staged call given by its geometry alone, for
+    callers that write the entry's buffer themselves (a pytree leaf)."""
+
+    device: torch.device
+    shape: tuple
+    dtype: torch.dtype
+
+
+def _is_arg(x) -> bool:
+    return torch.is_tensor(x) or isinstance(x, Spec)
+
+
+def geometry(args) -> tuple:
+    """What a staged function is captured for: the tree structure of
+    ``args``, each tensor leaf's (or :class:`Spec`'s) device, shape and
+    dtype, and every other leaf itself (a static argument, as ``jit``'s).
+    Strides are not part of it: the static buffers are contiguous, so the
+    graph never sees the caller's layout."""
+    leaves, spec = tree_flatten(args)
+    return (spec, tuple(
+        (x.device, tuple(x.shape), x.dtype) if _is_arg(x)
+        else ("static", x) for x in leaves))
+
+
+def _device_of(leaves) -> torch.device:
+    """The device a staged call runs on: its tensors' (one device), else a
+    ``torch.device`` among its static arguments, else the port's default
+    (CUDA, or raise where there is none)."""
+    devs = {x.device for x in leaves if _is_arg(x)}
+    if len(devs) > 1:
+        raise ValueError(f"a staged call's tensors lie on several devices: "
+                         f"{sorted(map(str, devs))}")
+    if devs:
+        return devs.pop()
+    dev = next((x for x in leaves if isinstance(x, torch.device)), None)
+    return resolve(dev)
+
+
+class StagedEntry:
+    """One geometry of a :class:`Staged` function: static input buffers
+    (``inputs``, the arguments' tree with every tensor replaced by a
+    contiguous buffer of its shape and dtype) and, on the card, the graph
+    of ``fn(*inputs)`` in a memory pool of its own, captured at the first
+    :meth:`run` after an eager warm-up on a side stream."""
+
+    def __init__(self, fn: Callable, args: tuple, dev: torch.device):
+        self.fn, self.dev = fn, dev
+        leaves, self._spec = tree_flatten(args)
+        self._slots = [i for i, x in enumerate(leaves) if _is_arg(x)]
+        bufs = list(leaves)
+        for i in self._slots:
+            bufs[i] = torch.zeros(leaves[i].shape, dtype=leaves[i].dtype,
+                                  device=dev)
+        self.buffers = [bufs[i] for i in self._slots]
+        self.inputs = tree_unflatten(bufs, self._spec)
+        self._graph = None
+        self._pool = (torch.cuda.graph_pool_handle() if dev.type == "cuda"
+                      else None)
+
+    def load(self, args) -> None:
+        """Copy the tensors of ``args`` (this entry's geometry) into the
+        buffers."""
+        leaves = tree_flatten(args)[0]
+        for dst, i in zip(self.buffers, self._slots):
+            dst.copy_(leaves[i])
+
+    def run(self):
+        """``fn`` over the buffers: eagerly on the CPU, a replay of the
+        captured graph on the card.  The outputs are static: the next run
+        of this entry overwrites them (and on the CPU they may be views of
+        the buffers), so copy what is kept before that."""
+        if self.dev.type != "cuda":
+            return self.fn(*self.inputs)
+        if self._graph is None:
+            with warm_up(self.dev):
+                self.fn(*self.inputs)
+            self._graph = record(lambda: self.fn(*self.inputs), self._pool)
+        return self._graph.replay()
+
+    @property
+    def captured(self) -> bool:
+        return self._graph is not None
+
+
+def _copy_out(tree):
+    return tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, tree)
+
+
+class Staged:
+    """``fn`` (a pure function of tensor trees) staged per input geometry,
+    as ``jax.jit`` stages it.  A call finds the :class:`StagedEntry` of
+    its arguments' :func:`geometry` (bounded LRU, ``STAGED_CACHE_MAX``; an
+    evicted entry frees its graph and pool), copies the arguments into its
+    buffers, runs it (on the card one graph replay) and returns copies of
+    the outputs, which no later call overwrites.  On the CPU the same
+    plumbing runs ``fn`` eagerly.  A capture that fails raises and leaves
+    no entry behind: nothing falls back to eager on the card.
+
+    Callers that fill the buffers themselves (a partition's window) take
+    :meth:`entry`, with :class:`Spec` leaves where tensors would go, and
+    write ``entry.inputs``."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self.entries: "collections.OrderedDict[tuple, StagedEntry]" = \
+            collections.OrderedDict()
+        self.captures = 0
+
+    def entry(self, *args) -> StagedEntry:
+        """The entry of ``args``' geometry (tensors or :class:`Spec`
+        leaves), built on its first use (its buffers hold zeros until
+        loaded)."""
+        key = geometry(args)
+        hit = self.entries.get(key)
+        if hit is not None:
+            self.entries.move_to_end(key)
+            return hit
+        while len(self.entries) >= STAGED_CACHE_MAX:
+            self.entries.popitem(last=False)
+        hit = self._make(args, _device_of(tree_flatten(args)[0]))
+        hit.key = key
+        self.entries[key] = hit
+        return hit
+
+    def _make(self, args, dev: torch.device) -> StagedEntry:
+        return StagedEntry(self.fn, args, dev)
+
+    def run(self, ent: StagedEntry):
+        """``ent.run()``, counting its capture; an entry whose capture
+        failed is dropped before the error propagates."""
+        fresh = ent.dev.type == "cuda" and not ent.captured
+        try:
+            out = ent.run()
+        except BaseException:
+            if fresh:
+                self.entries.pop(ent.key, None)
+            raise
+        self.captures += fresh
+        return out
+
+    def __call__(self, *args):
+        ent = self.entry(*args)
+        ent.load(args)
+        return _copy_out(self.run(ent))
+
+
+def _pick(count: int, caps: Sequence[int]) -> int:
+    """The body a count picks: the first capacity at or above it, the last
+    past the end (``pick_bucket_kernel`` of ``csrc/graph_switch.cu``)."""
+    return next((i for i, c in enumerate(caps) if c >= count),
+                len(caps) - 1)
+
+
+def _copy_into(dst, src) -> None:
+    for d, x in zip(tree_flatten(dst)[0], tree_flatten(src)[0]):
+        d.copy_(x)
+
+
+class _SwitchEntry(StagedEntry):
+    """One geometry of a :class:`StagedSwitch`: the input buffers, and on
+    the card its parts captured (kept) and composed into one
+    :class:`Switched` graph in the entry's pool."""
+
+    def __init__(self, parts, args, dev):
+        super().__init__(None, args, dev)
+        self.parts = parts
+
+    def run(self):
+        prefix, bodies, suffix, caps = self.parts
+        if self.dev.type != "cuda":
+            mid, count = prefix(*self.inputs)
+            return suffix(bodies[_pick(int(count), caps)](mid), count)
+        if self._graph is None:
+            self._graph = self._compose()
+        return self._graph.replay()
+
+    def _compose(self) -> "Switched":
+        prefix, bodies, suffix, caps = self.parts
+        dev, pool = self.dev, self._pool
+        with warm_up(dev):                  # every part, as the graph holds
+            mid, count = prefix(*self.inputs)
+            outs = [body(mid) for body in bodies]
+            suffix(outs[-1], count)
+        # the bodies write obuf and the suffix reads it: it lives as long
+        # as the entry (it is not in the graph's pool, so nothing else
+        # would keep its memory from being handed out again)
+        obuf = self._obuf = tree_map(
+            lambda x: torch.zeros(x.shape, dtype=x.dtype, device=dev),
+            outs[-1])
+        cbuf = torch.zeros((), dtype=torch.int32, device=dev)
+        del mid, outs, count
+
+        def pre():
+            m, c = prefix(*self.inputs)
+            cbuf.copy_(c)
+            return m
+
+        head = record(pre, pool, keep=True)
+        parts = [record(lambda b=b: _copy_into(obuf, b(head.result)), pool,
+                        keep=True) for b in bodies]
+        tail = record(lambda: suffix(obuf, cbuf), pool, keep=True)
+        return Switched(head, parts, tail, cbuf,
+                        torch.as_tensor(caps, dtype=torch.int64,
+                                        device=dev))
+
+
+class StagedSwitch(Staged):
+    """A staged function whose middle is picked by a count on the device,
+    as the reference's ``lax.switch`` inside one ``jit``:
+    ``prefix(*args) -> (mid, count)`` (``count`` an int32 0-d tensor),
+    then ``bodies[b](mid)`` for ``b`` the first of ``caps`` at or above
+    the count (the last past the end), then ``suffix(outs, count)``; every
+    body returns the same tree of shapes.  Staged per input geometry as
+    :class:`Staged`: on the card one :class:`Switched` graph, whose body a
+    kernel picks, so a call reads nothing on the host; on the CPU the
+    parts run eagerly and the count is read on the host.  All bodies must
+    issue the same kernel launches (:class:`Switched` checks it)."""
+
+    def __init__(self, prefix: Callable, bodies: Sequence[Callable],
+                 suffix: Callable, caps: Sequence[int]):
+        super().__init__(None)
+        self.parts = (prefix, list(bodies), suffix, list(caps))
+
+    def _make(self, args, dev: torch.device) -> StagedEntry:
+        return _SwitchEntry(self.parts, args, dev)

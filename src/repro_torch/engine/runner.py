@@ -164,7 +164,7 @@ def body_spec_of(exe) -> BodySpec:
     steps."""
 
     def outs_fn(inputs: Dict[str, tuple]) -> Dict[str, tuple]:
-        return {"__out": exe.fn(inputs)}
+        return {"__out": exe.trace_fn(inputs)}
 
     return BodySpec(
         input_specs=exe.input_specs, out_len=exe.out_len,

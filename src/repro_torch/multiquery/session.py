@@ -26,12 +26,14 @@ per-input union of the per-query dilations, so segments (and keys) whose
 dilated lineage saw no change skip the whole union evaluation and hold
 every query's previous output.
 
-The session runs on the device of the chunks it is given (the reference's
-``pallas`` and ``jit`` knobs have no counterpart: the port is eager and
-picks its kernels by device).  :func:`shard_union_run` is the
-time-sharded union executor: the timeline sharded over a mesh axis, the
-merged halo contracts assembled by the same hop chain as
-:func:`repro_torch.core.parallel.shard_map_run`.
+The session runs on the device of the chunks it is given and picks its
+kernels by device (the reference's ``pallas`` knob has no counterpart);
+its chunks are the runner's steps, captured CUDA graphs on the card.
+:func:`shard_union_run` is the time-sharded union executor: the timeline
+sharded over a mesh axis, the merged halo contracts assembled by the same
+hop chain as :func:`repro_torch.core.parallel.shard_map_run`, the whole
+step (exchange, union body, gathers) staged as the reference's ``jit``
+stages it — one captured graph per geometry on the card.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from torch.utils._pytree import tree_map
 from ..core import boundary, compile as qcompile, ir, parallel
 from ..core.plan import plan_change, plan_union
 from ..core.stream import SnapshotGrid
+from ..engine.capture import Staged
 from ..engine.policy import ExecPolicy, MeshPlacement
 from ..engine.runner import BodySpec, Runner
 from ..launch.mesh import axis_comm
@@ -149,7 +152,9 @@ def shard_union_run(queries: Dict[str, object], span: int,
     on — are assembled by the same multi-hop chain as the per-query path,
     so union plans whose windows exceed the per-shard span shard fine.
     Every query's output grid comes back whole on every rank.  Unkeyed
-    sources only (the keyed session shards the key axis instead).
+    sources only (the keyed session shards the key axis instead).  The
+    step is staged (:class:`repro_torch.engine.capture.Staged`: one graph
+    per placed geometry on the card) and cached with its plan.
     """
     queries = {name: getattr(q, "node", q) for name, q in queries.items()}
     for name, root in queries.items():
@@ -175,9 +180,10 @@ def shard_union_run(queries: Dict[str, object], span: int,
         plan = plan_union(list(roots.values()), span)
         order = ir.topo_order_multi(list(roots.values()))
         body = _union_body(plan, roots, order, sum_algo, span)
-        return plan, parallel.stage_exchange_step(
+        step = parallel.stage_exchange_step(
             plan.input_specs, body, comm, axis,
             {qname: (axis, axis) for qname in queries})
+        return plan, Staged(step)
 
     plan, sharded = parallel.lru_step_get(
         _union_step_cache,

@@ -1380,3 +1380,259 @@ def test_cuda_checkpoint_restored_into_a_captured_step_continues_it(cuda):
     assert all(torch.equal(a, b) for a, b in zip(again, losses[3:]))
     assert all(torch.equal(a, b)
                for a, b in zip(_train_leaves(params, opt), end))
+
+
+# ---------------------------------------------------------------------------
+# the one-shot paths staged: one captured graph per geometry
+# ---------------------------------------------------------------------------
+
+def _launch_counts():
+    return {**wr.launches, **sc.launches, **fq.launches}
+
+
+def _launched(fn):
+    """``fn()`` and the kernel launches it adds, by kernel."""
+    before = _launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: n - before.get(k, 0) for k, n in _launch_counts().items()
+                 if n != before.get(k, 0)}
+
+
+def _same_everywhere(a, b):
+    """Two card grids equal at every tick, φ ticks and NaN included."""
+    assert torch.equal(a.valid, b.valid)
+    va, vb = (a.value, b.value) if isinstance(a.value, dict) else (
+        {"v": a.value}, {"v": b.value})
+    for k in va:
+        assert torch.equal(va[k].isnan(), vb[k].isnan()), k
+        assert torch.equal(va[k].nan_to_num(), vb[k].nan_to_num()), k
+
+
+def _int_app_grids(app, n, seed, keys=None):
+    data = (app.make_keyed_input(keys, n, seed) if keys
+            else app.make_input(n, seed))
+    for d in data.values():
+        v = d["value"]
+        d["value"] = ({k: np.floor(a) for k, a in v.items()}
+                      if isinstance(v, dict) else np.floor(v))
+    return apps.make_grids(data)
+
+
+def _one_shot_cases():
+    """``(label, staged call, eager call)`` of every staged entry point."""
+    n, part = 1 << 16, 1 << 13
+    out = []
+    for name, algo in [(nm, "block") for nm in sorted(apps.APPS)] + [
+            ("ysb", "soe"), ("resample", "soe")]:
+        app = apps.make_app(name)
+        g = _int_app_grids(app, n, 1)
+        exe, eager = (qc.compile_query(app.query.node,
+                                       out_len=part // app.query.prec,
+                                       sum_algo=algo, jit=jit)
+                      for jit in (True, False))
+        k = n // part
+        out.append((f"partition_run {name} {algo}",
+                    lambda exe=exe, g=g, k=k: par.partition_run(exe, g, 0, k),
+                    lambda e=eager, g=g, k=k: par.partition_run(e, g, 0, k)))
+        if name in ("trend", "resample") and algo == "block":
+            # one staged graph per node, a barrier after each
+            out.append((f"interpreted {name}",
+                        lambda exe=exe, g=g: par.partition_run(
+                            exe, g, 0, 2, interpreted=True),
+                        lambda e=eager, g=g: par.partition_run(
+                            e, g, 0, 2, interpreted=True)))
+    # windows under 8 ticks: the sum through prefix_scan, the min shifted
+    # and combined in plain torch, both inside the capture
+    from repro_torch.core.frontend import TStream
+    s = TStream.source("in", prec=1)
+    small = s.window(3).sum().join(s.window(5).min(), lambda a, b: a - b)
+    g = {"in": keyed_grid(_int_vals((n,), 6), np.ones(n, bool))}
+    exe, eager = (qc.compile_query(small.node, out_len=part, jit=jit)
+                  for jit in (True, False))
+    out.append(("partition_run windows under 8 ticks",
+                lambda exe=exe, g=g: par.partition_run(exe, g, 0, n // part),
+                lambda e=eager, g=g: par.partition_run(e, g, 0, n // part)))
+    for name in sorted(apps.KEYED_APPS):
+        app = apps.make_keyed_app(name)
+        g = _int_app_grids(app, 1024, 2, keys=64)
+        exe, eager = (qc.compile_query(app.query.node,
+                                       out_len=1024 // app.query.prec,
+                                       jit=jit) for jit in (True, False))
+        out.append((f"batch_run {name}",
+                    lambda exe=exe, g=g: par.batch_run(exe, g),
+                    lambda e=eager, g=g: par.batch_run(e, g)))
+    g = {"in": keyed_grid(_int_vals((n,), 5, rate=0.002),
+                          np.ones(n, bool))}
+    q = _mean_runners(False, 1, 1)[0].spec.root
+    exe, eager = (qc.compile_query(q, out_len=512, sparse=True, opt=False,
+                                   jit=jit) for jit in (True, False))
+    for fused in (True, False):
+        out.append((f"sparse_run fused={fused}",
+                    lambda exe=exe, f=fused: sp.sparse_run(
+                        exe, g, 0, n // 512, fused=f),
+                    lambda e=eager, f=fused: sp.sparse_run(
+                        e, g, 0, n // 512, fused=f)))
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_staged_equals_eager_and_launches_as_it(cuda):
+    """Every staged one-shot call (every app through ``partition_run``,
+    both sum algorithms where they differ in kernels, two apps
+    interpreted, the keyed apps through ``batch_run``, ``sparse_run``
+    fused and not) equals
+    ``jit=False`` bit for bit on integer data, and its steady call adds
+    the launches the eager call does (a replay adds what its capture
+    recorded)."""
+    seen = set()
+    for label, staged, eager in _one_shot_cases():
+        staged()                                  # first use: capture
+        eager()               # first use: the sparse hold seed's shapes
+        got, n_staged = _launched(staged)
+        want, n_eager = _launched(eager)
+        _same_everywhere(got, want)
+        assert n_staged == n_eager, (label, n_staged, n_eager)
+        seen |= set(n_staged)
+    # resample launches nothing (hold/linear interpolation and no window)
+    assert seen == {"sliding_assoc", "prefix_scan", "seg_dirty"}, seen
+
+
+@pytest.mark.cuda
+def test_cuda_staged_steady_calls_read_nothing_and_replay_once(cuda):
+    """After its first use, a ``partition_run`` is one graph replay per
+    partition, a ``batch_run`` and a fused ``sparse_run`` one replay, and
+    none of them makes a synchronizing call (the sparse one picks its
+    bucket on the device and counts its dirty segments lazily)."""
+    from repro_torch.engine import capture
+    cases = {label: staged for label, staged, _ in _one_shot_cases()
+             if "fused=False" not in label
+             and not label.startswith("interpreted")}
+    for label, staged in cases.items():
+        staged()
+        r0 = capture.replays["graph"]
+        assert _count_syncs(staged) == 0, label
+        replays = capture.replays["graph"] - r0
+        parts = (1 << 16) // (1 << 13) if label.startswith("partition") \
+            else 1
+        assert replays == parts, (label, replays)
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_run_counts_dirty_segments_on_the_card(cuda):
+    """The fused run's dirty count reaches ``sparse.dirty_segments`` as a
+    device tensor (read at snapshot), equal to the three-phase run's host
+    count."""
+    from repro_torch import obs
+    n = 1 << 15
+    g = {"in": keyed_grid(_int_vals((n,), 9, rate=0.003), np.ones(n, bool))}
+    exe = qc.compile_query(streams.fraud_query(32).node, out_len=256,
+                           sparse=True)
+    sp.sparse_run(exe, g, 0, n // 256)
+    deltas = []
+    for fused in (True, False):
+        s0 = obs.default().snapshot()
+        sp.sparse_run(exe, g, 0, n // 256, fused=fused)
+        deltas.append(obs.counter_delta(s0, obs.default().snapshot(),
+                                        "sparse.dirty_segments"))
+    assert deltas[0] == deltas[1] and 0 < deltas[0] < n // 256
+
+
+@pytest.mark.cuda
+def test_cuda_a_sync_in_a_map_function_raises_at_capture(cuda):
+    """A user function that reads the card (``.item()``) runs in the eager
+    warm-up, then fails the capture: the staged call raises, keeps no
+    broken entry, and nothing runs eagerly in its place."""
+    from repro_torch.core.frontend import TStream
+    s = TStream.source("in", prec=1)
+    q = s.window(8).sum().map(lambda v: v * float(v.max().item() > 0))
+    exe = qc.compile_query(q.node, out_len=256)
+    g = {"in": keyed_grid(_int_vals((1024,), 1), np.ones(1024, bool))}
+    with pytest.raises(RuntimeError):
+        par.partition_run(exe, g, 0, 4)
+    assert not exe.fn.entries
+    with pytest.raises(RuntimeError):
+        par.partition_run(exe, g, 0, 4)
+    eager = qc.compile_query(q.node, out_len=256, jit=False)
+    assert par.partition_run(eager, g, 0, 4).valid.shape == (1024,)
+
+
+@pytest.mark.cuda
+def test_cuda_staged_lru_frees_and_rebuilds(cuda):
+    """Past ``STAGED_CACHE_MAX`` geometries the least recently used entry
+    goes with its graph; calling it again captures it anew, the same
+    bits."""
+    from repro_torch.engine import capture
+    app = apps.make_keyed_app("trend")
+    exe = qc.compile_query(app.query.node, out_len=256)
+    grids = [_int_app_grids(app, 256, 3, keys=k)
+             for k in range(1, capture.STAGED_CACHE_MAX + 2)]
+    first = par.batch_run(exe, grids[0])
+    for g in grids[1:]:
+        par.batch_run(exe, g)
+    step = exe._batch_stage                  # batch_run's own staging
+    assert len(step.entries) == capture.STAGED_CACHE_MAX
+    c0 = step.captures
+    _same_everywhere(par.batch_run(exe, grids[0]), first)
+    assert step.captures == c0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sparse", [False, True])
+def test_cuda_staged_shard_paths_equal_eager(nccl_mesh, sparse):
+    """``shard_map_run`` (dense, and sparse with its body picked from a
+    device flag) staged on the 1-rank NCCL mesh: equal to ``jit=False``
+    bit for bit; ``shard_union_run`` (always staged) equal to the union
+    session bit for bit.  A steady call makes no synchronizing call and
+    replays one graph."""
+    from repro_torch.core.frontend import TStream
+    from repro_torch.engine import capture
+    from repro_torch.multiquery import MultiQuerySession, shard_union_run
+    n = 1 << 14
+    for rate in (0.0, 0.01):
+        vals = _int_vals((n,), 3, rate=rate) if rate else np.full(
+            n, 7.0, np.float32)
+        g = {"in": keyed_grid(vals, np.ones(n, bool))}
+        q = _mean_runners(False, 1, 1)[0].spec.root
+        exe, eager = (qc.compile_query(q, out_len=n, sparse=sparse,
+                                       opt=False, jit=jit)
+                      for jit in (True, False))
+        got = par.shard_map_run(exe, g, nccl_mesh)
+        _same_everywhere(got, par.shard_map_run(eager, g, nccl_mesh))
+        r0 = capture.replays["graph"]
+        assert _count_syncs(lambda: par.shard_map_run(exe, g,
+                                                      nccl_mesh)) == 0
+        assert capture.replays["graph"] == r0 + 1
+    s = TStream.source("in", prec=1)
+    qs = {"a": s.window(16).mean(), "b": s.window(200).max()}
+    out = shard_union_run(qs, n, g, nccl_mesh)
+    sess = MultiQuerySession(n)
+    for name, q in qs.items():
+        sess.attach(name, q)
+    ref = sess.run(g, 1)
+    for name in qs:
+        _same_everywhere(out[name], ref[name])
+    r0 = capture.replays["graph"]
+    assert _count_syncs(lambda: shard_union_run(qs, n, g, nccl_mesh)) == 0
+    assert capture.replays["graph"] == r0 + 1
+
+
+@pytest.mark.cuda
+def test_cuda_staged_switch_writes_only_its_own_memory(cuda):
+    """The tensors a composed graph writes outside its pool (the bodies'
+    shared output) live as long as its entry: tensors allocated after the
+    capture, of that size, keep their contents across replays."""
+    from repro_torch.engine import capture
+    n = 1 << 16
+    sw = capture.StagedSwitch(
+        lambda x: (x, (x > 0).sum(dtype=torch.int32)),
+        [lambda x: x * 2, lambda x: x * 3],
+        lambda out, count: out + 0, caps=[0, n])
+    x = torch.ones(n, device=cuda)
+    assert torch.equal(sw(x), x * 3)
+    sentinels = [torch.full((n,), -7.0, device=cuda) for _ in range(64)]
+    for _ in range(3):
+        assert torch.equal(sw(x), x * 3)
+        assert torch.equal(sw(x * 0), x * 0)
+    torch.cuda.synchronize()
+    assert all(bool((s == -7.0).all()) for s in sentinels)

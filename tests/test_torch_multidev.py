@@ -298,6 +298,37 @@ for name in ("trend", "bands"):
 '''
 
 
+# the port alone: the shard_map_run cases above again with jit=False
+# (eager steps, the sparse flag read on the host), beside the staged ones
+# (one Staged/StagedSwitch per step, its body picked from a device flag),
+# and which kind of step each staged case cached
+PORT_EAGER = r'''
+def eager_(q, out_len, sparse=False):
+    return qc.compile_query(q.node, out_len=out_len, sparse=sparse,
+                            jit=False)
+
+
+for kind, W, N, t0 in MULTIHOP:
+    q, v, m = multihop_case(TS, kind, W, N)
+    for sparse in (False, True):
+        tag = f"mh/{kind}{W}_{N}_{t0}_{int(sparse)}"
+        put("eager/" + tag, shard_map_run(eager_(q, N // N_RANKS, sparse),
+                                          {"in": G(v, m, t0)}, mesh,
+                                          axis="data"))
+q, v, m = sparse_case(TS)
+put("eager/sparse", shard_map_run(eager_(q, 512 // N_RANKS, True),
+                                  {"in": G(v, m)}, mesh, axis="data"))
+kinds = []
+for sparse in (False, True):
+    exe = compile_(q, 512 // N_RANKS, sparse)
+    for _ in range(3):
+        shard_map_run(exe, {"in": G(v, m)}, mesh, axis="data")
+    (step,) = exe._shard_step_cache.values()
+    kinds.append(f"{type(step).__name__}:{len(step.entries)}")
+res["staged/kinds"] = np.array(kinds)
+'''
+
+
 def _env():
     env = {k: os.environ[k] for k in ("PATH", "HOME", "TMPDIR")
            if k in os.environ}
@@ -325,7 +356,7 @@ def runs(tmp_path_factory):
                 + textwrap.dedent(CASES)
                 + f"\nnp.savez({str(d / 'ref.npz')!r}, **res)\n")
     port_code = (textwrap.dedent(COMMON) + textwrap.dedent(PORT)
-                 + textwrap.dedent(CASES)
+                 + textwrap.dedent(CASES) + textwrap.dedent(PORT_EAGER)
                  + "\nnp.savez(os.path.join(out_dir, f'port_{rank}.npz'),"
                    " **res)\ndist.barrier()\nsys.stdout.flush()\n"
                    "os._exit(0)\n")
@@ -412,6 +443,21 @@ def test_sparse_shard_map_run_matches_reference(runs):
     for port in ports:
         assert np.array_equal(port["sparse/mask"], mask)
     _check(runs, "sparse")
+
+
+def test_staged_shard_paths_equal_eager(runs):
+    """``shard_map_run`` (every multi-hop chain, dense and sparse, and the
+    sparse case) staged (the default) equals the same steps run eagerly
+    (``jit=False``) bit for bit on every rank, every tick; each staged
+    step is one Staged (dense) or StagedSwitch (sparse) holding one
+    geometry after repeated calls."""
+    _, ports = runs
+    for port in ports:
+        eager = sorted(k for k in port if k.startswith("eager/"))
+        assert len(eager) == 2 * (2 * 6 + 1)
+        for k in eager:
+            assert np.array_equal(port[k], port[k[len("eager/"):]]), k
+        assert list(port["staged/kinds"]) == ["Staged:1", "StagedSwitch:1"]
 
 
 def test_shard_union_run_deep_windows_match_reference(runs):
