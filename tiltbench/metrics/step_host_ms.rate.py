@@ -1,0 +1,7 @@
+"""Host milliseconds inside ``Runner.step`` a chunk in the open-loop
+window (the benchmark's own clock around each call)."""
+from tiltbench.readers import step_host_ms
+
+
+def read(ctx):
+    return step_host_ms(ctx) if ctx.loop == "open" else None
