@@ -10,6 +10,9 @@ about its own execution — without ever reading the card on the hot path:
 * the per-chunk latency histogram with p50/p90/p99;
 * the recompile detector (every staging key must be built exactly once)
   and the CUDA graphs the runner captured (none on the CPU);
+* the tracer's recorder: each chunk's ``runner.step`` split into its
+  parts by self time, and on the card each chunk's device interval and
+  the idle gaps between chunks, labelled by what the host was doing;
 * the JSONL + Prometheus exporters fed by the same snapshot.
 
 The runner writes its carried state in place in every step; where the
@@ -68,10 +71,15 @@ def main(argv=None) -> dict:
     r = Runner(exe, ExecPolicy(body="sparse", keys="vmapped"), n_keys=K,
                segs_per_chunk=SPC)
 
+    # the recorder: every span of a step becomes one event (and, on the
+    # card, each chunk two timing events); off, a step records nothing
+    tracer = r.metrics.tracer
+    tracer.start_recording(1024, device=dev)
     outs = []
     for chunk in make_chunks(args.n_chunks, dev):
         outs.append(r.step(chunk))
         D.synchronize(dev)
+    tracer.stop_recording()
 
     # the single device→host read; everything above accumulated on the card
     snap = r.metrics.snapshot()
@@ -97,6 +105,21 @@ def main(argv=None) -> dict:
           "and capture the steps — benchmarks run a fresh runner on built "
           "steps to scope the histogram to steady state)")
 
+    n = args.n_chunks
+    own = tracer.self_times()
+    print("step parts, self time a chunk (the first chunks build and "
+          "capture their steps inside launch):")
+    for path in (p for p in own if p.startswith("runner.step")):
+        print(f"  {path:<22} {own[path] / n / 1e3:9.1f}us")
+    spans = {p: s["count"] for p, s in tracer.span_report().items()
+             if p.endswith("runner.capture")}
+    print(f"capture spans: {spans}  dropped events: {tracer.dropped}")
+    chunks, gaps = tracer.device_chunks(), tracer.idle_gaps()
+    if chunks:
+        busy = sum(c.end_ns - c.start_ns for c in chunks) / len(chunks)
+        print(f"device ms a chunk: {busy / 1e6:.3f}; idle gaps by label: "
+              f"{sorted({g.label for g in gaps})}")
+
     comp = r.metrics.tracer.compile_report()
     print(f"staged builds: {comp['counts']}")
     print(f"retraces (must be empty): {comp['retraces']}")
@@ -112,6 +135,7 @@ def main(argv=None) -> dict:
                             "runner_step_seconds_count")):
             print(" ", line)
     return {"snapshot": snap, "bucket_picks": used, "compiles": comp,
+            "self_times": own, "device_chunks": chunks, "idle_gaps": gaps,
             "captures": captures, "prometheus_lines": len(prom.splitlines()),
             "outs": outs}
 

@@ -918,23 +918,33 @@ class Runner:
         ``cache_key``)."""
         g = work.graphs.get(key)
         if g is None:
-            self.metrics.tracer.record_capture(
-                self._compile_label(cache_key))
-            with capture.warm_up(work.dev):
-                step(work.clone())
-            g = work.graphs[key] = capture.record(lambda: step(work),
-                                                  work.pool)
+            tr = self.metrics.tracer
+            tr.record_capture(self._compile_label(cache_key))
+            with tr.span("runner.capture"):
+                with tr.span("warm_up"), capture.warm_up(work.dev):
+                    step(work.clone())
+                with tr.span("record"):
+                    g = work.graphs[key] = capture.record(
+                        lambda: step(work), work.pool)
         return g
 
-    def _run(self, work: _Work, key, cache_key, step):
+    def _launch(self, work: _Work, key, cache_key, step):
         """``step(work)`` → packed results: eagerly on the CPU, in a
         ``step`` frame; on the card a replay of the graph of ``key``, its
-        results copied out."""
+        static results (:meth:`_copy_out` copies them)."""
         if work.dev.type != "cuda":
             with capture.frame("step"):
                 return step(work)
-        flats, packing = self._graph(work, key, cache_key, step).replay()
-        return {dt: f.clone() for dt, f in flats.items()}, packing
+        return self._graph(work, key, cache_key, step).replay()
+
+    @staticmethod
+    def _copy_out(work: _Work, packed):
+        """A step's packed results unpacked; on the card from copies (the
+        graph's next replay rewrites its static results)."""
+        flats, packing = packed
+        if work.dev.type == "cuda":
+            flats = {dt: f.clone() for dt, f in flats.items()}
+        return _unpack(flats, packing)
 
     def _gather(self):
         """``gather(packed)``: :func:`_gather_packed` along this runner's
@@ -1180,24 +1190,30 @@ class Runner:
         caps = sparse_mod.capacity_ladder(self._Uc)
         bodies = [self._sparse_body(c, dev) for c in caps]
         suffix, after = self._sparse_suffix(dev)
-        self.metrics.tracer.record_capture(self._compile_label(
+        tr = self.metrics.tracer
+        tr.record_capture(self._compile_label(
             self._cache_key("sparse_fused", dev, force_first)))
-        with capture.warm_up(dev):
-            self._sparse_eager(work.clone(), force_first)
-        pre = capture.record(lambda: prefix(work), work.pool, keep=True)
-        shared = work.graphs.get("sparse_parts")
-        if shared is None:
-            shared = work.graphs["sparse_parts"] = (
-                [capture.record(lambda b=b: b(work), work.pool, keep=True)
-                 for b in bodies],
-                capture.record(lambda: suffix(work), work.pool, keep=True))
-            if after is not None:
-                # replayed after the switched step, over the suffix's
-                # (static) results
-                work.graphs["sparse_after"] = capture.record(
-                    lambda: after(work, shared[1].result), work.pool)
-        g = work.graphs[("sparse", force_first)] = capture.Switched(
-            pre, shared[0], shared[1], work.cnt, work.caps)
+        with tr.span("runner.capture"):
+            with tr.span("warm_up"), capture.warm_up(dev):
+                self._sparse_eager(work.clone(), force_first)
+            with tr.span("record"):
+                pre = capture.record(lambda: prefix(work), work.pool,
+                                     keep=True)
+                shared = work.graphs.get("sparse_parts")
+                if shared is None:
+                    shared = work.graphs["sparse_parts"] = (
+                        [capture.record(lambda b=b: b(work), work.pool,
+                                        keep=True) for b in bodies],
+                        capture.record(lambda: suffix(work), work.pool,
+                                       keep=True))
+                    if after is not None:
+                        # replayed after the switched step, over the
+                        # suffix's (static) results
+                        work.graphs["sparse_after"] = capture.record(
+                            lambda: after(work, shared[1].result),
+                            work.pool)
+                g = work.graphs[("sparse", force_first)] = capture.Switched(
+                    pre, shared[0], shared[1], work.cnt, work.caps)
         return g
 
     def _sparse_eager(self, work: _Work, force_first: bool):
@@ -1231,25 +1247,30 @@ class Runner:
         with capture.frame("step"), capture.frame("after"):
             return after(work, packed)
 
-    def _sparse_chunk(self, work: _Work):
+    def _sparse_launch(self, work: _Work):
+        """The sparse step's packed results (outputs and segment mask):
+        eager on the CPU; on the card a replay of the switched graph of
+        this chunk's variant (then of a mesh step's ``after``)."""
         st = self._sparse
         force_first = (not st["started"]) or len(self._seeded) < len(
             self.spec.out_precs)
         if work.dev.type != "cuda":
-            outs, seg = _unpack(*self._sparse_eager(work, force_first))
-        else:
-            g = work.graphs.get(("sparse", force_first))
-            if g is None:
-                g = self._switched(work, force_first)
-            res = g.replay()
-            after = work.graphs.get("sparse_after")
-            if after is not None:
-                res = after.replay()
-            flats, packing = res
-            outs, seg = _unpack({dt: f.clone() for dt, f in flats.items()},
-                                packing)
+            return self._sparse_eager(work, force_first)
+        g = work.graphs.get(("sparse", force_first))
+        if g is None:
+            g = self._switched(work, force_first)
+        res = g.replay()
+        after = work.graphs.get("sparse_after")
+        if after is not None:
+            res = after.replay()
+        return res
+
+    def _sparse_done(self, outs_seg):
+        """A sparse chunk's outputs, its segment mask kept and the change
+        state marked started."""
+        outs, seg = outs_seg
         self.last_seg_dirty = seg
-        st["started"] = True
+        self._sparse["started"] = True
         self._seeded = set(self.spec.out_precs)
         self._total_units += self._U
         self._chunks_run += 1
@@ -1276,8 +1297,37 @@ class Runner:
         synchronizing call.
         The carried state is written only at the end of the step, after
         everything that can raise, so a raise leaves the runner as it was.
+        While the tracer records, the step is the span ``runner.step``
+        with its parts (:meth:`_step`), and its duration is the span's.
         """
-        t0 = time.perf_counter()
+        tr = self.metrics.tracer
+        if tr.recording:
+            token = tr.open("runner.step", chunk=True)
+            try:
+                result = self._step(chunks, tr)
+            finally:
+                dt = tr.close(token) / 1e9
+        else:
+            t0 = time.perf_counter()
+            result = self._step(chunks, None)
+            dt = time.perf_counter() - t0
+        if self.metrics.on:
+            # host-side arithmetic only (perf_counter + numpy bisect):
+            # wall time around the launches, never a device read
+            self._m_chunks.add(1)
+            self._m_units.add(self._U)
+            self._m_lat.observe(dt)
+        return result["__out"] if self.spec.solo else result
+
+    def _step(self, chunks, tr) -> dict:
+        """One chunk, ``{output: grid}``.  With a recording tracer ``tr``
+        each part is a span: ``ingest`` (checks, the workspace and its
+        state), ``load`` (the copy-in), ``launch`` (the graph replay on the
+        card, the eager step on the CPU), ``copy_out`` (the results copied
+        and unpacked), ``grids`` (the output grids, the revision ring); on
+        the card a chunk event before ``load`` and after ``copy_out``."""
+        if tr is not None:
+            tr.open("ingest")
         chunk_in = self._ingest(chunks)
         dev = self._chunk_device(chunk_in)
         work = self._live(chunk_in, dev)
@@ -1287,13 +1337,29 @@ class Runner:
             # (the step rewrites the live tails in place)
             snap = {"chunk": self._t // (self.n_segs * self.spec.span),
                     "tails": _tm(lambda x: x.clone(), self._tails)}
+        card = tr is not None and dev.type == "cuda"
+        if tr is not None:
+            tr.next("load")
+            if card:
+                tr.chunk_start()
         work.load(chunk_in)
+        if tr is not None:
+            tr.next("launch")
         if self.policy.sparse:
-            outs = self._sparse_chunk(work)
+            packed = self._sparse_launch(work)
         else:
-            outs = _unpack(*self._run(work, ("dense",),
-                                      self._cache_key("dense", dev),
-                                      self._dense_step(dev)))
+            packed = self._launch(work, ("dense",),
+                                  self._cache_key("dense", dev),
+                                  self._dense_step(dev))
+        if tr is not None:
+            tr.next("copy_out")
+        outs = self._copy_out(work, packed)
+        if self.policy.sparse:
+            outs = self._sparse_done(outs)
+        if tr is not None:
+            if card:
+                tr.chunk_end()
+            tr.next("grids")
         result = {}
         for o, (v, m) in self._postprocess(outs).items():
             result[o] = SnapshotGrid(value=v, valid=m, t0=self._t,
@@ -1301,13 +1367,9 @@ class Runner:
         if snap is not None:
             self._rev_ring.append(snap)
         self._t += self.n_segs * self.spec.span
-        if self.metrics.on:
-            # host-side arithmetic only (perf_counter + numpy bisect):
-            # wall time around the launches, never a device read
-            self._m_chunks.add(1)
-            self._m_units.add(self._U)
-            self._m_lat.observe(time.perf_counter() - t0)
-        return result["__out"] if self.spec.solo else result
+        if tr is not None:
+            tr.close()
+        return result
 
     def run(self, inputs: Dict[str, SnapshotGrid], n_chunks: int):
         """Slice ``n_chunks`` chunks from full streams, step through them
@@ -1687,7 +1749,7 @@ class Runner:
             cap = sparse_mod.bucket_capacity(cnt, self._Uc)
             rstep = self._revision_step(dev)
             local = self._compute_local(cap, dev)
-            outs = _unpack(*self._run(
+            outs = self._copy_out(rwork, self._launch(
                 rwork, ("revise", cap), self._cache_key("revise", dev, cap),
                 lambda wk: rstep(wk, cap, local)))
             last_outs, last_sd = outs, sd
@@ -1814,15 +1876,18 @@ class Runner:
             if self._rev_ring is None:
                 raise ValueError("revision disabled — call "
                                  "enable_revision() first")
-            work = self._rwork
-            if work is None or work.layout != _layout(chunk_in) \
-                    or work.dev != dev:
-                work = self._rwork = _Work(self, chunk_in, dev,
-                                           revision=True)
-        else:
-            work = self._live(chunk_in, dev)
-        how = self._prepare(work, key)
-        self.metrics.tracer.record_aot(label or str(key), how)
+        tr = self.metrics.tracer
+        with tr.span("runner.install"):
+            if key[0] == "revise":
+                work = self._rwork
+                if work is None or work.layout != _layout(chunk_in) \
+                        or work.dev != dev:
+                    work = self._rwork = _Work(self, chunk_in, dev,
+                                               revision=True)
+            else:
+                work = self._live(chunk_in, dev)
+            how = self._prepare(work, key)
+        tr.record_aot(label or str(key), how)
         return how
 
     def _staged_step(self, key, chunk_in, dev):

@@ -13,6 +13,7 @@ the kernel may be at most twice as far from it as the plain version is,
 plus 4 ulps of the largest sum formed (``_assert_sums``).  The runner's
 sparse body must equal its dense body bit for bit on the card.
 """
+import time
 import warnings
 
 import numpy as np
@@ -506,6 +507,95 @@ def _fraud_runners(keyed, n_keys, segs, out_len=64):
                    ExecPolicy(keys=keys), **kw),
             Runner(qc.compile_query(q, out_len=out_len, sparse=True),
                    ExecPolicy(body="sparse", keys=keys), **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["dense", "sparse"])
+def test_cuda_recorded_chunks_on_the_host_clock(cuda, body):
+    """The recorder's chunk events: one interval a step, in order, the
+    gaps between them labelled, their mean device time that of CUDA events
+    around the same steps, and no synchronizing call while recording."""
+    n_keys, segs, n = 4096, 8, 24
+    span = 64 * segs
+    vals = streams.keyed_activity(n_keys, span * (n + 2), 0.1, 0)
+    grids = [{"in": keyed_grid(vals[:, c * span:(c + 1) * span],
+                               np.ones((n_keys, span), bool), t0=c * span)}
+             for c in range(n + 2)]
+    dense, sparse = _fraud_runners(True, n_keys, segs)
+    r = dense if body == "dense" else sparse
+    r.step(grids[0])
+    r.step(grids[1])
+    tr = r.metrics.tracer
+    assert tr.span_report()["runner.capture"]["count"] == sum(
+        tr.captures().values()) >= 1
+    tr.start_recording(256, device=cuda)
+    around = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for (a, b), g in zip(around, grids[2:]):
+            a.record()
+            r.step(g)
+            b.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    tr.stop_recording()
+    chunks = tr.device_chunks()
+    assert len(chunks) == n and tr.dropped == 0
+    assert [c.chunk for c in chunks] == sorted({e.chunk
+                                                for e in tr.events()})
+    for c, d in zip(chunks, chunks[1:]):
+        assert c.start_ns <= c.end_ns <= d.start_ns
+    gaps = tr.idle_gaps()
+    assert len(gaps) == n - 1
+    assert all(g.end_ns >= g.start_ns and g.label for g in gaps)
+    mean_ms = sum(c.end_ns - c.start_ns for c in chunks) / n / 1e6
+    want_ms = sum(a.elapsed_time(b) for a, b in around) / n
+    assert abs(mean_ms - want_ms) <= 0.05 * want_ms, (mean_ms, want_ms)
+    # the anchor: an event recorded on the idle card lands on the host
+    # clock within a millisecond of the host's read beside it
+    torch.cuda.synchronize()
+    e = torch.cuda.Event(enable_timing=True)
+    h = time.perf_counter_ns()
+    e.record()
+    e.synchronize()
+    assert abs(tr.on_host_clock(e) - h) < 1_000_000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["dense", "sparse"])
+def test_cuda_recording_across_the_captures(cuda, body):
+    """The recorder on from a runner's first step, so each capture (the
+    warm-up on a side stream, the record in global mode) runs inside
+    ``runner.step/launch``, between its chunk's two events: the results
+    are a plain runner's bit for bit, every chunk has its interval, and
+    each capture is an event inside ``launch``."""
+    n_keys, segs, n = 4096, 8, 6
+    span = 64 * segs
+    vals = streams.keyed_activity(n_keys, span * n, 0.1, 0)
+    grids = [{"in": keyed_grid(vals[:, c * span:(c + 1) * span],
+                               np.ones((n_keys, span), bool), t0=c * span)}
+             for c in range(n)]
+    pick = body == "sparse"
+    r = _fraud_runners(True, n_keys, segs)[pick]
+    plain = _fraud_runners(True, n_keys, segs)[pick]
+    tr = r.metrics.tracer
+    tr.start_recording(256, device=cuda)
+    outs = [r.step(g) for g in grids]
+    tr.stop_recording()
+    for g, o in zip(grids, outs):
+        want = plain.step(g)
+        assert torch.equal(o.valid, want.valid)
+        assert torch.equal(o.value[o.valid], want.value[want.valid])
+    chunks = tr.device_chunks()
+    assert len(chunks) == n and tr.dropped == 0
+    for c, d in zip(chunks, chunks[1:]):
+        assert c.start_ns <= c.end_ns <= d.start_ns
+    caps = [e for e in tr.events() if e.path.endswith("runner.capture")]
+    assert len(caps) == sum(tr.captures().values()) >= 1
+    assert all(e.path == "runner.step/launch/runner.capture"
+               for e in caps), caps
+    assert len(tr.idle_gaps()) == n - 1
 
 
 @pytest.mark.cuda

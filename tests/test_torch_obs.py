@@ -146,14 +146,134 @@ def test_tracer_spans_compiles_and_retraces():
     assert t.retrace_findings()[0]["code"] == "runtime-retrace"
 
 
-def test_span_opens_a_profiler_range_under_the_env_switch(monkeypatch):
-    monkeypatch.setenv("REPRO_OBS_JAX_TRACE", "1")
-    t = Metrics().tracer
+def _profiled_ranges(t):
+    """Names of the ``record_function`` ranges a CPU profile saw around a
+    span ``chunk/part`` of ``t``."""
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU]) as prof:
         with t.span("chunk"):
-            torch.ones(3).sum()
-    assert any(e.name == "chunk" for e in prof.events())
+            with t.span("part"):
+                torch.ones(3).sum()
+    return {e.name for e in prof.events()}
+
+
+def test_span_opens_a_profiler_range_under_the_env_switch():
+    """The switch is the recorder on under an active profiler: each span
+    then opens a ``record_function`` range named by its path."""
+    t = Metrics().tracer
+    t.start_recording(8)
+    names = _profiled_ranges(t)
+    assert {"chunk", "chunk/part"} <= names
+    assert [e.path for e in t.events()] == ["chunk", "chunk/part"]
+
+
+def test_span_opens_no_profiler_range_without_a_profiler_or_recorder(
+        monkeypatch):
+    t = Metrics().tracer
+    # not recording: no range, even under a profiler
+    assert not {"chunk", "chunk/part"} & _profiled_ranges(t)
+    opened = []
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: opened.append(name))
+    t.start_recording(8)
+    with t.span("chunk"):         # recording, no profiler: no range
+        pass
+    assert opened == [] and len(t.events()) == 1
+
+
+def _ev(path, s, e, parent=-1, chunk=-1):
+    return obs.Event(path, s, e, parent, chunk)
+
+
+def test_recorder_events_parents_chunks_and_aggregates():
+    t = Metrics().tracer
+    with t.span("before"):        # not recorded: no event
+        pass
+    t.start_recording(16)
+    for _ in range(2):
+        tok = t.open("step", chunk=True)
+        t.open("a")
+        t.next("b")
+        with t.span("c"):
+            pass
+        t.close()
+        t.close(tok)
+    with t.span("outside"):
+        pass
+    t.stop_recording()
+    with t.span("after"):
+        pass
+    ev = t.events()
+    assert [e.path for e in ev] == ["step", "step/a", "step/b",
+                                    "step/b/c"] * 2 + ["outside"]
+    assert [e.parent for e in ev] == [-1, 0, 0, 2, -1, 4, 4, 6, -1]
+    assert [e.chunk for e in ev] == [1] * 4 + [2] * 4 + [-1]
+    assert all(e.end_ns >= e.start_ns > 0 for e in ev)
+    # siblings share the clock read between them
+    assert ev[1].end_ns == ev[2].start_ns
+    rep = t.span_report()
+    assert rep["step/b/c"]["count"] == 2 and rep["after"]["count"] == 1
+    assert rep["before"]["count"] == 1 and t.dropped == 0
+
+
+def test_recorder_buffer_is_bounded_and_counts_what_it_drops():
+    t = Metrics().tracer
+    t.start_recording(3)
+    buf = t._t0
+    for _ in range(5):
+        with t.span("s"):
+            with t.span("inner"):
+                pass
+    assert len(t.events()) == 3 and t.dropped == 7
+    assert t._t0 is buf and len(buf) == 3
+    assert t.span_report()["s/inner"]["count"] == 5
+    # a child whose parent was dropped has none
+    assert [e.parent for e in t.events()] == [-1, 0, -1]
+    with pytest.raises(ValueError):
+        t.start_recording(0)
+
+
+def test_close_with_a_token_closes_what_a_raise_left_open():
+    t = Metrics().tracer
+    t.start_recording(8)
+    tok = t.open("step", chunk=True)
+    t.open("part")
+    assert t.close(tok) >= 0
+    assert all(e.end_ns for e in t.events()) and t._stack == []
+
+
+def test_self_times_of_hand_made_events():
+    ev = [_ev("s", 0, 100), _ev("s/a", 10, 40, 0), _ev("s/b", 40, 90, 0),
+          _ev("s/b/x", 50, 60, 2), _ev("s", 200, 250),
+          _ev("s/a", 200, 250, 4), _ev("open", 300, 0)]
+    assert Metrics().tracer.self_times(ev) == {
+        "s": 100 - 30 - 50 + 0, "s/a": 30 + 50, "s/b": 50 - 10,
+        "s/b/x": 10}
+
+
+def test_idle_gaps_are_labelled_by_the_innermost_open_span():
+    ev = [_ev("runner.step", 0, 100, -1, 1),
+          _ev("runner.step/load", 10, 40, 0, 1),
+          _ev("runner.step/launch", 40, 90, 0, 1),
+          _ev("runner.step", 150, 250, -1, 2),
+          _ev("runner.step/ingest", 150, 160, 3, 2)]
+    chunks = [obs.DeviceChunk(1, 5, 20), obs.DeviceChunk(2, 60, 120),
+              obs.DeviceChunk(3, 124, 300), obs.DeviceChunk(4, 316, 400)]
+    gaps = Metrics().tracer.idle_gaps(chunks, ev)
+    # midpoints 40 (launch opened there), 122 (between steps), 308
+    assert gaps == [obs.Gap(20, 60, "runner.step/launch"),
+                    obs.Gap(120, 124, obs.OUTSIDE),
+                    obs.Gap(300, 316, obs.OUTSIDE)]
+    assert Metrics().tracer.idle_gaps([], ev) == []
+
+
+def test_no_chunk_events_without_a_card():
+    t = Metrics().tracer
+    t.start_recording(8, device="cpu")
+    with t.span("step"):
+        t.chunk_start()
+        t.chunk_end()
+    assert t.device_chunks() == [] and t.idle_gaps() == []
 
 
 def _fill(m, tensor):

@@ -21,6 +21,8 @@ reference's, as ``tests/test_policy.py``, ``tests/test_engine.py`` and
 
 Every comparison is exact.
 """
+import contextlib
+import time
 import warnings
 
 import jax.numpy as jnp
@@ -534,6 +536,84 @@ def test_dense_runner_metrics_have_no_sparse_slots():
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         assert robs.validate_snapshot(snap) == []
+
+
+PARTS = ["ingest", "load", "launch", "copy_out", "grids"]
+
+
+@pytest.mark.parametrize("body", ["dense", "sparse"])
+def test_unrecorded_step_reads_no_ns_clock_and_records_no_event(
+        body, monkeypatch):
+    r = Runner(_exe(sparse=body == "sparse"), ExecPolicy(body=body),
+               segs_per_chunk=SPC)
+    (v0, t0), (v1, t1) = _chunks(pw_const((2 * SEG * SPC,), 0.05, 4),
+                                 SEG * SPC)
+    r.step(_grid(v0, t0))
+    reads, real = [], time.perf_counter_ns
+    monkeypatch.setattr(time, "perf_counter_ns",
+                        lambda: reads.append(1) or real())
+    r.step(_grid(v1, t1))
+    assert reads == [] and r.metrics.tracer.events() == []
+    assert r.metrics.snapshot()["histograms"]["runner.step_seconds"][
+        "count"] == 2
+
+
+@pytest.mark.parametrize("body", ["dense", "sparse"])
+def test_recorded_step_is_runner_step_and_its_five_parts(body):
+    r = Runner(_exe(sparse=body == "sparse"), ExecPolicy(body=body),
+               segs_per_chunk=SPC)
+    chunks = _chunks(pw_const((3 * SEG * SPC,), 0.05, 6), SEG * SPC)
+    r.step(_grid(*chunks[0]))
+    r.metrics.reset_after_warmup()
+    tr = r.metrics.tracer
+    tr.start_recording(64)
+    for v, t0 in chunks[1:]:
+        r.step(_grid(v, t0))
+    tr.stop_recording()
+    ev = tr.events()
+    assert len(ev) == 12 and tr.dropped == 0
+    for c in (0, 6):
+        step, parts = ev[c], ev[c + 1:c + 6]
+        assert step.path == "runner.step" and step.parent == -1
+        assert [e.path for e in parts] == [f"runner.step/{p}"
+                                           for p in PARTS]
+        assert all(e.parent == c for e in parts)
+        assert {e.chunk for e in ev[c:c + 6]} == {step.chunk}
+        assert step.start_ns <= parts[0].start_ns
+        assert all(a.end_ns == b.start_ns for a, b in zip(parts, parts[1:]))
+        assert parts[-1].end_ns <= step.end_ns
+    assert ev[0].chunk != ev[6].chunk
+    # the latency histogram takes the span's own clock reads
+    hist = r.metrics.snapshot()["histograms"]["runner.step_seconds"]
+    assert hist["count"] == 2
+    assert np.isclose(hist["sum"], sum(e.end_ns - e.start_ns
+                                       for e in ev[::6]) / 1e9)
+    assert set(tr.self_times()) == {"runner.step"} | {
+        f"runner.step/{p}" for p in PARTS}
+    assert tr.device_chunks() == []          # no chunk events on the CPU
+
+
+def test_each_capture_is_one_runner_capture_span(monkeypatch):
+    from repro_torch.engine import capture
+    r = Runner(_exe(), ExecPolicy(), segs_per_chunk=SPC)
+    grid = _grid(pw_const((SEG * SPC,), 0.1, 2))
+    assert r.install_executable(("dense",), chunks=grid) == "eager"
+    tr = r.metrics.tracer
+    assert tr.span_report()["runner.install"]["count"] == 1
+    # the card's capture path, with its warm-up and capture faked
+    monkeypatch.setattr(capture, "warm_up",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(capture, "record", lambda step, pool, keep=False:
+                        capture.Captured(None, step(), []))
+    work, dev = r._work, r._work.dev
+    for _ in range(2):
+        r._graph(work, ("dense",), r._cache_key("dense", dev),
+                 r._dense_step(dev))
+    rep = tr.span_report()
+    assert rep["runner.capture"]["count"] == 1 == sum(
+        tr.captures().values())
+    assert rep["runner.capture/warm_up"]["count"] == 1
+    assert rep["runner.capture/record"]["count"] == 1
 
 
 # ---------------------------------------------------------------------------
