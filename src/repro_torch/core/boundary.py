@@ -25,7 +25,16 @@ Per-edge rules (consumer needs bounds ``B``; what does the argument need?):
                            mode='linear').
 
 The result is conservative (a superset of the exact lineage), which only
-costs a few duplicated halo ticks, never correctness.
+costs a few duplicated halo ticks, never correctness.  It is the halo
+contract, as the reference plans it (``resolve``, ``halo_ticks``, the
+planned ``InputSpec``).
+
+``exact=True`` swaps in the exact rule for a ``Reduce`` of stride ``p`` and
+window ``W``: its grid begins at ``-ceil(B.lookback / p)·p`` (plan.py), so
+its earliest tick reads ``(-ceil(B.lookback / p)·p + p - W, …]`` and its
+argument needs ``ceil(B.lookback / p)·p + W - p`` back (never below 0),
+at most the conservative ``B.lookback + W``.  plan.py sizes every node's
+grid from these bounds: the ticks the body evaluates.
 """
 from __future__ import annotations
 
@@ -58,13 +67,17 @@ class Bounds:
                       max(self.lookahead, other.lookahead))
 
 
-def _edge(n: ir.Node, a: ir.Node, b: Bounds) -> Bounds:
+def _edge(n: ir.Node, a: ir.Node, b: Bounds, exact: bool) -> Bounds:
     """Bounds needed of argument ``a`` when consumer ``n`` needs ``b``."""
     if isinstance(n, (ir.Map, ir.Where)):
         return b.widen(back=a.prec if a.prec != n.prec else 0)
     if isinstance(n, ir.Shift):
         return b.shift(n.delta)
     if isinstance(n, ir.Reduce):
+        if exact:
+            p = n.prec
+            return Bounds(max(-(-b.lookback // p) * p + n.window - p, 0),
+                          b.lookahead)
         return b.widen(back=n.window)
     if isinstance(n, ir.Interp):
         ahead = n.max_gap if n.mode == "linear" else 0
@@ -78,7 +91,7 @@ def node_bounds(root: ir.Node) -> Dict[int, Bounds]:
     return node_bounds_multi([root])
 
 
-def node_bounds_multi(roots) -> Dict[int, Bounds]:
+def node_bounds_multi(roots, exact: bool = False) -> Dict[int, Bounds]:
     """Bounds over the *union* DAG of several query roots.
 
     Each root anchors ``Bounds()`` at the shared output domain; a node used
@@ -87,14 +100,15 @@ def node_bounds_multi(roots) -> Dict[int, Bounds]:
     contract of the multi-query shared plan.
 
     Reverse post-order guarantees every consumer is finalized before its
-    arguments are visited, so a single pass suffices.
+    arguments are visited, so a single pass suffices.  ``exact`` picks the
+    exact ``Reduce`` rule (module docstring).
     """
     order = ir.topo_order_multi(list(roots))
     bounds: Dict[int, Bounds] = {id(r): Bounds() for r in roots}
     for n in reversed(order):
         b = bounds[id(n)]
         for a in n.args:
-            eb = _edge(n, a, b)
+            eb = _edge(n, a, b, exact)
             prev = bounds.get(id(a))
             bounds[id(a)] = eb if prev is None else prev.union(eb)
     return bounds

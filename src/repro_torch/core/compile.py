@@ -25,7 +25,9 @@ Execution contract (used by parallel.py):
 
 * ``input_specs[name]`` is the :class:`plan.InputSpec` halo contract: the
   caller must supply a grid covering ``(P₀ + t0, P₀ + t0 + length·prec]``
-  for a partition whose output covers ``(P₀, P₀ + out_len·out_prec]``.
+  for a partition whose output covers ``(P₀, P₀ + out_len·out_prec]``, or
+  only its last ``plan.evaluated(name).length`` ticks, the ones the body
+  reads (the chunked runner gathers just those).
 * Ticks before the global stream start are supplied as ``valid=False``.
 """
 from __future__ import annotations
@@ -120,7 +122,7 @@ def _eval_op(n: ir.Node, qp: QueryPlan, sum_algo: str, device: torch.device,
     out_plan = qp.plan_of(n)
     if isinstance(n, ir.Input):
         ((gv, gm),) = args
-        return qp.input_align(n).apply(gv, gm)
+        return qp.input_align(n).apply(*qp.read(n.name, gv, gm))
     if isinstance(n, ir.Const):
         val = tree_map(lambda c: torch.full((out_plan.length,), c,
                                             dtype=_const_dtype(c),

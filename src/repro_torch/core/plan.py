@@ -9,7 +9,9 @@ and trivially parallel over both time partitions and keyed sub-streams.
 This module is that artifact.  It owns, in exactly one place:
 
 * :class:`GridPlan`  — the time grid ``(t0, length, prec)`` of every node,
-  relative to the partition start (boundary.py supplies the extents).
+  relative to the partition start: the ticks its consumers read
+  (boundary.py's exact bounds), so an input's evaluated window
+  (:meth:`QueryPlan.evaluated`) may be a suffix of its contract's.
 * :class:`AlignSpec` — the static ``τ → index`` map used whenever a node
   reads an argument on a different grid (the snapshot *hold* rule,
   stream.py), including the affine-slice fast path that lowers common
@@ -196,9 +198,6 @@ class InputSpec:
         """Lookahead ticks past the partition end."""
         return self.length - self.left_halo - self.core
 
-    def grid_plan(self) -> GridPlan:
-        return GridPlan(t0=self.t0, length=self.length, prec=self.prec)
-
     def contract_t(self) -> tuple:
         """The ``(lookback, lookahead)`` *time-unit* demand this contract
         serves: the halo tick counts un-rounded back to time."""
@@ -224,9 +223,42 @@ class QueryPlan:
     node_plans: Dict[int, GridPlan]          # id(node) -> GridPlan
     input_specs: Dict[str, InputSpec]        # per input NAME (union of uses)
     _aligns: Dict[tuple, AlignSpec] = dataclasses.field(default_factory=dict)
+    _evaluated: Dict[str, GridPlan] = dataclasses.field(default_factory=dict)
 
     def plan_of(self, n: ir.Node) -> GridPlan:
         return self.node_plans[id(n)]
+
+    def evaluated(self, name: str) -> GridPlan:
+        """The ticks of input ``name`` the body reads: the union of its
+        Input nodes' grids.  A suffix of the contract's window
+        (``input_specs[name]``): both end at the same tick, and it starts
+        later where no consumer reads the contract's first ticks (a
+        ``Reduce`` reads less than the halo its window asks for)."""
+        if not self._evaluated:
+            roots = getattr(self, "roots", ()) or (self.root,)
+            for n in ir.topo_order_multi(list(roots)):
+                if not isinstance(n, ir.Input):
+                    continue
+                g, prev = self.node_plans[id(n)], self._evaluated.get(n.name)
+                if prev is not None:
+                    t0 = min(g.t0, prev.t0)
+                    hi = max(g.tick_time(g.length - 1),
+                             prev.tick_time(prev.length - 1))
+                    g = GridPlan(t0=t0, length=(hi - t0) // g.prec,
+                                 prec=g.prec)
+                self._evaluated[n.name] = g
+        return self._evaluated[name]
+
+    def read(self, name: str, value, valid) -> tuple:
+        """``(value, valid)`` of input ``name`` cut to :meth:`evaluated`:
+        its last ``evaluated(name).length`` ticks, as views.  Callers pass
+        the contract's window or the evaluated window itself."""
+        n = self.evaluated(name).length
+
+        def cut(x):
+            return x[..., x.shape[-1] - n:] if x.shape[-1] > n else x
+
+        return tree_map(cut, value), cut(valid)
 
     def align(self, arg: ir.Node, out: ir.Node, delta: int = 0) -> AlignSpec:
         """AlignSpec for consumer ``out`` reading argument ``arg``."""
@@ -237,11 +269,12 @@ class QueryPlan:
         return self._aligns[key]
 
     def input_align(self, n: ir.Input) -> AlignSpec:
-        """AlignSpec from the supplied NAME grid onto an Input node's grid."""
+        """AlignSpec from the NAME grid the body reads (:meth:`evaluated`)
+        onto an Input node's grid."""
         key = ("input", n.name, id(n))
         if key not in self._aligns:
             self._aligns[key] = AlignSpec(
-                self.input_specs[n.name].grid_plan(), self.node_plans[id(n)])
+                self.evaluated(n.name), self.node_plans[id(n)])
         return self._aligns[key]
 
 
@@ -305,29 +338,37 @@ def plan_union(roots, span: int) -> UnionPlan:
                      input_specs=input_specs, roots=roots, span=span)
 
 
+def _grid(b: boundary.Bounds, prec: int, span: int) -> GridPlan:
+    """The grid of ``prec`` covering ``(-b.lookback, span + b.lookahead]``."""
+    t0 = -_ceil_div(b.lookback, prec) * prec
+    t_hi = span + _ceil_div(b.lookahead, prec) * prec
+    return GridPlan(t0=t0, length=(t_hi - t0) // prec, prec=prec)
+
+
 def _plan_grids(roots, span: int):
-    """Grid extents + merged per-NAME input contracts for a (multi-)root DAG."""
-    nb = boundary.node_bounds_multi(list(roots))
+    """Grid extents + merged per-NAME input contracts for a (multi-)root DAG.
+
+    Node grids come from the exact bounds (what the body evaluates); the
+    input contracts from the conservative ones, as the reference plans
+    them (the halo carried, exchanged and checked)."""
+    roots = list(roots)
+    nb = boundary.node_bounds_multi(roots)
+    eb = boundary.node_bounds_multi(roots, exact=True)
     node_plans: Dict[int, GridPlan] = {}
     name_bounds: Dict[str, boundary.Bounds] = {}
     name_prec: Dict[str, int] = {}
-    for n in ir.topo_order_multi(list(roots)):
-        b = nb[id(n)]
-        t0 = -_ceil_div(b.lookback, n.prec) * n.prec
-        t_hi = span + _ceil_div(b.lookahead, n.prec) * n.prec
-        node_plans[id(n)] = GridPlan(t0=t0, length=(t_hi - t0) // n.prec,
-                                     prec=n.prec)
+    for n in ir.topo_order_multi(roots):
+        node_plans[id(n)] = _grid(eb[id(n)], n.prec, span)
         if isinstance(n, ir.Input):
+            b = nb[id(n)]
             name_prec[n.name] = n.prec
             name_bounds[n.name] = (name_bounds[n.name].union(b)
                                    if n.name in name_bounds else b)
     input_specs: Dict[str, InputSpec] = {}
     for name, b in name_bounds.items():
-        p = name_prec[name]
-        t0 = -_ceil_div(b.lookback, p) * p
-        t_hi = span + _ceil_div(b.lookahead, p) * p
-        input_specs[name] = InputSpec(t0=t0, length=(t_hi - t0) // p, prec=p,
-                                      core=span // p)
+        g = _grid(b, name_prec[name], span)
+        input_specs[name] = InputSpec(t0=g.t0, length=g.length, prec=g.prec,
+                                      core=span // g.prec)
     return node_plans, input_specs
 
 

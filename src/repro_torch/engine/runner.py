@@ -122,8 +122,9 @@ class BodySpec:
     """Everything the runner needs to know about a per-segment body.
 
     A body evaluates one planned partition: given ``{input_name: (value,
-    valid)}`` grids covering one segment plus halo (``input_specs``), with
-    any number of units on a leading axis, it returns ``{out_name: (value,
+    valid)}`` grids covering one segment plus halo (``input_specs``), or
+    only the ticks it evaluates (:meth:`unit_windows`), with any number of
+    units on a leading axis, it returns ``{out_name: (value,
     valid)}`` output grids of ``span // out_precs[name]`` ticks per unit.
     Solo queries are the single-output case (``out_name == "__out"``);
     union DAGs return one entry per query.
@@ -132,7 +133,8 @@ class BodySpec:
     geometry and device — share it across Runner instances over the same
     compiled query so fresh runners reuse them.  ``plan`` and ``sum_algo``
     (solo bodies) are what a persisted plan artifact records
-    (:func:`repro_torch.serve.plan_artifact_of`).
+    (:func:`repro_torch.serve.plan_artifact_of`); the runner reads the
+    evaluated windows off ``plan`` (:meth:`unit_windows`).
     """
 
     input_specs: Dict[str, InputSpec]
@@ -144,7 +146,7 @@ class BodySpec:
     root: Optional[ir.Node] = None
     solo: bool = True
     step_cache: dict = dataclasses.field(default_factory=dict)
-    plan: Optional[QueryPlan] = None
+    plan: Optional[QueryPlan] = None   # None: an opaque body
     sum_algo: str = "block"
     # IR roots backing outs_fn, for static verification (repro_torch.
     # analysis): solo bodies carry (root,); union bodies one root per
@@ -155,6 +157,20 @@ class BodySpec:
     @property
     def span(self) -> int:
         return self.out_len * self.out_prec
+
+    def unit_windows(self) -> Dict[str, tuple]:
+        """Per input, ``(offset, length, core)``: the ticks the body
+        evaluates inside a unit's contract window (``input_specs``), the
+        plan's evaluated window (:meth:`QueryPlan.evaluated`, a suffix) or
+        the whole window for an opaque body, and the ticks a unit adds."""
+        out = {}
+        for name, s in self.input_specs.items():
+            if self.plan is None:
+                out[name] = (0, s.length, s.core)
+            else:
+                g = self.plan.evaluated(name)
+                out[name] = ((g.t0 - s.t0) // s.prec, g.length, s.core)
+        return out
 
 
 def body_spec_of(exe) -> BodySpec:
@@ -286,25 +302,27 @@ def _gather_packed(comm, dim: int, packed):
             (spec, [(dt, o * n, joined(shape)) for dt, o, shape in layout]))
 
 
-def _units(specs, n_segs: int, bufs, ids=None, segs=None):
+def _units(windows, n_segs: int, bufs, ids=None, segs=None):
     """Unit windows of every input, units on the leading axis: all ``U``
     units (``ids=None``, unit ``u = key·n_segs + segment``; only the
     segments of the range ``segs`` when given) or the ones named by
-    ``ids``."""
+    ``ids``.  ``windows[name]`` is :meth:`BodySpec.unit_windows`'s
+    ``(offset, length, core)``: a unit's window is the ``length`` ticks
+    from ``offset`` of its contract window, the ones the body evaluates."""
     out = {}
     for name, (fv, fm) in bufs.items():
-        L, core = specs[name].length, specs[name].core
+        off, L, core = windows[name]
         if ids is None:
-            def take(x, L=L, core=core):
-                w = _windows(x, L, core)
+            def take(x, off=off, L=L, core=core):
+                w = _windows(x[..., off:], L, core)
                 if segs is not None:
                     w = w[:, segs[0]:segs[1]]
                 return w.reshape((-1,) + w.shape[2:])
         else:
             k_ids, s_ids = ids // n_segs, ids % n_segs
 
-            def take(x, L=L, core=core, k_ids=k_ids, s_ids=s_ids):
-                return _windows(x, L, core)[k_ids, s_ids]
+            def take(x, off=off, L=L, core=core, k_ids=k_ids, s_ids=s_ids):
+                return _windows(x[..., off:], L, core)[k_ids, s_ids]
         out[name] = (_tm(take, fv), take(fm))
     return out
 
@@ -576,6 +594,7 @@ class Runner:
             self.n_keys = 1
 
         span = spec.span
+        self._unit_windows = spec.unit_windows()
         for name, s in spec.input_specs.items():
             if s.right_halo > 0:
                 raise NotImplementedError(
@@ -656,7 +675,12 @@ class Runner:
             "runner.units", "work units (keys x segments) presented",
             "units")
         self._m_keys = m.gauge("runner.keys", "keyed sub-streams", "keys")
-        self._m_keys.set(self.n_keys)
+        self._m_trim = {
+            name: m.gauge(f"runner.eval_trim_pct.{name}",
+                          "share of the contract's unit window the body "
+                          "does not evaluate", "%")
+            for name in self._unit_windows}
+        self._obs_static()
         self._m_lat = m.histogram(
             "runner.step_seconds", log_buckets(1e-5, 10.0, per_decade=3),
             "per-chunk step wall time (dispatch, not device completion)",
@@ -701,6 +725,12 @@ class Runner:
         m.register_collector("runner", self._obs_collect)
         m.register_warmup_reset("runner", self._obs_warmup_reset)
 
+    def _obs_static(self) -> None:
+        """Set the gauges fixed by the plan and the geometry."""
+        self._m_keys.set(self.n_keys)
+        for name, (off, L, _core) in self._unit_windows.items():
+            self._m_trim[name].set(100.0 * off / (off + L))
+
     def _obs_bind(self) -> None:
         """Point the device-resident metrics at the live accumulators (a
         reference assignment: no launch, no read)."""
@@ -731,7 +761,7 @@ class Runner:
                 self._obs_bind()
         self._total_units = 0
         self._chunks_run = 0
-        self._m_keys.set(self.n_keys)
+        self._obs_static()
 
     def _obs_collect(self) -> None:
         """Pre-snapshot hook: derived gauges (syncs — off the hot path)."""
@@ -963,7 +993,7 @@ class Runner:
         if key in cache:
             return cache[key]
         self.metrics.tracer.record_compile(self._compile_label(key))
-        outs_fn, specs = self.spec.outs_fn, self.spec.input_specs
+        outs_fn, wins = self.spec.outs_fn, self._unit_windows
         K, n_segs = self._K, self.n_segs
         # this rank's segments (all of them unless single-keyed on a mesh)
         segs = ((self._u0, self._u0 + self._Uc) if self._seg_mesh
@@ -973,7 +1003,7 @@ class Runner:
 
         def step(work):
             packed = _pack(_per_key(outs_fn(_units(
-                specs, n_segs, work.bufs, segs=segs)), K, n_own))
+                wins, n_segs, work.bufs, segs=segs)), K, n_own))
             work.shift()
             return gather(packed) if gather else packed
 
@@ -1001,8 +1031,8 @@ class Runner:
         if key in cache:
             return cache[key]
         self.metrics.tracer.record_compile(self._compile_label(key))
-        outs_fn, specs, n_segs = (self.spec.outs_fn, self.spec.input_specs,
-                                  self.n_segs)
+        outs_fn, wins, n_segs = (self.spec.outs_fn, self._unit_windows,
+                                 self.n_segs)
         u0 = self._u0
         segs = (u0, u0 + self._Uc) if self._seg_mesh else None
 
@@ -1013,12 +1043,12 @@ class Runner:
             # sparse exactness contract), and the hold fill downstream
             # still overwrites clean units from the dirty chain.
             def local(w, bufs):
-                return outs_fn(_units(specs, n_segs, bufs, segs=segs))
+                return outs_fn(_units(wins, n_segs, bufs, segs=segs))
         else:
             def local(w, bufs):
                 # ids of this rank's units, offset to index the buffer
                 ids, pos = sparse_mod.compact_ids(w, cap, base=u0)
-                outs = outs_fn(_units(specs, n_segs, bufs, ids))  # (cap, ...)
+                outs = outs_fn(_units(wins, n_segs, bufs, ids))  # (cap, ...)
                 return {o: (_tm(lambda x: x.index_select(0, pos), ov),
                             om.index_select(0, pos))
                         for o, (ov, om) in outs.items()}    # (U, ..., S)

@@ -112,7 +112,7 @@ def union_body_spec(plan, queries: Dict[str, ir.Node], *,
         out_prec=plan.out_prec, outs_fn=outs_fn,
         out_precs={q: root.prec for q, root in queries.items()},
         change_plan=plan_change(plan) if sparse else None,
-        root=None, solo=False,
+        root=None, solo=False, plan=plan,
         roots=tuple(queries[q] for q in sorted(queries)))
 
 

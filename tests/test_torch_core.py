@@ -6,17 +6,25 @@ import pytest
 import torch
 
 from repro.core import boundary as rboundary
+from repro.core import compile as rqc
 from repro.core import fusion as rfusion
 from repro.core import halo as rhalo
 from repro.core import ir as rir
+from repro.core import parallel as rpar
 from repro.core import plan as rplan
 from repro.core import reduction as rreduction
 from repro.core import stream as rstream
+from repro.core.frontend import TStream as RTStream
 from repro.data import apps as rapps
+from repro.engine import ExecPolicy as RPolicy, Runner as RRunner
 from repro_torch.core import boundary, fusion, halo, ir, plan, reduction
+from repro_torch.core import compile as qc
+from repro_torch.core import parallel as par
 from repro_torch.core import stream
 from repro_torch.core.frontend import TStream
-from repro_torch.data import apps
+from repro_torch.data import apps, tolerance
+from repro_torch.engine import ExecPolicy, Runner
+from torch_plan_common import assert_node_grids
 
 APP_NAMES = sorted(apps.APPS)
 
@@ -90,14 +98,11 @@ def test_plan_query_matches_reference(name, out_len):
 
     assert ({k: spec_fields(s) for k, s in p.input_specs.items()}
             == {k: spec_fields(s) for k, s in rp.input_specs.items()})
-    # node grids, in topological order of the optimized DAGs
-    got = [(type(n).__name__,) + tuple(
-        getattr(p.plan_of(n), f) for f in ("t0", "length", "prec"))
-        for n in ir.topo_order(p.root)]
-    want = [(type(n).__name__,) + tuple(
-        getattr(rp.plan_of(n), f) for f in ("t0", "length", "prec"))
-        for n in rir.topo_order(rp.root)]
-    assert got == want
+    # node grids, in topological order of the optimized DAGs: the
+    # reference's, but where a Reduce reads the node, which begins at the
+    # exact demand
+    assert_node_grids(ir.topo_order(p.root), rir.topo_order(rp.root), p, rp,
+                      [rp.root])
     for name_, s in p.input_specs.items():
         rs = rp.input_specs[name_].halo_schedule()
         hs = s.halo_schedule()
@@ -212,3 +217,162 @@ def test_app_generators_match_reference(name):
         want = _arrays(rapps.make_keyed_app(name).make_keyed_input(3, 64, 9))
         assert got.keys() == want.keys()
         assert all(np.array_equal(got[k], want[k]) for k in want)
+
+
+# ---------------------------------------------------------------------------
+# the exact Reduce demand: the body evaluates only the ticks windows read
+# ---------------------------------------------------------------------------
+
+def _stride5(S, keyed):
+    """A prec-5 sum over 10 ticks read by a prec-1 join 3 ticks back: the
+    sum's demand, 3 + 5, is no multiple of its stride."""
+    s = S.source("in", prec=1, keyed=keyed)
+    x = s.window(10, stride=5).sum()
+    return s.join(x, lambda a, b: a + b).shift(3)
+
+
+def _exact_case(name, keyed):
+    """The port's query, the reference's, the tolerance's name (None:
+    integer data, compared bit for bit) and ``make(K, T)``."""
+    if name == "stride5":
+        def make(K, T):
+            rng = np.random.default_rng(5)
+            sh = (K, T) if keyed else (T,)
+            return {"in": {"value": rng.integers(-9, 10, sh).astype(float),
+                           "valid": rng.random(sh) > 0.2}}
+        return (_stride5(TStream, keyed).node,
+                _stride5(RTStream, keyed).node, None, make)
+    if keyed:
+        app, rapp = apps.make_keyed_app(name), rapps.make_keyed_app(name)
+        return (app.query.node, rapp.query.node, name,
+                lambda K, T: app.make_keyed_input(K, T, 7))
+    app, rapp = apps.make_app(name), rapps.make_app(name)
+    return (app.query.node, rapp.query.node, name,
+            lambda K, T: app.make_input(T, 7))
+
+
+def _rgrids(data, t0=0):
+    out = {}
+    for name, d in data.items():
+        v = d["value"]
+        v = ({k: jnp.asarray(a, jnp.float32) for k, a in v.items()}
+             if isinstance(v, dict) else jnp.asarray(v, jnp.float32))
+        out[name] = rstream.SnapshotGrid(value=v, valid=jnp.asarray(d["valid"]),
+                                         t0=t0, prec=1)
+    return out
+
+
+def _leaves(v):
+    if isinstance(v, dict):
+        return {k: np.asarray(a) for k, a in v.items()}
+    return {"v": np.asarray(v)}
+
+
+def _chunk(data, lo, hi):
+    return {n: {"value": ({k: a[..., lo:hi] for k, a in d["value"].items()}
+                          if isinstance(d["value"], dict)
+                          else d["value"][..., lo:hi]),
+                "valid": d["valid"][..., lo:hi]} for n, d in data.items()}
+
+
+def _assert_reduce_args_exact(p):
+    """Each Reduce's argument grid begins at the first tick the Reduce's
+    earliest output reads (at 0 where that lies past 0), or earlier only
+    where another consumer, not a Reduce, reads further back."""
+    order = ir.topo_order(p.root)
+    readers = {}
+    for n in order:
+        for a in n.args:
+            readers.setdefault(id(a), []).append(n)
+
+    def first(r):          # the earliest output reads (first, ...]
+        return min(p.plan_of(r).t0 + r.prec - r.window, 0)
+
+    for n in order:
+        if not isinstance(n, ir.Reduce):
+            continue
+        (a,) = n.args
+        t0 = p.plan_of(a).t0
+        assert t0 <= first(n)
+        if all(isinstance(r, ir.Reduce) for r in readers[id(a)]):
+            assert t0 == min(first(r) for r in readers[id(a)])
+
+
+EXACT_CASES = ([(n, False) for n in APP_NAMES]
+               + [(n, True) for n in sorted(apps.KEYED_APPS)]
+               + [("stride5", False), ("stride5", True)])
+
+
+@pytest.mark.parametrize("name,keyed", EXACT_CASES)
+@pytest.mark.parametrize("out_len", [1, 64, 1000])
+def test_exact_reduce_demand(name, keyed, out_len):
+    """(a) Reduce arguments begin at the ticks their windows read; (b) the
+    one-shot path equals the reference's (its one-shot path, or its runner
+    where keyed) within the app's tolerance, integer data bit for bit, and
+    the Runner's dense and sparse bodies (3 chunks; lookback-only queries)
+    equal the one-shot path bit for bit, validity equal."""
+    q, rq, tol, make = _exact_case(name, keyed)
+    exe = qc.compile_query(q, out_len, sparse=True)
+    _assert_reduce_args_exact(exe.plan)
+    span = out_len * exe.out_prec
+    spc = max(1, 8 // span)                  # segments a chunk
+    n_parts, K = 3 * spc, 3
+    data = make(K, n_parts * span)
+    got = par.partition_run(exe, apps.make_grids(data, device="cpu"), 0,
+                            n_parts)
+    rexe = rqc.compile_query(rq, out_len, pallas=False)
+    step = spc * span
+    if keyed:     # the reference's keyed path is its runner, chunk by chunk
+        rr = RRunner(rexe, RPolicy(keys="vmapped"), n_keys=K,
+                     segs_per_chunk=spc)
+        parts = [rr.step(_rgrids(_chunk(data, c * step, (c + 1) * step),
+                                 t0=c * step)) for c in range(3)]
+        want_valid = np.concatenate([np.asarray(g.valid) for g in parts], -1)
+        wv = {k: np.concatenate([_leaves(g.value)[k] for g in parts], -1)
+              for k in _leaves(parts[0].value)}
+    else:
+        want = rpar.partition_run(rexe, _rgrids(data), 0, n_parts)
+        want_valid, wv = np.asarray(want.valid), _leaves(want.value)
+    gv = _leaves(got.value)
+    if tol is None:
+        assert np.array_equal(got.valid.numpy(), want_valid)
+        m = got.valid.numpy()
+        assert all(np.array_equal(gv[k][m], wv[k][m]) for k in wv)
+    else:
+        tolerance.compare(tol, got.valid.numpy(), gv, want_valid, wv)
+    if any(s.right_halo for s in exe.input_specs.values()):
+        return                                # chunked runners look back
+    for body in ("dense", "sparse"):
+        r = Runner(exe, ExecPolicy(body=body,
+                                   keys="vmapped" if keyed else "single"),
+                   n_keys=K if keyed else None, segs_per_chunk=spc)
+        parts = [r.step(apps.make_grids(_chunk(data, c * step,
+                                               (c + 1) * step),
+                                        device="cpu", t0=c * step))
+                 for c in range(3)]
+        valid = torch.cat([g.valid for g in parts], -1)
+        assert torch.equal(valid, got.valid), body
+        for k, v in _leaves(got.value).items():
+            rv = np.concatenate([_leaves(g.value)[k] for g in parts], -1)
+            assert np.array_equal(rv[valid.numpy()], v[valid.numpy()]), body
+
+
+@pytest.mark.parametrize("case", ["ysb", "sliding"])
+def test_runner_eval_trim_pct(case):
+    """The runner's gauge of the unit window the body leaves out: half for
+    ysb's tumbling count (the halo a tumbling window never reads), one tick
+    in ``W + core`` for a stride-1 window; set again after warm-up."""
+    if case == "ysb":
+        q = apps.make_keyed_app("ysb", win=10000).query.node
+        exe, want = qc.compile_query(q, 1), 50.0
+        r = Runner(exe, ExecPolicy(keys="vmapped"), n_keys=100,
+                   segs_per_chunk=16)
+    else:
+        W, core = 50, 64
+        q = TStream.source("in").window(W).sum().node
+        exe, want = qc.compile_query(q, core), 100 / (W + core)
+        r = Runner(exe, ExecPolicy())
+    name = "runner.eval_trim_pct.in"
+    assert r.metrics.snapshot()["gauges"][name]["value"] == want
+    r.metrics.reset_after_warmup()
+    assert r.metrics.snapshot()["gauges"][name]["value"] == want

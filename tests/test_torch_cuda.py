@@ -850,6 +850,41 @@ def _mean_runners(keyed, n_keys, segs, out_len=64):
 
 
 @pytest.mark.cuda
+def test_cuda_ysb_runner_sums_only_the_ticks_its_windows_read(cuda,
+                                                             monkeypatch):
+    """ysb at its benchmark cell's geometry (100 keys, 16 tumbling windows
+    of 10000 ticks a chunk): the count's sliding sum runs over the 10000
+    ticks a window reads, rows of (3200, 10000) (the value and the count
+    channel of 1600 units), not over the halo; 8 chunks count exactly what
+    a float64 count of the same views gives."""
+    K, win, segs, n_chunks = 100, 10000, 16, 8
+    span = win * segs
+    seen, orig = {}, wr.sliding_assoc
+
+    def record(x, window, op):
+        key = (*x.shape, int(window), op)
+        seen[key] = seen.get(key, 0) + 1
+        return orig(x, window, op)
+
+    monkeypatch.setattr(wr, "sliding_assoc", record)
+    exe = qc.compile_query(apps.make_keyed_app("ysb", win=win).query.node, 1)
+    r = Runner(exe, ExecPolicy(keys="vmapped"), n_keys=K,
+               segs_per_chunk=segs)
+    gauges = r.metrics.snapshot()["gauges"]
+    assert gauges["runner.eval_trim_pct.in"]["value"] == 50.0
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    ok = torch.ones((K, span), dtype=torch.bool, device=cuda)
+    for c in range(n_chunks):
+        etype = torch.randint(0, 3, (K, span), generator=gen,
+                              device=cuda).float()
+        out = r.step({"in": keyed_grid({"etype": etype}, ok, t0=c * span)})
+        want = (etype == 1.0).double().reshape(K, segs, win).sum(-1)
+        assert bool(out.valid.all())
+        assert torch.equal(out.value.double(), want)
+    assert list(seen) == [(3200, win, win, "add")], seen
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("body", ["dense", "sparse"])
 @pytest.mark.parametrize("keyed", [False, True])
 def test_cuda_captured_steps_equal_cpu_on_integer_data(cuda, body, keyed):

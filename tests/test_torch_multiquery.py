@@ -53,6 +53,7 @@ from repro_torch.engine import ExecPolicy, Runner, keyed_grid
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.multiquery import (MultiQuerySession, SharedPlanCache,
                                     shard_union_run, union_runner)
+from torch_plan_common import assert_node_grids
 
 SPAN, N_CHUNKS = 64, 3     # 3 chunks => 2 chunk boundaries
 K = 8
@@ -583,13 +584,9 @@ def test_plan_union_matches_reference():
             r = rup.input_specs[name]
             assert (s.t0, s.length, s.prec, s.core) == (r.t0, r.length,
                                                         r.prec, r.core)
-        order = ir.topo_order_multi(list(up.roots))
-        rorder = rir.topo_order_multi(list(rup.roots))
-        assert [type(n).__name__ for n in order] == [
-            type(n).__name__ for n in rorder]
-        for n, rn in zip(order, rorder):
-            g, rg = up.plan_of(n), rup.plan_of(rn)
-            assert (g.t0, g.length, g.prec) == (rg.t0, rg.length, rg.prec)
+        assert_node_grids(ir.topo_order_multi(list(up.roots)),
+                          rir.topo_order_multi(list(rup.roots)), up, rup,
+                          list(rup.roots))
         cp, rcp = qplan.plan_change(up), rplan.plan_change(rup)
         assert cp.out_len == rcp.out_len and cp.out_prec == rcp.out_prec
         for name, sp in cp.specs.items():
