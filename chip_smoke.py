@@ -484,21 +484,29 @@ def check_kernels(dev):
                               torch.cumsum(xi.double(), dim=-1))
                 errs["prefix_scan"] = max(errs["prefix_scan"], e)
     prefix_bits_checks(dev, gen)
-    # W < 8 sums take the prefix-scan path through ops.sliding_sum: the
-    # prefix sums P are what is rounded, P[t] - P[t-W] what is compared
+    # W < 8 sums through ops.sliding_sum: subtract-on-evict on prefix_scan,
+    # where the prefix sums P are what is rounded and P[t] - P[t-W] what is
+    # compared; the block sums on sliding_assoc, held against the plain
+    # block version on the CPU
     for W in (1, 3, 7):
         x = randn(2, 50_000, scale=2.0)
         valid = (torch.rand(50_000, generator=gen) > 0.2).to(dev)
-        s, n = ops.sliding_sum(x, valid, W)
-        sr, nr = ref.sliding_sum_ref(x, valid, W)
         p = torch.cumsum(torch.where(valid, x, 0.0).double(), dim=-1)
-        e = sum_check(f"ops.sliding_sum W={W}", s, sr,
-                      p - ref.shift_right(p, W, 0.0),
+        exact = p - ref.shift_right(p, W, 0.0)
+        s, n = ops.sliding_sum(x, valid, W, algo="soe")
+        sr, nr = ref.sliding_sum_ref(x, valid, W)
+        e = sum_check(f"ops.sliding_sum soe W={W}", s, sr, exact,
                       scale=float(p.abs().max()))
-        exact_check(f"ops.sliding_sum W={W} count", n, nr)
+        exact_check(f"ops.sliding_sum soe W={W} count", n, nr)
         errs["prefix_scan"] = max(errs["prefix_scan"], e)
-    log(f"prefix_scan: f32/bf16 and W<8 sums agree with the plain version "
-        f"(max err {errs['prefix_scan']:.3g})")
+        s, n = ops.sliding_sum(x, valid, W)
+        sc, nc = ops.sliding_sum(x.cpu(), valid.cpu(), W)
+        e = sum_check(f"ops.sliding_sum block W={W}", s, sc.to(dev), exact)
+        exact_check(f"ops.sliding_sum block W={W} count", n, nc.to(dev))
+        errs["sliding_assoc"] = max(errs["sliding_assoc"], e)
+    log(f"prefix_scan: f32/bf16 and W<8 subtract-on-evict sums agree with "
+        f"the plain version (max err {errs['prefix_scan']:.3g}); W<8 block "
+        f"sums on sliding_assoc with the CPU's")
 
     # times at the main path's shapes (rows = keys x (channels + 1),
     # T = partition length + halo): trend's 50-tick mean on one stream and

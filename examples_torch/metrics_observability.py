@@ -7,6 +7,10 @@ about its own execution — without ever reading the card on the hot path:
 
 * compaction counters and the capacity-bucket pick distribution (which
   rung of the capacity ladder each chunk's dirty count landed on);
+* the plan's gauges of a unit's window: the share of the contract the
+  body leaves out (``runner.eval_trim_pct``) and the share of what it
+  evaluates that is lookback, evaluated again in every unit
+  (``runner.halo_eval_pct``);
 * the per-chunk latency histogram with p50/p90/p99;
 * the recompile detector (every staging key must be built exactly once)
   and the CUDA graphs the runner captured (none on the CPU);
@@ -93,6 +97,10 @@ def main(argv=None) -> dict:
           f"dirty={c['runner.dirty_units']['value']}  "
           f"compact={g['runner.compact']['value']:.3f}  "
           f"captured graphs={sum(captures.values())}")
+
+    print(f"unit window: eval_trim_pct="
+          f"{g['runner.eval_trim_pct.in']['value']:.2f}%  halo_eval_pct="
+          f"{g['runner.halo_eval_pct.in']['value']:.2f}%")
 
     picks = snap["vectors"]["runner.bucket_picks"]
     used = {lab: n for lab, n in zip(picks["labels"], picks["values"]) if n}

@@ -1,5 +1,6 @@
-"""End-to-end streaming-analytics driver: the nine applications of
-``data/apps.py`` (paper Table 2) running continuously over unbounded
+"""End-to-end streaming analytics: the applications of
+``data/apps.py`` (paper Table 2's nine, and Pan-Tompkins QRS detection with
+the published filters) running continuously over unbounded
 synthetic streams with the checkpointable ``StreamRunner`` of the PyTorch
 port.
 

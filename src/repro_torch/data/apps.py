@@ -11,8 +11,10 @@ Each application factory returns an :class:`App` carrying:
 * dataset/time-scale metadata.
 
 :func:`make_grids` turns a generator's arrays into ``SnapshotGrid``s on a
-device (CUDA unless ``"cpu"`` is asked for).  Beside the nine apps:
-the dashboard fan-out of the multi-query sharing workload
+device (CUDA unless ``"cpu"`` is asked for).  Beside the paper's nine
+apps: ``qrs``, Pan-Tompkins QRS detection with the published
+filters, one key an ECG lead (the benchmark's MIT-BIH deployment); the
+dashboard fan-out of the multi-query sharing workload
 (:func:`dashboard_queries`, :func:`dashboard_input`,
 :func:`dashboard_keyed_input`) and the four primitive temporal operations
 (:func:`temporal_op`, ``TEMPORAL_OPS``).
@@ -412,6 +414,97 @@ class _SpeDictCount(es.Operator):
         return self.agg(es.Batch(b.ts, np.asarray(b.value["etype"]), b.valid))
 
 
+# ---------------------------------------------------------------------------
+# Pan-Tompkins QRS detection with the published filters, per ECG lead
+# ---------------------------------------------------------------------------
+
+# the integration (150 ms) and the threshold's maximum (2 s) in ticks at
+# 200 samples/s, the one rate the filters' taps are designed for
+_QRS_MWI, _QRS_THR = 30, 400
+
+
+def _highpass(delayed, wsum):
+    return 32.0 * delayed - wsum
+
+
+def _derivative(x0, x1, x3, x4):
+    return (2.0 * x0 + x1 - x3 - 2.0 * x4) / 8.0
+
+
+def qrs_app(keyed: bool = False) -> App:
+    """Pan & Tompkins, "A Real-Time QRS Detection Algorithm" (IEEE Trans.
+    Biomed. Eng. 32(3), 1985) at the 200 samples/s the filters were
+    designed for: the low-pass ``(1 - z^-6)^2 / (1 - z^-1)^2`` (two 6-tick
+    sums), the high-pass ``32 x(n-16) - sum_0^31 x(n-k)``, the 5-point
+    derivative ``(2x(n) + x(n-1) - x(n-3) - 2x(n-4)) / 8``, squaring and
+    the 150 ms moving-window integration.  The threshold is the TiLT
+    paper's (Appendix A, as :func:`pantomkins_app`): half the trailing
+    2 s maximum of the integrated signal; a tick is flagged where the
+    signal is above it, and its answer is the excess.  The paper's
+    adaptive SPKI/NPKI thresholds, search-back and refractory period are
+    recursive and left out.  Its input is one lead's samples, as signed
+    ADC codes."""
+    s = TStream.source("in", prec=1, keyed=keyed)
+    lp = s.window(6).sum().window(6).sum()
+    hp = lp.shift(16).join(lp.window(32).sum(), _highpass, name="highpass")
+    deriv = TStream.zip([hp.shift(d) for d in (0, 1, 3, 4)], _derivative,
+                        name="deriv")
+    sq = deriv.select(lambda d: d * d, name="square")
+    mwi = sq.window(_QRS_MWI).mean()
+    thr = mwi.window(_QRS_THR).max().select(lambda m: 0.5 * m, name="thr")
+    q = mwi.join(thr, lambda sig, th: sig - th, name="qrs") \
+           .where(lambda d: d > 0, name="qrs_hit")
+
+    spe = es.Pipeline([
+        (es.WindowAgg("sum", 6), ("in",), "lp1"),
+        (es.WindowAgg("sum", 6), ("lp1",), "lp"),
+        (es.ShiftOp(16), ("lp",), "lp16"),
+        (es.WindowAgg("sum", 32), ("lp",), "lp32"),
+        (es.Join(_highpass), ("lp16", "lp32"), "hp"),
+        (es.ShiftOp(1), ("hp",), "hp1"),
+        (es.ShiftOp(3), ("hp",), "hp3"),
+        (es.ShiftOp(4), ("hp",), "hp4"),
+        (_SpeZip(_derivative), ("hp", "hp1", "hp3", "hp4"), "deriv"),
+        (es.Select(lambda d: d * d), ("deriv",), "sq"),
+        (es.WindowAgg("mean", _QRS_MWI), ("sq",), "mwi"),
+        (es.WindowAgg("max", _QRS_THR), ("mwi",), "mx"),
+        (es.Select(lambda m: 0.5 * m), ("mx",), "thr"),
+        (es.Join(lambda s_, t: s_ - t), ("mwi", "thr"), "d"),
+        (es.Where(lambda d: d > 0), ("d",), "out"),
+    ])
+
+    def codes(shape, seed):
+        # 11-bit ADC samples less the ADC zero, as MIT-BIH stores them
+        rng = np.random.default_rng(seed)
+        return rng.integers(-1024, 1024, shape).astype(np.float64)
+
+    def mk(n, seed):
+        return {"in": _dense_input(codes(n, seed))}
+
+    def mk_keyed(n_keys, n_ticks, seed):
+        return {"in": {"value": codes((n_keys, n_ticks), seed),
+                       "valid": np.ones((n_keys, n_ticks), bool)}}
+
+    return App("qrs", q, spe, mk,
+               description="Pan-Tompkins QRS detection, one key an ECG lead",
+               make_keyed_input=mk_keyed)
+
+
+class _SpeZip(es.Operator):
+    """Join of aligned streams of one timeline: ``fn`` of every value,
+    valid where all are."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, *bs):
+        valid = bs[0].valid.copy()
+        for b in bs[1:]:
+            valid &= b.valid
+        return es.Batch(bs[0].ts, self.fn(*(np.asarray(b.value) for b in bs)),
+                        valid)
+
+
 APPS = {
     "trend": trend_app,
     "rsi": rsi_app,
@@ -422,6 +515,7 @@ APPS = {
     "vibration": vibration_app,
     "fraud": fraud_app,
     "ysb": ysb_app,
+    "qrs": qrs_app,
 }
 
 
@@ -430,7 +524,7 @@ def make_app(name: str, **kw) -> App:
 
 
 # apps with a keyed (partitioned-stream) variant
-KEYED_APPS = ("trend", "fraud", "ysb")
+KEYED_APPS = ("trend", "fraud", "ysb", "qrs")
 
 
 def make_keyed_app(name: str, **kw) -> App:

@@ -10,13 +10,16 @@ windows of lognormal amounts with 50x spikes, so its rounding is
 eps * E[x^2] / sd, up to ~1e-2.  ``gate`` excuses a validity flip of a
 ``> 0`` predicate whose operand lies within that distance of 0 (the
 predicate's operands carry the same rounding).  ysb counts integers:
-exact.  ``dashboard`` holds the dashboard fan-out's trend heads
-(``data.apps.dashboard_queries``: a difference of two means of prices near
-100, thresholded), as trend.  Its breakout and momentum heads read the
-stddev of a 50-tick window of those prices, E[x^2] - E[x]^2 with E[x^2]
-near 1e4 and a variance near 2e-2: an f32 ulp of E[x^2] is 1e-3, so two
-runs that add in another order may differ by tens of percent in that
-stddev, and no bound of this kind holds them.
+exact.  qrs's excess is the integrated signal less half its 2 s maximum,
+both near 1e9-1e10 on the generator's ADC codes: an f32 ulp there is up
+to 1e3, so two runs may differ by a few of them in the excess and flip a
+flag within as much of its threshold.  ``dashboard`` holds the dashboard
+fan-out's trend heads (``data.apps.dashboard_queries``: a difference of
+two means of prices near 100, thresholded), as trend.  Its breakout and
+momentum heads read the stddev of a 50-tick window of those prices,
+E[x^2] - E[x]^2 with E[x^2] near 1e4 and a variance near 2e-2: an f32 ulp
+of E[x^2] is 1e-3, so two runs that add in another order may differ by
+tens of percent in that stddev, and no bound of this kind holds them.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ TOLERANCE = {
     "vibration": (1e-4, 1e-5, 0.0),
     "fraud": (2e-2, 1e-5, 0.1),
     "ysb": (0.0, 0.0, 0.0),
+    "qrs": (1e5, 1e-5, 1e5),
     "dashboard": (1e-4, 1e-6, 1e-3),
 }
 

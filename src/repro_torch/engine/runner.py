@@ -680,6 +680,12 @@ class Runner:
                           "share of the contract's unit window the body "
                           "does not evaluate", "%")
             for name in self._unit_windows}
+        self._m_halo = {
+            name: m.gauge(f"runner.halo_eval_pct.{name}",
+                          "share of the ticks the body evaluates of a unit "
+                          "window that lie before the unit's core: the "
+                          "lookback every unit evaluates again", "%")
+            for name in self._unit_windows}
         self._obs_static()
         self._m_lat = m.histogram(
             "runner.step_seconds", log_buckets(1e-5, 10.0, per_decade=3),
@@ -728,8 +734,9 @@ class Runner:
     def _obs_static(self) -> None:
         """Set the gauges fixed by the plan and the geometry."""
         self._m_keys.set(self.n_keys)
-        for name, (off, L, _core) in self._unit_windows.items():
+        for name, (off, L, core) in self._unit_windows.items():
             self._m_trim[name].set(100.0 * off / (off + L))
+            self._m_halo[name].set(100.0 * max(L - core, 0) / L)
 
     def _obs_bind(self) -> None:
         """Point the device-resident metrics at the live accumulators (a

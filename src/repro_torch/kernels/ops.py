@@ -5,8 +5,10 @@
 keeps the reference's wrapper logic (``src/repro/kernels/ops.py:42-117``):
 invalid ticks become 0 or ±inf, validity rides as an extra row (``-valid``
 for ``min``), ``algo`` picks the block or the subtract-on-evict sum, and
-windows below ``_SMALL_W`` shift-combine (``sliding_assoc``) or take the
-prefix-scan path (``sliding_sum``).  Which implementation runs follows the
+max/min windows below ``_SMALL_W`` shift-combine.  One departure: the
+reference's block sums of windows below ``_SMALL_W`` take the prefix-scan
+path, whose f32 error grows with a row's offset from zero; here every
+block sum is the block structure.  Which implementation runs follows the
 tensors' device: the kernels on CUDA, their plain versions on the CPU.
 
 Values are ``(C, *B, T)`` channel stacks with validity ``(*B, T)``: the
@@ -34,15 +36,15 @@ def sliding_sum(x: torch.Tensor, valid: torch.Tensor, window: int,
     """Masked sliding-window sums of ``x: (C, *B, T)`` and the valid count
     ``(*B, T)``, both f32.
 
-    ``algo='block'`` (default) is the Van Herk structure with ``+``: error
-    bounded by the window's content.  ``algo='soe'`` is the paper's
-    subtract-on-evict ``P[t] - P[t-W]`` over a global prefix scan, whose f32
-    error grows with stream position.
+    ``algo='block'`` (default) is the Van Herk structure with ``+`` at every
+    window: error bounded by the window's content.  ``algo='soe'`` is the
+    paper's subtract-on-evict ``P[t] - P[t-W]`` over a global prefix scan,
+    whose f32 error grows with stream position.
     """
     C, T = x.shape[0], x.shape[-1]
     xm = torch.where(valid.unsqueeze(0), x, 0.0).float()
     stacked = torch.cat([xm, valid.unsqueeze(0).float()], dim=0)
-    if algo == "block" and window >= _SMALL_W:
+    if algo == "block":
         s = _wr.sliding_assoc(_rows(stacked), window, "add")
     else:
         p = _wr.prefix_scan(_rows(stacked))

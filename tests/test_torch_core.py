@@ -26,7 +26,7 @@ from repro_torch.data import apps, tolerance
 from repro_torch.engine import ExecPolicy, Runner
 from torch_plan_common import assert_node_grids
 
-APP_NAMES = sorted(apps.APPS)
+APP_NAMES = sorted(rapps.APPS)   # the apps the reference has too
 
 EVENT_CASES = [
     ([(2, 5, 7.0)], 0, 8, 1),
@@ -299,7 +299,7 @@ def _assert_reduce_args_exact(p):
 
 
 EXACT_CASES = ([(n, False) for n in APP_NAMES]
-               + [(n, True) for n in sorted(apps.KEYED_APPS)]
+               + [(n, True) for n in sorted(rapps.KEYED_APPS)]
                + [("stride5", False), ("stride5", True)])
 
 

@@ -98,7 +98,8 @@ def test_ops_sliding_sum_matches_reference(T, C, W, pallas, algo):
     s, n = ops.sliding_sum(torch.from_numpy(x), torch.from_numpy(valid), W,
                            algo=algo)
     xm = np.where(valid, x, 0)
-    # below 8 ticks and under soe the prefix sums are what is rounded
+    # the reference's sums below 8 ticks, and both sides' under soe, round
+    # at the prefix sums' scale
     prefix = W < 8 or algo == "soe"
     _assert_sums(s.numpy(), s_r, _window_sums64(xm, W),
                  scale=np.abs(np.cumsum(xm, -1)).max() if prefix else None)

@@ -70,7 +70,7 @@ def _assert_bit_identical(got, want):
 # unusable beyond ~1e6 ticks of O(100) values).  Its apps here are the ones
 # whose prefix stays small: zero-mean signals and 0/1 counts.  The price and
 # amount apps run it in test_integer_queries_bit_identical's algorithms.
-APP_CASES = ([(n, "block") for n in sorted(apps.APPS)] +
+APP_CASES = ([(n, "block") for n in sorted(rapps.APPS)] +
              [(n, "soe") for n in ("impute", "pantomkins", "resample",
                                    "vibration", "ysb", "znorm")])
 
@@ -90,7 +90,7 @@ def test_app_partition_run_matches_reference(name, algo):
     _compare(name, got, want)
 
 
-@pytest.mark.parametrize("name", sorted(apps.KEYED_APPS))
+@pytest.mark.parametrize("name", sorted(rapps.KEYED_APPS))
 def test_keyed_app_batch_run_matches_reference(name):
     app, rapp = apps.make_keyed_app(name), rapps.make_keyed_app(name)
     data = app.make_keyed_input(KEYS, KEY_TICKS, 7)

@@ -179,7 +179,8 @@ def test_keyed_runner_compacts_to_small_buckets():
 
 @pytest.mark.parametrize("name", apps.KEYED_APPS)
 def test_keyed_runner_matches_per_key_partition_run(name):
-    params = {"trend": {}, "fraud": {"win": 60}, "ysb": {"win": 8}}[name]
+    params = {"trend": {}, "fraud": {"win": 60}, "ysb": {"win": 8},
+              "qrs": {}}[name]
     app = apps.make_keyed_app(name, **params)
     n_keys, T, n_parts = 8, 256, 4
     grids = apps.make_grids(app.make_keyed_input(n_keys, T, 7),

@@ -66,7 +66,7 @@ def _vals(v, i):
 
 
 def _apps():
-    return ([("app", n) for n in sorted(A.APPS)]
+    return ([("app", n) for n in sorted(RA.APPS)]
             + [("op", n) for n in A.TEMPORAL_OPS])
 
 

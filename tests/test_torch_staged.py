@@ -119,7 +119,7 @@ def _app_exes(name, algo="block"):
 # end (right φ padding)
 @pytest.mark.parametrize("out_t0", [0, 300])
 @pytest.mark.parametrize("algo", ["block", "soe"])
-@pytest.mark.parametrize("name", sorted(apps.APPS))
+@pytest.mark.parametrize("name", sorted(rapps.APPS))
 def test_partition_run_integer_data_matches_reference(name, algo, out_t0):
     app, exe, eager, rexe = _app_exes(name, algo)
     data = _intify(app.make_input(N, 3))
@@ -132,7 +132,7 @@ def test_partition_run_integer_data_matches_reference(name, algo, out_t0):
     _hold_to_ref(name, got, want)
 
 
-@pytest.mark.parametrize("name", sorted(apps.APPS))
+@pytest.mark.parametrize("name", sorted(rapps.APPS))
 def test_partition_run_interpreted_matches_reference(name):
     """One staged graph per node (on the CPU: one buffered evaluation per
     node), with the barrier after each: the same bits as the fused run,
@@ -149,7 +149,7 @@ def test_partition_run_interpreted_matches_reference(name):
     _hold_to_ref(name, got, want)
 
 
-@pytest.mark.parametrize("name", sorted(apps.APPS))
+@pytest.mark.parametrize("name", sorted(rapps.APPS))
 def test_partition_run_float_data_within_tolerance(name):
     app, exe, eager, rexe = _app_exes(name)
     data = app.make_input(N, 5)
@@ -162,7 +162,7 @@ def test_partition_run_float_data_within_tolerance(name):
                       np.asarray(want.valid), _leaves(want.value))
 
 
-@pytest.mark.parametrize("name", sorted(apps.KEYED_APPS))
+@pytest.mark.parametrize("name", sorted(rapps.KEYED_APPS))
 def test_batch_run_keyed_matches_reference(name):
     """The halo pads written into the staged buffer around the grid, one
     evaluation over every key: equal to ``jit=False`` (``F.pad``) bit for
