@@ -23,7 +23,8 @@ Phases (each raises on failure; the script then exits non-zero):
    ``sliding_assoc`` shapes of the runners (recorded from the wrapper
    during the first-use run of each dense runner of phases 5-6, the same
    chunks as the timed run) are timed after phase 7, with their launches
-   per timed run.
+   per timed run.  ``masked_rows`` is held bit for bit and timed at the
+   benchmark cells' window rows.
 3. The main path, single stream: every app of ``repro_torch.data.apps``
    through ``compile_query`` -> ``partition_run`` over 2**24 ticks held on
    the card, in 16 partitions of 2**20 ticks; ysb once more with the
@@ -579,6 +580,41 @@ def check_kernels(dev):
             f"{t['host_ms']:.4f} ms of host time per call; plain "
             f"{t['plain_ms']:.4f} ms, cumsum {t['library_ms']:.4f} ms; "
             f"bound {b:.4f} ms ({by}); equals cumsum on 0/1 rows")
+    # masked_rows at the benchmark cells' window rows (one f32 channel and
+    # a bool validity: qrs96's unit windows, contiguous and a view into
+    # wider rows, and ysb100's), bit for bit its plain version, which is
+    # the where / cast / cat composition it replaced
+    errs["masked_rows"] = 0.0
+    for label, (R, T, pad) in (("qrs96", (3072, 8665, 0)),
+                               ("qrs96 view", (3072, 8660, 5)),
+                               ("ysb100", (1600, 10000, 0))):
+        x = randn(R, T + pad, scale=3.0)[:, pad:]
+        valid = (torch.rand(R, T, generator=gen) < 0.7).to(dev)
+        fn = lambda: wr.masked_rows([x], valid, "add")  # noqa: E731
+        if not torch.equal(fn().view(torch.int32), ref.masked_rows_ref(
+                [x], valid, "add").view(torch.int32)):
+            raise AssertionError(f"masked_rows {label}: bits differ from "
+                                 "the plain version")
+        t = {
+            "ms": cuda_ms(fn),
+            "plain_ms": cuda_ms(
+                lambda: ref.masked_rows_ref([x], valid, "add")),
+            "device_ms": kernel_device_ms(fn, "masked_rows"),
+            "host_ms": host_ms(fn),
+        }
+        b, by = bound(13.0 * R * T, 0.0)
+        plan = wr.masked_plan(R, T, [x.data_ptr()], [x.stride(0)],
+                              valid.data_ptr(), valid.stride(0))
+        rows[("masked_rows", label)] = dict(t, max_abs_err=0.0, bound_ms=b,
+                                            bound_by=by, shape=[R, T],
+                                            plan=list(plan))
+        form = "vector" if plan.vec else "scalar"
+        log(f"masked_rows {label} ({R},{T}) [{form}]: {t['ms']:.4f} ms "
+            "event-timed, "
+            f"{_ms(t['device_ms'])} on the device, wrapper "
+            f"{t['host_ms']:.4f} ms of host time per call; plain "
+            f"{t['plain_ms']:.4f} ms; bound {b:.4f} ms ({by}); bit for bit "
+            "the plain version")
     return errs, rows
 
 
@@ -4283,7 +4319,11 @@ KERNELS = {
                   "src/repro/kernels/sparse_compact.py:118"),
     "fused_trend": ("src/repro_torch/kernels/csrc/fused_query.cu",
                     "src/repro/kernels/fused_query.py:76"),
+    "masked_rows": ("src/repro_torch/kernels/csrc/masked_rows.cu",
+                    "src/repro/kernels/ops.py:61"),
 }
+# the row of check_kernels each kernel reports on the kernels line
+KERNEL_ROWS = {"masked_rows": "qrs96"}
 OFF_PATH = ("fused_trend",)     # no caller in either package
 
 
@@ -4391,13 +4431,13 @@ def main() -> int:
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        r = rows[(name, "single")]
+        r = rows[(name, KERNEL_ROWS.get(name, "single"))]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in PHASE_SECONDS.items()))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all; card "

@@ -169,9 +169,8 @@ def _eval_reduce(n: ir.Reduce, aval, avalid, qp: QueryPlan,
     w_ticks = n.window // aplan.prec
 
     if red.kind == "scan":
-        chans = red.pre(payload)
-        stacked = torch.stack([c.float() for c in chans], dim=0)
-        sums, count = kops.sliding_sum(stacked, avalid, w_ticks,
+        chans = [c.float() for c in red.pre(payload)]
+        sums, count = kops.sliding_sum(chans, avalid, w_ticks,
                                        algo=sum_algo)
         # gather at output ticks, then apply post (cheaper after striding)
         sums_g = spec.take(sums)      # (C, *B, out_len)
@@ -183,8 +182,7 @@ def _eval_reduce(n: ir.Reduce, aval, avalid, qp: QueryPlan,
 
     if red.kind == "assoc":
         x = red.pre(payload)[0] if red.pre else payload
-        vals, anyv = kops.sliding_assoc(x.unsqueeze(0), avalid, w_ticks,
-                                        red.name)
+        vals, anyv = kops.sliding_assoc((x,), avalid, w_ticks, red.name)
         return spec.take(vals[0]), spec.mask(spec.take(anyv))
 
     # generic template (paper §6.1.2), plain torch: ``acc`` and ``result``

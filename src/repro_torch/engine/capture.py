@@ -41,10 +41,11 @@ reads it for every operation it records.  A frame costs a list push and
 pop; a replay pushes none.
 
 Launch counts.  A replay runs no kernel wrapper, so the wrappers' launch
-counts (``window_reduce.launches`` and the others) would not move.  A
-capture therefore records the launches its step issued and every replay
-adds them; of a switched step's bodies exactly one runs, and all of them
-issue the same launches (checked at composition).  Launches issued while a
+counts (``window_reduce.launches`` and the others, and the copies
+``window_reduce.copies`` counts) would not move.  A capture therefore
+records the launches its step issued and every replay adds them; of a
+switched step's bodies exactly one runs, and all of them issue the same
+launches (checked at composition).  Launches issued while a
 step warms up or is being captured compute no result of the path and are
 not counted.
 """
@@ -73,8 +74,8 @@ __all__ = ["Captured", "Frame", "STAGED_CACHE_MAX", "Spec", "Staged",
 # graph holds its memory pool, which a jit cache entry does not
 STAGED_CACHE_MAX = 8
 
-_COUNTS = (window_reduce.launches, sparse_compact.launches,
-           fused_query.launches)
+_COUNTS = (window_reduce.launches, window_reduce.copies,
+           sparse_compact.launches, fused_query.launches)
 
 
 # graph replays, by kind ("graph": one captured graph launched): the

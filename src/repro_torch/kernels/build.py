@@ -40,6 +40,10 @@ _SIGNATURES = {
     "wr_long_tile": ([], _INT),
     "wr_sliding_assoc_f32": ([_VOID, _VOID, _LL, _LL, _INT, _INT, _INT, _LL,
                               _INT, _LL, _LL, _INT, _VOID], _INT),
+    "mr_tile": ([], _INT),
+    "mr_max_channels": ([], _INT),
+    "mr_masked_rows": ([_VOIDP, _I64P, _INT, _VOID, _LL, _VOID, _VOID, _LL,
+                        _LL, _LL, _INT, _INT, _LL, _INT, _INT, _VOID], _INT),
     "sd_max_rows": ([], _INT),
     "sd_threads": ([], _INT),
     "sd_seg_dirty": ([_I64P, _INT, _LL, _INT, _LL, _LL, _LL, _LL, _VOID,

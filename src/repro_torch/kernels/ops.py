@@ -11,9 +11,12 @@ path, whose f32 error grows with a row's offset from zero; here every
 block sum is the block structure.  Which implementation runs follows the
 tensors' device: the kernels on CUDA, their plain versions on the CPU.
 
-Values are ``(C, *B, T)`` channel stacks with validity ``(*B, T)``: the
-leading key axes ``B`` of a keyed stream fold into the kernels' row axis
-(rows are independent), which replaces the reference's ``vmap``.
+Values are ``C`` channels with validity ``(*B, T)``: a ``(C, *B, T)``
+tensor or a sequence of ``C`` tensors ``(*B, T)``, read in place either
+way.  :func:`.window_reduce.masked_rows` writes the masked channels and
+the validity row as one ``(C + 1, *B, T)`` buffer; the leading key axes
+``B`` of a keyed stream fold into the kernels' row axis (rows are
+independent), which replaces the reference's ``vmap``.
 """
 from __future__ import annotations
 
@@ -27,50 +30,53 @@ __all__ = ["sliding_sum", "sliding_assoc"]
 _SMALL_W = 8
 
 
-def _rows(stacked: torch.Tensor) -> torch.Tensor:
-    return stacked.reshape(-1, stacked.shape[-1]).contiguous()
+def _channels(x) -> tuple:
+    """The channels of ``x``: views of a ``(C, *B, T)`` tensor, or the
+    sequence as given."""
+    return x.unbind(0) if isinstance(x, torch.Tensor) else tuple(x)
 
 
-def sliding_sum(x: torch.Tensor, valid: torch.Tensor, window: int,
-                algo: str = "block"):
-    """Masked sliding-window sums of ``x: (C, *B, T)`` and the valid count
-    ``(*B, T)``, both f32.
+def _rows(rows: torch.Tensor) -> torch.Tensor:
+    return rows.reshape(-1, rows.shape[-1])
+
+
+def sliding_sum(x, valid: torch.Tensor, window: int, algo: str = "block"):
+    """Masked sliding-window sums of the channels ``x`` and the valid
+    count ``(*B, T)``, both f32.
 
     ``algo='block'`` (default) is the Van Herk structure with ``+`` at every
     window: error bounded by the window's content.  ``algo='soe'`` is the
     paper's subtract-on-evict ``P[t] - P[t-W]`` over a global prefix scan,
     whose f32 error grows with stream position.
     """
-    C, T = x.shape[0], x.shape[-1]
-    xm = torch.where(valid.unsqueeze(0), x, 0.0).float()
-    stacked = torch.cat([xm, valid.unsqueeze(0).float()], dim=0)
+    chans = _channels(x)
+    C = len(chans)
+    rows = _wr.masked_rows(chans, valid, "add")
     if algo == "block":
-        s = _wr.sliding_assoc(_rows(stacked), window, "add")
+        s = _wr.sliding_assoc(_rows(rows), window, "add")
     else:
-        p = _wr.prefix_scan(_rows(stacked))
+        p = _wr.prefix_scan(_rows(rows))
         s = p - _ref.shift_right(p, window, 0.0)
-    s = s.reshape(stacked.shape)
+    s = s.reshape(rows.shape)
     return s[:C], s[C]
 
 
-def sliding_assoc(x: torch.Tensor, valid: torch.Tensor, window: int,
-                  op: str):
-    """Masked sliding-window max/min of ``x: (C, *B, T)``.
+def sliding_assoc(x, valid: torch.Tensor, window: int, op: str):
+    """Masked sliding-window max/min of the channels ``x``.
 
     Returns ``(values (C, *B, T), any_valid (*B, T) bool)``; validity rides
     as an extra channel (sliding any == sliding max of the mask).
     """
     kop = "max" if op in ("max", "absmax") else "min"
     combine, identity, _ = _wr.COMBINES[kop]
-    C = x.shape[0]
-    xm = torch.where(valid.unsqueeze(0), x, identity).float()
+    chans = _channels(x)
+    C = len(chans)
     if window < _SMALL_W:
+        # the shift-combine reads no validity row: mask the channels only
+        xs = chans[0].unsqueeze(0) if C == 1 else torch.stack(chans)
+        xm = torch.where(valid.unsqueeze(0), xs, identity).float()
         return _ref.sliding_assoc_ref(xm, valid, window, combine, identity)
-    vch = valid.unsqueeze(0).float()
-    # any-valid via max even when the payload combine is min
-    stacked = torch.cat([xm, -vch if op == "min" else vch], dim=0)
-    out = _wr.sliding_assoc(_rows(stacked), window, kop)
-    out = out.reshape(stacked.shape)
-    anyv = (out[C] < -0.5) if op == "min" else (out[C] > 0.5)
+    rows = _wr.masked_rows(chans, valid, kop)
+    out = _wr.sliding_assoc(_rows(rows), window, kop).reshape(rows.shape)
+    anyv = (out[C] < -0.5) if kop == "min" else (out[C] > 0.5)
     return out[:C], anyv
-

@@ -11,11 +11,15 @@ leading key/channel axes ride along.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 __all__ = ["prefix_sum_ref", "sliding_sum_ref", "sliding_assoc_ref",
-           "sliding_assoc_block_ref", "seg_dirty_fused_ref",
-           "fused_trend_block_ref"]
+           "sliding_assoc_block_ref", "masked_rows_ref",
+           "seg_dirty_fused_ref", "fused_trend_block_ref"]
+
+_FILLS = {"add": 0.0, "max": -math.inf, "min": math.inf}
 
 
 def prefix_sum_ref(x: torch.Tensor) -> torch.Tensor:
@@ -113,6 +117,18 @@ def sliding_assoc_block_ref(x: torch.Tensor, window: int, combine, identity,
                                 dtype=x.dtype, device=x.device)], dim=-1)
     out = combine(suf, prefix).reshape(lead + (Tp,))
     return out[..., :T]
+
+
+def masked_rows_ref(chans, valid: torch.Tensor, op: str) -> torch.Tensor:
+    """Plain version of :func:`.window_reduce.masked_rows`: the channels
+    (a sequence of ``(*B, T)``, or one ``(C, *B, T)`` tensor) where
+    ``valid`` holds and ``op``'s identity elsewhere, then the validity,
+    negated for ``min``; ``(C + 1, *B, T)`` f32."""
+    x = chans if isinstance(chans, torch.Tensor) else torch.stack(
+        list(chans))
+    xm = torch.where(valid.unsqueeze(0), x, _FILLS[op]).float()
+    vch = valid.unsqueeze(0).float()
+    return torch.cat([xm, -vch if op == "min" else vch], dim=0)
 
 
 def seg_dirty_fused_ref(mats, geoms, n_segs: int) -> torch.Tensor:

@@ -24,13 +24,21 @@ than a tile walked tile by tile (see the notes in the CUDA source).
 :func:`prefix_plan` and :func:`sliding_plan` compute the grids; they need
 no card.  Rows are independent, so a leading key axis folds into R.
 
+* :func:`masked_rows` (``csrc/masked_rows.cu``, no TPU counterpart: XLA
+  fused the reference's mask into the kernel's input) writes the rows the
+  other two read: the masked channels of a window reduction and its
+  validity, ``(C + 1, R, T)`` f32, in one pass over its inputs at any row
+  stride; :func:`masked_plan` picks its form and grid from the pointers
+  and strides.
+
 Each wrapper dispatches on the tensor's device: a CPU tensor goes to the
 plain version in :mod:`.ref`; a CUDA tensor launches the kernel or raises.
 ``launches`` counts kernel launches per wrapper (one per call that reached
-the card).
+the card); ``copies`` counts the inputs ``masked_rows`` had to copy first.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import NamedTuple
@@ -41,7 +49,8 @@ from . import ref as _ref
 from .build import launch_stream, library, padded
 
 __all__ = ["prefix_scan", "prefix_plan", "PrefixPlan", "sliding_assoc",
-           "sliding_regime", "sliding_plan", "SlidingPlan", "launches",
+           "sliding_regime", "sliding_plan", "SlidingPlan", "masked_rows",
+           "masked_plan", "MaskedPlan", "launches", "copies",
            "reset_launches", "COMBINES"]
 
 # op name -> (plain combine, identity, kernel op code)
@@ -51,7 +60,9 @@ COMBINES = {
     "min": (torch.minimum, math.inf, 2),
 }
 
-launches = {"prefix_scan": 0, "sliding_assoc": 0}
+launches = {"prefix_scan": 0, "sliding_assoc": 0, "masked_rows": 0}
+# inputs a wrapper made f32 or contiguous before its launch
+copies = {"masked_rows": 0}
 
 _MAX_BLOCKS = 2**31 - 1
 
@@ -68,6 +79,11 @@ PREFIX_ITEMS = 16     # elements a thread scans
 PREFIX_THREADS = 512  # threads of a long row's tile
 PREFIX_TILE = PREFIX_ITEMS * PREFIX_THREADS  # longest short row; long tile
 _PREFIX_CODES = {"short": 0, "long": 1}
+
+# The masked-rows kernel's geometry, as in csrc/masked_rows.cu.
+MASKED_TILE = 1024    # ticks of a row a block writes
+MASKED_MAX_CH = 4     # channels a launch
+_MAX_GRID_Y = 65535
 
 
 class PrefixPlan(NamedTuple):
@@ -149,8 +165,41 @@ def sliding_plan(R: int, T: int, W: int) -> SlidingPlan:
                        4 * -(-W // LONG_TILE))
 
 
+class MaskedPlan(NamedTuple):
+    """One ``masked_rows`` launch: the vector form or the scalar one, the
+    rows and ticks a row as launched, and the grid."""
+    vec: bool
+    rows: int
+    ticks: int
+    blocks_x: int
+    blocks_y: int
+
+
+def masked_plan(R: int, T: int, x_addrs, x_strides, v_addr: int,
+                v_stride: int) -> MaskedPlan:
+    """The launch of ``masked_rows`` over ``(R, T)`` rows, ``R, T >= 1``,
+    of channels at byte addresses ``x_addrs`` with row strides
+    ``x_strides`` (floats) and a validity at ``v_addr`` with row stride
+    ``v_stride`` (bytes), every row's ticks contiguous.
+
+    Inputs whose rows follow one another (every stride ``T``) are one run
+    each and launch as one row of ``R * T`` ticks.  The vector form moves
+    four ticks a thread in 16-byte accesses: it needs a multiple of 4 ticks
+    a launched row and every input row 16-byte aligned (4-byte for the
+    validity's bytes); anything else takes the scalar form.
+    """
+    if all(s == T for s in (*x_strides, v_stride)):
+        R, T = 1, R * T
+    vec = (T % 4 == 0 and v_addr % 4 == 0
+           and all(a % 16 == 0 for a in x_addrs)
+           and (R == 1 or (v_stride % 4 == 0
+                           and all(s % 4 == 0 for s in x_strides))))
+    return MaskedPlan(vec, R, T, -(-T // MASKED_TILE), min(R, _MAX_GRID_Y))
+
+
 _lib = None
 _plib = None
+_mlib = None
 
 
 def _prefix_lib():
@@ -181,9 +230,25 @@ def _sliding_lib():
     return _lib
 
 
+def _masked_lib():
+    """The kernel library, its masked-rows geometry checked against this
+    module's at the first call."""
+    global _mlib
+    if _mlib is None:
+        lib = library.load()
+        got = (lib.mr_tile(), lib.mr_max_channels())
+        if got != (MASKED_TILE, MASKED_MAX_CH):
+            raise RuntimeError(f"masked_rows: kernel geometry {got} != the "
+                               f"wrapper's {(MASKED_TILE, MASKED_MAX_CH)}")
+        _mlib = lib
+    return _mlib
+
+
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    """Zero ``launches`` and ``copies``."""
+    for counts in (launches, copies):
+        for k in counts:
+            counts[k] = 0
 
 
 def _check(x: torch.Tensor, name: str, dtypes) -> None:
@@ -260,4 +325,74 @@ def sliding_assoc(x: torch.Tensor, window: int, op: str) -> torch.Tensor:
         _REGIME_CODES[plan.regime], plan.blocks, plan.threads, plan.param,
         plan.smem, dev.index, launch_stream(dev)), "sliding_assoc")
     launches["sliding_assoc"] += 1
+    return out
+
+
+def _as_rows(t: torch.Tensor, dtype, R: int, T: int) -> torch.Tensor:
+    """``t`` as ``(R, T)`` rows of ``dtype`` with contiguous ticks: a view
+    where there is one, else a copy, counted."""
+    if t.dtype == dtype and (T == 1 or t.stride(-1) == 1):
+        try:
+            return t.view(R, T)
+        except RuntimeError:    # the leading axes do not fold into rows
+            pass
+    copies["masked_rows"] += 1
+    rows = torch.empty(t.shape, dtype=dtype, device=t.device)
+    rows.copy_(t)
+    return rows.view(R, T)
+
+
+def masked_rows(chans, valid: torch.Tensor, op: str) -> torch.Tensor:
+    """The rows a window kernel reads: ``(C + 1, *B, T)`` f32, channel ``c``
+    the channel ``chans[c]`` where ``valid`` holds and ``op``'s identity
+    (0 for ``add``) elsewhere, channel ``C`` the validity as 1/0 (``-1/-0``
+    for ``min``, whose any-valid row rides through the min combine).
+
+    ``chans``: ``C`` channels ``(*B, T)``; ``valid``: ``(*B, T)`` bool;
+    they broadcast.  On the card one launch reads each channel and the
+    validity once, in place at any row stride; an input that is not f32 or
+    whose ticks are not contiguous is copied first, and counted in
+    ``copies``.  At most ``MASKED_MAX_CH`` channels.
+    """
+    code = COMBINES[op][2]
+    dev = valid.device
+    if dev.type == "cpu":
+        return _ref.masked_rows_ref(chans, valid, op)
+    if dev.type != "cuda" or any(c.device != dev for c in chans):
+        raise ValueError(f"masked_rows: kernel takes CUDA tensors on one "
+                         f"device, got {[c.device for c in chans]}, {dev}")
+    if valid.dtype != torch.bool:
+        raise TypeError(f"masked_rows: validity dtype {valid.dtype} is not "
+                        "bool")
+    C = len(chans)
+    if C > MASKED_MAX_CH:
+        raise ValueError(f"masked_rows: {C} channels, at most "
+                         f"{MASKED_MAX_CH} a launch")
+    # expanded views (torch.broadcast_shapes would import sympy at its
+    # first call, seconds of set-up)
+    valid, *chans = torch.broadcast_tensors(valid, *chans)
+    shape = valid.shape
+    if C == 0 or not shape:
+        raise ValueError(f"masked_rows: expected channels (*B, T), got {C} "
+                         f"of shape {tuple(shape)}")
+    out = torch.empty((C + 1,) + shape, dtype=torch.float32, device=dev)
+    T = shape[-1]
+    R = math.prod(shape[:-1])
+    if R == 0 or T == 0:
+        return out
+    v = _as_rows(valid, torch.bool, R, T)
+    xs = [_as_rows(c, torch.float32, R, T) for c in chans]
+    plan = masked_plan(R, T, [x.data_ptr() for x in xs],
+                       [x.stride(0) for x in xs], v.data_ptr(), v.stride(0))
+    if plan.blocks_x > _MAX_BLOCKS:
+        raise ValueError(f"masked_rows: ({R}, {T}) exceeds the grid")
+    lib = _masked_lib()
+    rows = out.view(C + 1, R * T)
+    _raise_on(lib.mr_masked_rows(
+        (ctypes.c_void_p * C)(*(x.data_ptr() for x in xs)),
+        (ctypes.c_longlong * C)(*(x.stride(0) for x in xs)), C,
+        v.data_ptr(), v.stride(0), rows[0].data_ptr(), rows[C].data_ptr(),
+        R * T, plan.rows, plan.ticks, code, int(plan.vec), plan.blocks_x,
+        plan.blocks_y, dev.index, launch_stream(dev)), "masked_rows")
+    launches["masked_rows"] += 1
     return out

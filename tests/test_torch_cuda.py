@@ -13,6 +13,7 @@ the kernel may be at most twice as far from it as the plain version is,
 plus 4 ulps of the largest sum formed (``_assert_sums``).  The runner's
 sparse body must equal its dense body bit for bit on the card.
 """
+import math
 import time
 import warnings
 
@@ -255,6 +256,211 @@ def test_cuda_ops_match_cpu(cuda, W, algo):
         assert torch.equal(v.cpu(), v_c) and torch.equal(a.cpu(), a_c)
 
 
+# masked_rows: each input laid out so the plan takes the form named
+MASKED_LAYOUTS = ["flat", "flat_misaligned", "rows_aligned",
+                  "rows_misaligned"]
+_F32_SPECIALS = torch.tensor([0x7FC00001, 0xFFC12345, 0x7F800000,
+                              0xFF800000, 0, 0x80000000],
+                             dtype=torch.int64).to(torch.int32).view(
+                                 torch.float32)
+
+
+def _masked_inputs(C, B, T, layout, seed, dev):
+    """``C`` f32 channels and a bool validity ``(*B, T)`` on ``dev`` with
+    NaN payloads, infinities and signed zeros, laid out as ``layout``:
+    one contiguous run each at an aligned or a misaligned address, or rows
+    of a wider buffer (stride T + 8 from an aligned start, or T + 5 from
+    an odd one)."""
+    g = torch.Generator().manual_seed(seed)
+    pad, off = {"flat": (0, 0), "flat_misaligned": (0, 1),
+                "rows_aligned": (8, 0), "rows_misaligned": (5, 3)}[layout]
+    flat = layout.startswith("flat")
+    n = math.prod(B) * T
+    chans = []
+    for _ in range(C):
+        if flat:
+            buf = torch.randn(off + n, generator=g)
+            x = buf[off:].view(B + (T,))
+        else:
+            x = torch.randn(B + (T + pad,), generator=g)[..., off:off + T]
+        if x.numel():
+            at = torch.randint(0, x.numel(), (min(64, x.numel()),),
+                               generator=g)
+            x.reshape(-1)[at] = _F32_SPECIALS[torch.arange(at.numel())
+                                              % _F32_SPECIALS.numel()]
+        chans.append(x)
+    if flat:
+        valid = (torch.rand(off + n, generator=g) > 0.3)[off:].view(B + (T,))
+    else:
+        valid = (torch.rand(B + (T + pad,), generator=g)
+                 > 0.3)[..., off:off + T]
+
+    def to_dev(t):
+        # the same strides and offset on the card
+        base = torch.empty(t.untyped_storage().nbytes() // t.element_size(),
+                           dtype=t.dtype, device=dev)
+        view = base.as_strided(t.shape, t.stride(), t.storage_offset())
+        view.copy_(t)
+        return view
+    return chans, valid, [to_dev(c) for c in chans], to_dev(valid)
+
+
+def _bits32(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", MASKED_LAYOUTS)
+@pytest.mark.parametrize("T", [1, 5, 8660, 8665])
+@pytest.mark.parametrize("op", ["add", "max", "min"])
+@pytest.mark.parametrize("C", [1, 2, 4])
+def test_cuda_masked_rows_equal_the_plain_version_bit_for_bit(cuda, C, op,
+                                                              T, layout):
+    """Both forms of the kernel, at odd T, row strides and misaligned
+    views, against ``masked_rows_ref`` bit for bit: NaN payloads, the
+    ±inf fill and min's -0.0 validity included, in one launch."""
+    B = (4,) if T > 1000 else (2, 6)
+    chans, valid, xd, vd = _masked_inputs(C, B, T, layout, C * T + len(op),
+                                          cuda)
+    R = math.prod(B)
+    rows = [x.reshape(R, T) for x in xd]   # views: every layout folds
+    plan = wr.masked_plan(R, T, [x.data_ptr() for x in rows],
+                          [x.stride(0) for x in rows],
+                          vd.data_ptr(), vd.reshape(R, T).stride(0))
+    want_vec = (layout in ("flat", "rows_aligned") and
+                (R * T if layout == "flat" else T) % 4 == 0)
+    assert plan.vec == want_vec
+    n0, c0 = dict(wr.launches), dict(wr.copies)
+    got = wr.masked_rows(xd, vd, op)
+    torch.cuda.synchronize()
+    assert wr.launches["masked_rows"] == n0["masked_rows"] + 1
+    assert wr.copies == c0
+    want = ref.masked_rows_ref(chans, valid, op)
+    assert got.shape == want.shape and got.is_contiguous()
+    assert torch.equal(_bits32(got.cpu()), _bits32(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [(0,), (5,), (2, 3)])
+def test_cuda_masked_rows_copy_only_what_they_cannot_read(cuda, B):
+    """No rows (nothing launched), a broadcast validity (read in place), an
+    integer channel and one whose ticks are not contiguous (copied, and
+    counted), all bit for bit as the plain version."""
+    T = 37
+    g = torch.Generator().manual_seed(len(B))
+    x = torch.randn(B + (T,), generator=g)
+    xi = torch.randint(-5, 5, B + (T,), generator=g, dtype=torch.int32)
+    xt = torch.randn((T,) + B, generator=g)       # ticks first
+    valid = torch.rand(T, generator=g) > 0.5
+    n0, c0 = dict(wr.launches), dict(wr.copies)
+    got = wr.masked_rows([x.to(cuda), xi.to(cuda),
+                          xt.to(cuda).movedim(0, -1)], valid.to(cuda), "max")
+    torch.cuda.synchronize()
+    want = ref.masked_rows_ref([x, xi.float(), xt.movedim(0, -1)],
+                               valid.expand(B + (T,)), "max")
+    assert torch.equal(_bits32(got.cpu()), _bits32(want))
+    some = math.prod(B) > 0
+    assert wr.launches["masked_rows"] - n0["masked_rows"] == int(some)
+    assert (wr.copies["masked_rows"] - c0["masked_rows"]
+            == (2 if some else 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["flat", "rows_misaligned"])
+def test_cuda_masked_rows_in_a_captured_graph(cuda, layout):
+    """Captured once, replayed on new inputs written into the captured
+    ones: bit for bit the plain version each time."""
+    C, B, T = 2, (96,), 8665
+    chans, valid, xd, vd = _masked_inputs(C, B, T, layout, 7, cuda)
+    out = wr.masked_rows(xd, vd, "min")      # warm-up: the library loads
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = wr.masked_rows(xd, vd, "min")
+    for seed in (8, 9):
+        chans, valid, xn, vn = _masked_inputs(C, B, T, layout, seed, cuda)
+        for dst, src in zip(xd + [vd], xn + [vn]):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ref.masked_rows_ref(chans, valid, "min")
+        assert torch.equal(_bits32(out.cpu()), _bits32(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [3, 8, 50, 400])
+@pytest.mark.parametrize("algo", ["block", "soe"])
+def test_cuda_ops_equal_the_old_composition_bit_for_bit(cuda, W, algo):
+    """``ops`` on the card, fed a channel list of row-strided views as
+    ``_eval_reduce`` feeds it, against the composition it ran before the
+    kernel (a stack, a where, a cast and a cat) into the same window
+    kernels: the same bits, NaN and inf payloads included."""
+    C, B, T = 2, (24,), 3000
+    chans, valid, xd, vd = _masked_inputs(C, B, T, "rows_misaligned", W,
+                                          cuda)
+    stacked = torch.stack(xd)
+    old = torch.cat([torch.where(vd.unsqueeze(0), stacked, 0.0).float(),
+                     vd.unsqueeze(0).float()]).reshape(-1, T)
+    if algo == "block":
+        s_old = wr.sliding_assoc(old, W, "add")
+    else:
+        p = wr.prefix_scan(old)
+        s_old = p - ref.shift_right(p, W, 0.0)
+    s, n = ops.sliding_sum(xd, vd, W, algo=algo)
+    s_old = s_old.reshape((C + 1,) + B + (T,))
+    assert torch.equal(_bits32(s), _bits32(s_old[:C]))
+    assert torch.equal(_bits32(n), _bits32(s_old[C]))
+    for op in ("max", "min"):
+        combine, ident, _ = wr.COMBINES[op]
+        xm = torch.where(vd.unsqueeze(0), stacked, ident).float()
+        if W < 8:       # the shift-combine of short max/min windows
+            want_v, want_a = ref.sliding_assoc_ref(xm, vd, W, combine, ident)
+        else:
+            vch = vd.unsqueeze(0).float()
+            old = torch.cat([xm, -vch if op == "min" else vch])
+            o = wr.sliding_assoc(old.reshape(-1, T), W, op).reshape(
+                old.shape)
+            want_v = o[:C]
+            want_a = (o[C] < -0.5) if op == "min" else (o[C] > 0.5)
+        v, a = ops.sliding_assoc(xd, vd, W, op)
+        assert torch.equal(_bits32(v), _bits32(want_v))
+        assert torch.equal(a, want_a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,windows", [("qrs", 5), ("ysb", 1)])
+def test_cuda_captured_step_builds_each_window_in_one_launch(cuda, name,
+                                                             windows):
+    """One captured step of the benchmark's apps: every window kernel's
+    rows come from one ``masked_rows`` launch, with nothing copied first
+    (qrs: the two 6-tick, the 32- and the 30-tick sums and the 2 s max;
+    ysb: the tumbling count)."""
+    K, segs = 4, 2
+    if name == "ysb":
+        exe = qc.compile_query(
+            apps.make_keyed_app("ysb", win=1000).query.node, 1)
+    else:
+        exe = qc.compile_query(apps.make_keyed_app("qrs").query.node, 512)
+    r = Runner(exe, ExecPolicy(keys="vmapped"), n_keys=K,
+               segs_per_chunk=segs)
+    span = r.spec.input_specs["in"].core * segs
+    rng = np.random.default_rng(31)
+    ok = np.ones((K, span), bool)
+    for c in range(3):
+        if name == "ysb":
+            vals = {"etype": rng.integers(0, 3, (K, span)).astype(
+                np.float32)}
+        else:
+            vals = rng.integers(-1024, 1024, (K, span)).astype(np.float32)
+        n0, c0 = dict(wr.launches), dict(wr.copies)
+        r.step({"in": keyed_grid(vals, ok, t0=c * span)})
+        torch.cuda.synchronize()
+    assert r.metrics.tracer.captures(), "the step was not captured"
+    d = {k: wr.launches[k] - n0[k] for k in wr.launches}
+    assert d["masked_rows"] == windows and d["sliding_assoc"] == windows, d
+    assert wr.copies == c0, (wr.copies, c0)
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(4, 64, device=cuda)
@@ -264,6 +470,8 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
         wr.prefix_scan(x.t())                 # not contiguous
     with pytest.raises(ValueError):
         wr.sliding_assoc(x[None], 8, "add")   # not (R, T)
+    with pytest.raises(ValueError):               # more than one launch
+        wr.masked_rows([x] * (wr.MASKED_MAX_CH + 1), x > 0, "add")
 
 
 @pytest.mark.cuda
@@ -500,6 +708,11 @@ def test_cuda_fused_trend_bits_repeat(cuda):
 # the runner on the card
 # ---------------------------------------------------------------------------
 
+# about 2 ms of a device sleep at the H100's clocks: longer than the host
+# takes to issue one step of the recorder tests' runners
+_SLEEP_CYCLES = 4_000_000
+
+
 def _fraud_runners(keyed, n_keys, segs, out_len=64):
     q = streams.fraud_query(64, keyed=keyed).node
     kw = dict(n_keys=n_keys if keyed else None, segs_per_chunk=segs)
@@ -515,7 +728,12 @@ def _fraud_runners(keyed, n_keys, segs, out_len=64):
 def test_cuda_recorded_chunks_on_the_host_clock(cuda, body):
     """The recorder's chunk events: one interval a step, in order, the
     gaps between them labelled, their mean device time that of CUDA events
-    around the same steps, and no synchronizing call while recording."""
+    around the same steps, and no synchronizing call while recording.
+
+    A device sleep queued before each step keeps the card behind the host,
+    so the events around a step time the step's work on the card and not
+    the card waiting for the host to issue it: that wait lies outside the
+    chunk, in the idle gap before it."""
     n_keys, segs, n = 4096, 8, 24
     span = 64 * segs
     vals = streams.keyed_activity(n_keys, span * (n + 2), 0.1, 0)
@@ -535,6 +753,7 @@ def test_cuda_recorded_chunks_on_the_host_clock(cuda, body):
     torch.cuda.set_sync_debug_mode("error")
     try:
         for (a, b), g in zip(around, grids[2:]):
+            torch.cuda._sleep(_SLEEP_CYCLES)
             a.record()
             r.step(g)
             b.record()
@@ -1621,7 +1840,8 @@ def test_cuda_staged_equals_eager_and_launches_as_it(cuda):
         assert n_staged == n_eager, (label, n_staged, n_eager)
         seen |= set(n_staged)
     # resample launches nothing (hold/linear interpolation and no window)
-    assert seen == {"sliding_assoc", "prefix_scan", "seg_dirty"}, seen
+    assert seen == {"masked_rows", "sliding_assoc", "prefix_scan",
+                    "seg_dirty"}, seen
 
 
 @pytest.mark.cuda
