@@ -1339,6 +1339,7 @@ def replay_check(runner) -> dict:
     pick), the profiler dropped the body's kernels and a step's busy time
     lacks them.  The runner is left mid-stream (its buffers are replayed
     as they are): use one no longer needed."""
+    from repro_torch.buckets import pick as pick_body
     g = runner._work.graphs[("sparse", False)]
     prefix, bodies, suffix, count, caps = g._parts
     for _ in range(2):
@@ -1346,8 +1347,7 @@ def replay_check(runner) -> dict:
     whole = _replay_profile(g.replay)
     pre = _replay_profile(prefix.replay)
     n, ladder = int(count.item()), caps.tolist()
-    pick = next((i for i, c in enumerate(ladder) if c >= n),
-                len(ladder) - 1)
+    pick = pick_body(n, ladder)
     parts = {"prefix": pre, "body": _replay_profile(bodies[pick].replay),
              "suffix": _replay_profile(suffix.replay)}
     busy = sum(p["busy_ms"] for p in parts.values())

@@ -49,12 +49,14 @@ keys.  Time is the last axis of every tensor.
 from __future__ import annotations
 
 import collections
+import functools
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_map
 
+from ..buckets import pick
 from ..engine.capture import STAGED_CACHE_MAX, Staged, StagedSwitch
 from ..kernels import sparse_compact
 from ..obs import default as _obs_default
@@ -105,8 +107,15 @@ def source_dirty(value, valid, prev: Optional[tuple] = None) -> torch.Tensor:
 def bucket_capacity(n: int, n_max: int) -> int:
     """Power-of-two compaction capacity ≥ ``max(n, 1)``, clipped to
     ``n_max`` — the bucketing policy that bounds the number of distinct
-    batch sizes the compute ever sees."""
-    return min(1 << max(n - 1, 0).bit_length(), max(n_max, 1))
+    batch sizes the compute ever sees: the rung of :func:`capacity_ladder`
+    that :func:`repro_torch.buckets.pick` picks for ``n``."""
+    ladder = _ladder(n_max)
+    return ladder[pick(n, ladder)]
+
+
+@functools.lru_cache(maxsize=None)
+def _ladder(n_max: int) -> tuple:
+    return tuple(capacity_ladder(n_max))
 
 
 def capacity_ladder(n_max: int) -> list:
@@ -575,8 +584,8 @@ def _fused_step(exe, n_parts: int, plan, names):
 
     def step(flat, dmasks):
         mid, count = prefix(flat, dmasks)
-        cap = bucket_capacity(int(count), n_parts)   # the one host read
-        return suffix(bodies[ladder.index(cap)](mid), count)
+        b = pick(int(count), ladder)                 # the one host read
+        return suffix(bodies[b](mid), count)
 
     return step
 

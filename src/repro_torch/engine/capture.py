@@ -15,10 +15,12 @@ capture that fails raises (there is no eager fallback on the card).
 * :func:`record` captures a step into a ``torch.cuda.CUDAGraph`` in the
   runner's memory pool, with PyTorch's default ``capture_error_mode=
   "global"``, so an unsafe call inside a step fails loudly.
-* :class:`Switched` composes the sparse step from its captured parts (the
-  prefix, one compacted body per capacity, the suffix) into one graph
-  whose bucket is picked on the device (``csrc/graph_switch.cu``): a
-  sparse chunk reads nothing on the host.
+* :class:`Switched` is the switched step of the runner's sparse chunks
+  and of :class:`StagedSwitch`: a prefix (which leaves a count on the
+  device), one body per capacity and a suffix, run eagerly with the count
+  read on the host, or captured and composed into one graph whose body a
+  kernel picks on the device (``csrc/graph_switch.cu``): a sparse chunk
+  reads nothing on the host.
 * :class:`Staged` stages a pure function as the reference's ``jax.jit``
   stages it, for the one-shot paths (``CompiledQuery.fn``,
   ``partition_run``, ``batch_run``, ``shard_map_run``, ``shard_union_run``):
@@ -31,11 +33,12 @@ graph like any kernel (PyTorch captures NCCL collectives), so a replay
 issues no collective from the host; the collector stays off during
 capture as for every step.
 
-Frames.  The runner marks the parts of a step with :func:`frame`: ``step``
-around what one captured graph replays on the card, inside it
-``prefix``, ``bucket-pick`` (the CPU's host read of the dirty count),
-``body[cap]`` (one capacity's compacted body) and ``suffix``, and
-``after`` (a mesh step's graph of its own).  :func:`frames` is the stack
+Frames.  The parts of a step are marked with :func:`frame`: ``step``
+(the runner's) around what one captured graph replays on the card, inside
+it a switched step's ``prefix``, ``bucket-pick`` (the CPU's host read of
+the dirty count), ``body[cap]`` (one capacity's compacted body) and
+``suffix`` (:meth:`Switched.run_eager`), and ``after`` (a mesh step's
+graph of its own).  :func:`frames` is the stack
 the calling thread is in; the static audit (:mod:`repro_torch.analysis`)
 reads it for every operation it records.  A frame costs a list push and
 pop; a replay pushes none.
@@ -62,6 +65,7 @@ from typing import Callable, List, Sequence, Tuple
 import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
+from ..buckets import pick
 from ..device import resolve
 from ..kernels import fused_query, sparse_compact, window_reduce
 from ..kernels.build import launch_stream, library
@@ -200,11 +204,48 @@ def _check(err: int, what: str) -> None:
 
 
 class Switched:
-    """The sparse step as one graph: ``prefix`` (which leaves the dirty
-    count in ``count``), then the body whose capacity is the first of
-    ``caps`` at or above the count (the last past the end), then
+    """The switched step as one graph: ``prefix`` (which leaves the count
+    in ``count``), then the body :func:`~repro_torch.buckets.pick` picks
+    over ``caps``, then
     ``suffix``.  The pick runs on the device; :meth:`replay` returns the
-    suffix's result."""
+    suffix's result.  The parts, ``(prefix, bodies, suffix)``, are called
+    as ``part(state)`` over one static state: the prefix leaves the int32
+    count in ``state.cnt``, and ``state.caps`` holds the capacities (int64,
+    on the device)."""
+
+    @classmethod
+    def run_eager(cls, parts, state, caps: Sequence[int], *,
+                  every: bool = False):
+        """The parts one after another, each in its frame, the suffix's
+        result returned: the host reads the count and runs the body it
+        picks, or with ``every`` every body in turn, as the composed graph
+        holds them (a warm-up before :meth:`compose`)."""
+        prefix, bodies, suffix = parts
+        with frame("prefix"):
+            prefix(state)
+        if every:
+            picked = range(len(bodies))
+        else:
+            with frame("bucket-pick"):
+                picked = (pick(int(state.cnt), caps),)
+        for i in picked:
+            with frame(f"body[{caps[i]}]"):
+                bodies[i](state)
+        with frame("suffix"):
+            return suffix(state)
+
+    @classmethod
+    def compose(cls, parts, state, pool, shared=None) -> "Switched":
+        """The parts captured (kept) in ``pool`` and composed; ``shared``:
+        the bodies and suffix captured already (another switched step's
+        over the same state)."""
+        prefix, bodies, suffix = parts
+        head = record(lambda: prefix(state), pool, keep=True)
+        if shared is None:
+            shared = ([record(lambda b=b: b(state), pool, keep=True)
+                       for b in bodies],
+                      record(lambda: suffix(state), pool, keep=True))
+        return cls(head, *shared, state.cnt, state.caps)
 
     def __init__(self, prefix: Captured, bodies: List[Captured],
                  suffix: Captured, count: torch.Tensor, caps: torch.Tensor):
@@ -218,6 +259,7 @@ class Switched:
         if caps.dtype != torch.int64 or count.dtype != torch.int32:
             raise TypeError("count must be int32 and caps int64")
         self._parts = (prefix, bodies, suffix, count, caps)
+        self.shared = (bodies, suffix)
         self.result = suffix.result
         self.launches = [
             {k: p.get(k, 0) + b.get(k, 0) + s.get(k, 0)
@@ -341,10 +383,6 @@ class StagedEntry:
         return self._graph is not None
 
 
-def _copy_out(tree):
-    return tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, tree)
-
-
 class Staged:
     """``fn`` (a pure function of tensor trees) staged per input geometry,
     as ``jax.jit`` stages it.  A call finds the :class:`StagedEntry` of
@@ -400,14 +438,8 @@ class Staged:
     def __call__(self, *args):
         ent = self.entry(*args)
         ent.load(args)
-        return _copy_out(self.run(ent))
-
-
-def _pick(count: int, caps: Sequence[int]) -> int:
-    """The body a count picks: the first capacity at or above it, the last
-    past the end (``pick_bucket_kernel`` of ``csrc/graph_switch.cu``)."""
-    return next((i for i, c in enumerate(caps) if c >= count),
-                len(caps) - 1)
+        return tree_map(lambda x: x.clone() if torch.is_tensor(x) else x,
+                        self.run(ent))
 
 
 def _copy_into(dst, src) -> None:
@@ -416,59 +448,53 @@ def _copy_into(dst, src) -> None:
 
 
 class _SwitchEntry(StagedEntry):
-    """One geometry of a :class:`StagedSwitch`: the input buffers, and on
-    the card its parts captured (kept) and composed into one
-    :class:`Switched` graph in the entry's pool."""
+    """One geometry of a :class:`StagedSwitch`: the input buffers, the
+    count and the capacities, and the :class:`Switched` parts over them.
+    The prefix leaves ``mid`` and the count here, and every body copies
+    its output into ``out``, the one buffer the suffix reads (made again
+    before a capture, outside the graph's pool: it lives with the entry)."""
 
     def __init__(self, parts, args, dev):
         super().__init__(None, args, dev)
-        self.parts = parts
+        prefix, bodies, suffix, self.ladder = parts
+        self.caps = torch.as_tensor(self.ladder, dtype=torch.int64,
+                                    device=dev)
+        self.cnt = torch.zeros((), dtype=torch.int32, device=dev)
+        self.mid = self.out = None
+
+        def pre(s):
+            s.mid, count = prefix(*s.inputs)
+            s.cnt.copy_(count)
+
+        def body(b):
+            def run(s):
+                out = b(s.mid)
+                if s.out is None:
+                    s.out = tree_map(torch.zeros_like, out)
+                _copy_into(s.out, out)
+            return run
+
+        self.switch = (pre, [body(b) for b in bodies],
+                       lambda s: suffix(s.out, s.cnt))
 
     def run(self):
-        prefix, bodies, suffix, caps = self.parts
         if self.dev.type != "cuda":
-            mid, count = prefix(*self.inputs)
-            return suffix(bodies[_pick(int(count), caps)](mid), count)
+            return Switched.run_eager(self.switch, self, self.ladder)
         if self._graph is None:
-            self._graph = self._compose()
+            with warm_up(self.dev):
+                Switched.run_eager(self.switch, self, self.ladder,
+                                   every=True)
+            self.mid, self.out = None, tree_map(torch.zeros_like, self.out)
+            self._graph = Switched.compose(self.switch, self, self._pool)
         return self._graph.replay()
-
-    def _compose(self) -> "Switched":
-        prefix, bodies, suffix, caps = self.parts
-        dev, pool = self.dev, self._pool
-        with warm_up(dev):                  # every part, as the graph holds
-            mid, count = prefix(*self.inputs)
-            outs = [body(mid) for body in bodies]
-            suffix(outs[-1], count)
-        # the bodies write obuf and the suffix reads it: it lives as long
-        # as the entry (it is not in the graph's pool, so nothing else
-        # would keep its memory from being handed out again)
-        obuf = self._obuf = tree_map(
-            lambda x: torch.zeros(x.shape, dtype=x.dtype, device=dev),
-            outs[-1])
-        cbuf = torch.zeros((), dtype=torch.int32, device=dev)
-        del mid, outs, count
-
-        def pre():
-            m, c = prefix(*self.inputs)
-            cbuf.copy_(c)
-            return m
-
-        head = record(pre, pool, keep=True)
-        parts = [record(lambda b=b: _copy_into(obuf, b(head.result)), pool,
-                        keep=True) for b in bodies]
-        tail = record(lambda: suffix(obuf, cbuf), pool, keep=True)
-        return Switched(head, parts, tail, cbuf,
-                        torch.as_tensor(caps, dtype=torch.int64,
-                                        device=dev))
 
 
 class StagedSwitch(Staged):
     """A staged function whose middle is picked by a count on the device,
     as the reference's ``lax.switch`` inside one ``jit``:
     ``prefix(*args) -> (mid, count)`` (``count`` an int32 0-d tensor),
-    then ``bodies[b](mid)`` for ``b`` the first of ``caps`` at or above
-    the count (the last past the end), then ``suffix(outs, count)``; every
+    then ``bodies[b](mid)`` for ``b`` the :func:`~repro_torch.buckets.pick`
+    of the count over ``caps``, then ``suffix(outs, count)``; every
     body returns the same tree of shapes.  Staged per input geometry as
     :class:`Staged`: on the card one :class:`Switched` graph, whose body a
     kernel picks, so a call reads nothing on the host; on the CPU the

@@ -443,7 +443,8 @@ class _Work:
                            z((len(runner._obs_caps),), torch.int32),
                            z((len(runner._obs_frac_edges) + 1,),
                              torch.int32))
-        self.graphs: dict = {}
+        self.graphs: dict = {}   # by step key: the card's captures
+        self.steps: dict = {}    # by step key: the CPU's step functions
         self.pool = (torch.cuda.graph_pool_handle() if dev.type == "cuda"
                      else None)
 
@@ -894,6 +895,15 @@ class Runner:
             self._bind(work)
         return work
 
+    def _revision_work(self, chunk_in, dev: torch.device) -> _Work:
+        """The revision workspace for this chunk's layout (its tails are
+        written by the revision that uses it)."""
+        work = self._rwork
+        if work is None or work.layout != _layout(chunk_in) \
+                or work.dev != dev:
+            work = self._rwork = _Work(self, chunk_in, dev, revision=True)
+        return work
+
     def _bind(self, work: _Work) -> None:
         """Copy the logical state (restored tensors, or another
         workspace's views) into ``work`` — φ where it has none — and point
@@ -949,30 +959,61 @@ class Runner:
         return self._zero_seed_cache
 
     # -- running a step: eager on the CPU, captured on the card ------------
-    def _graph(self, work: _Work, key, cache_key, step):
-        """The graph of ``step`` over ``work`` under ``key``: warmed up and
-        captured at its first use (recorded under the label of the step's
-        ``cache_key``)."""
-        g = work.graphs.get(key)
-        if g is None:
-            tr = self.metrics.tracer
-            tr.record_capture(self._compile_label(cache_key))
-            with tr.span("runner.capture"):
-                with tr.span("warm_up"), capture.warm_up(work.dev):
-                    step(work.clone())
-                with tr.span("record"):
-                    g = work.graphs[key] = capture.record(
-                        lambda: step(work), work.pool)
-        return g
+    def _step_for(self, key, dev: torch.device):
+        """The one table from a step key (:meth:`aot_keys`) to its step:
+        ``(fn, cache_key)``.  ``fn(work)`` runs the step over ``work``
+        eagerly, in its frames, and returns its packed results;
+        ``cache_key`` is the step-cache key whose label names the step.
+        Every part the step can run is built here (once per geometry: the
+        step cache)."""
+        if key[0] == "sparse":
+            return (self._sparse_chunk(key[1], dev),
+                    self._cache_key("sparse_fused", dev, key[1]))
+        if key[0] == "dense":
+            step, ckey = self._dense_step(dev), self._cache_key("dense", dev)
+        else:
+            cap, rstep = key[1], self._revision_step(dev)
+            step = functools.partial(rstep, cap=cap,
+                                     local=self._compute_local(cap, dev))
+            ckey = self._cache_key("revise", dev, cap)
 
-    def _launch(self, work: _Work, key, cache_key, step):
-        """``step(work)`` → packed results: eagerly on the CPU, in a
-        ``step`` frame; on the card a replay of the graph of ``key``, its
-        static results (:meth:`_copy_out` copies them)."""
-        if work.dev.type != "cuda":
+        def fn(work):
             with capture.frame("step"):
                 return step(work)
-        return self._graph(work, key, cache_key, step).replay()
+        return fn, ckey
+
+    def _run(self, work: _Work, key):
+        """The step of ``key`` over ``work`` → its packed results: on the
+        CPU its function, built at its first use; on the card a replay of
+        the key's graph (:meth:`_graph`; then a mesh sparse step's
+        ``after``), its static results (:meth:`_copy_out` copies them)."""
+        if work.dev.type != "cuda":
+            fn = work.steps.get(key)
+            if fn is None:
+                fn = work.steps[key] = self._step_for(key, work.dev)[0]
+            return fn(work)
+        res = self._graph(work, key).replay()
+        after = work.graphs.get("sparse_after")
+        return res if after is None else after.replay()
+
+    def _graph(self, work: _Work, key):
+        """The graph of ``key``'s step over ``work``: warmed up on a
+        scratch copy and captured at its first use, recorded under the
+        label of the step's cache key; a sparse key's is the switched graph
+        (:meth:`_switched`)."""
+        g = work.graphs.get(key)
+        if g is None:
+            fn, ckey = self._step_for(key, work.dev)
+            tr = self.metrics.tracer
+            tr.record_capture(self._compile_label(ckey))
+            with tr.span("runner.capture"):
+                with tr.span("warm_up"), capture.warm_up(work.dev):
+                    fn(work.clone())
+                with tr.span("record"):
+                    g = work.graphs[key] = (
+                        self._switched(work, key[1]) if key[0] == "sparse"
+                        else capture.record(lambda: fn(work), work.pool))
+        return g
 
     @staticmethod
     def _copy_out(work: _Work, packed):
@@ -1218,89 +1259,51 @@ class Runner:
             cache[key] = (suffix, None)
         return cache[key]
 
-    def _switched(self, work: _Work, force_first: bool):
-        """The captured sparse step of one variant: its prefix, then every
-        capacity's body and the suffix (captured once per workspace,
-        shared by both variants), composed into one graph."""
-        dev = work.dev
+    def _sparse_parts(self, force_first: bool, dev: torch.device):
+        """``(parts, after)``: the :class:`capture.Switched` parts of one
+        variant's sparse step over a workspace (its prefix, every
+        capacity's body, the suffix) and a mesh step's ``after``
+        (:meth:`_sparse_suffix`)."""
         prefix = self._sparse_step(force_first, dev)
-        caps = sparse_mod.capacity_ladder(self._Uc)
-        bodies = [self._sparse_body(c, dev) for c in caps]
+        bodies = [self._sparse_body(c, dev) for c in self.capacity_ladder()]
         suffix, after = self._sparse_suffix(dev)
-        tr = self.metrics.tracer
-        tr.record_capture(self._compile_label(
-            self._cache_key("sparse_fused", dev, force_first)))
-        with tr.span("runner.capture"):
-            with tr.span("warm_up"), capture.warm_up(dev):
-                self._sparse_eager(work.clone(), force_first)
-            with tr.span("record"):
-                pre = capture.record(lambda: prefix(work), work.pool,
-                                     keep=True)
-                shared = work.graphs.get("sparse_parts")
-                if shared is None:
-                    shared = work.graphs["sparse_parts"] = (
-                        [capture.record(lambda b=b: b(work), work.pool,
-                                        keep=True) for b in bodies],
-                        capture.record(lambda: suffix(work), work.pool,
-                                       keep=True))
-                    if after is not None:
-                        # replayed after the switched step, over the
-                        # suffix's (static) results
-                        work.graphs["sparse_after"] = capture.record(
-                            lambda: after(work, shared[1].result),
-                            work.pool)
-                g = work.graphs[("sparse", force_first)] = capture.Switched(
-                    pre, shared[0], shared[1], work.cnt, work.caps)
+        return (prefix, bodies, suffix), after
+
+    def _sparse_chunk(self, force_first: bool, dev: torch.device):
+        """The sparse step of one variant, eager, in a ``step`` frame: the
+        body the count picks on the CPU; on the card (a warm-up, and
+        :meth:`staged_steps`) every body, the full-capacity one last, so
+        the results are the same (the sparse exactness contract).  A mesh
+        step's ``after`` is a step (on the card a graph) of its own."""
+        parts, after = self._sparse_parts(force_first, dev)
+        caps, every = self.capacity_ladder(), dev.type == "cuda"
+
+        def step(work):
+            with capture.frame("step"):
+                packed = capture.Switched.run_eager(parts, work, caps,
+                                                    every=every)
+            if after is None:
+                return packed
+            with capture.frame("step"), capture.frame("after"):
+                return after(work, packed)
+        return step
+
+    def _switched(self, work: _Work, force_first: bool):
+        """The captured sparse step of one variant over ``work``
+        (:meth:`capture.Switched.compose`): its prefix, then the bodies and
+        the suffix both variants share, captured at the workspace's first
+        switched step.  A mesh step's ``after`` is captured then as a
+        graph of its own (``sparse_after``, which :meth:`_run` replays
+        after the switched graph), over the suffix's static results."""
+        parts, after = self._sparse_parts(force_first, work.dev)
+        shared = work.graphs.get("sparse_parts")
+        g = capture.Switched.compose(parts, work, work.pool, shared)
+        if shared is None:
+            work.graphs["sparse_parts"] = g.shared
+            if after is not None:
+                work.graphs["sparse_after"] = capture.record(
+                    lambda: after(work, g.result), work.pool)
         return g
-
-    def _sparse_eager(self, work: _Work, force_first: bool):
-        """The sparse step's parts run one after another, without a graph,
-        each in its frame.  On the CPU (the chunk path) the count is read
-        on the host to pick the one capacity that runs; on the card (a
-        warm-up before capture, and :meth:`staged_steps`) every
-        capacity's body runs in turn, the program the switched graph holds,
-        whose bucket a kernel picks on the device.  The full-capacity body
-        runs last and computes every unit, so the results are the same
-        (the sparse exactness contract).  A mesh step's ``after`` is a
-        step (on the card a graph) of its own."""
-        dev = work.dev
-        with capture.frame("step"):
-            with capture.frame("prefix"):
-                self._sparse_step(force_first, dev)(work)
-            if dev.type == "cuda":
-                caps = self.capacity_ladder()
-            else:
-                with capture.frame("bucket-pick"):
-                    caps = [sparse_mod.bucket_capacity(int(work.cnt),
-                                                       self._Uc)]
-            for cap in caps:
-                with capture.frame(f"body[{cap}]"):
-                    self._sparse_body(cap, dev)(work)
-            suffix, after = self._sparse_suffix(dev)
-            with capture.frame("suffix"):
-                packed = suffix(work)
-        if after is None:
-            return packed
-        with capture.frame("step"), capture.frame("after"):
-            return after(work, packed)
-
-    def _sparse_launch(self, work: _Work):
-        """The sparse step's packed results (outputs and segment mask):
-        eager on the CPU; on the card a replay of the switched graph of
-        this chunk's variant (then of a mesh step's ``after``)."""
-        st = self._sparse
-        force_first = (not st["started"]) or len(self._seeded) < len(
-            self.spec.out_precs)
-        if work.dev.type != "cuda":
-            return self._sparse_eager(work, force_first)
-        g = work.graphs.get(("sparse", force_first))
-        if g is None:
-            g = self._switched(work, force_first)
-        res = g.replay()
-        after = work.graphs.get("sparse_after")
-        if after is not None:
-            res = after.replay()
-        return res
 
     def _sparse_done(self, outs_seg):
         """A sparse chunk's outputs, its segment mask kept and the change
@@ -1383,11 +1386,12 @@ class Runner:
         if tr is not None:
             tr.next("launch")
         if self.policy.sparse:
-            packed = self._sparse_launch(work)
+            st = self._sparse
+            key = ("sparse", not st["started"] or len(self._seeded) < len(
+                self.spec.out_precs))
         else:
-            packed = self._launch(work, ("dense",),
-                                  self._cache_key("dense", dev),
-                                  self._dense_step(dev))
+            key = ("dense",)
+        packed = self._run(work, key)
         if tr is not None:
             tr.next("copy_out")
         outs = self._copy_out(work, packed)
@@ -1756,11 +1760,7 @@ class Runner:
             chunk_in = self._ingest(ch)
             dev = self._chunk_device(chunk_in)
             if rwork is None:
-                rwork = self._rwork
-                if (rwork is None or rwork.layout != _layout(chunk_in)
-                        or rwork.dev != dev):
-                    rwork = self._rwork = _Work(self, chunk_in, dev,
-                                                revision=True)
+                rwork = self._revision_work(chunk_in, dev)
                 for name, dst in rwork.tails().items():
                     _copy_tree(dst, entry["tails"][name])
             else:
@@ -1784,11 +1784,7 @@ class Runner:
             rwork.w.copy_(w, non_blocking=True)
             rwork.load(chunk_in)
             cap = sparse_mod.bucket_capacity(cnt, self._Uc)
-            rstep = self._revision_step(dev)
-            local = self._compute_local(cap, dev)
-            outs = self._copy_out(rwork, self._launch(
-                rwork, ("revise", cap), self._cache_key("revise", dev, cap),
-                lambda wk: rstep(wk, cap, local)))
+            outs = self._copy_out(rwork, self._run(rwork, ("revise", cap)))
             last_outs, last_sd = outs, sd
             res = {}
             for o, (v, m) in self._postprocess(outs).items():
@@ -1867,35 +1863,6 @@ class Runner:
                      for c in self.capacity_ladder()]
         return keys
 
-    def _prepare(self, work: _Work, key) -> str:
-        """Build the step of ``key`` over ``work`` and, on the card,
-        capture it (skipped when already captured)."""
-        dev = work.dev
-        kind = key[0]
-        if kind == "sparse":
-            if dev.type != "cuda":
-                self._sparse_step(key[1], dev)
-                for c in self.capacity_ladder():
-                    self._sparse_body(c, dev)
-                self._sparse_suffix(dev)
-                return "eager"
-            if key not in work.graphs:
-                self._switched(work, key[1])
-            return "captured"
-        if kind == "dense":
-            step = self._dense_step(dev)
-            ckey = self._cache_key("dense", dev)
-        else:
-            cap = key[1]
-            rstep = self._revision_step(dev)
-            local = self._compute_local(cap, dev)
-            step = lambda wk: rstep(wk, cap, local)  # noqa: E731
-            ckey = self._cache_key("revise", dev, cap)
-        if dev.type != "cuda":
-            return "eager"
-        self._graph(work, key, ckey, step)
-        return "captured"
-
     def install_executable(self, key, *, label: str = "",
                            chunks: Optional[Dict] = None) -> str:
         """Prepare the step of ``key`` (one of :meth:`aot_keys`) before the
@@ -1909,45 +1876,30 @@ class Runner:
         chunks = chunks if chunks is not None else self.example_chunks()
         chunk_in = self._ingest(chunks)
         dev = self._chunk_device(chunk_in)
-        if key[0] == "revise":
-            if self._rev_ring is None:
-                raise ValueError("revision disabled — call "
-                                 "enable_revision() first")
+        if key[0] == "revise" and self._rev_ring is None:
+            raise ValueError("revision disabled — call enable_revision() "
+                             "first")
         tr = self.metrics.tracer
         with tr.span("runner.install"):
-            if key[0] == "revise":
-                work = self._rwork
-                if work is None or work.layout != _layout(chunk_in) \
-                        or work.dev != dev:
-                    work = self._rwork = _Work(self, chunk_in, dev,
-                                               revision=True)
+            work = (self._revision_work(chunk_in, dev) if key[0] == "revise"
+                    else self._live(chunk_in, dev))
+            if dev.type == "cuda":
+                self._graph(work, key)
+                how = "captured"
             else:
-                work = self._live(chunk_in, dev)
-            how = self._prepare(work, key)
+                work.steps[key] = self._step_for(key, dev)[0]
+                how = "eager"
         tr.record_aot(label or str(key), how)
         return how
 
     def _staged_step(self, key, chunk_in, dev):
-        """``(fn, work)``: the step of ``key`` (one of :meth:`aot_keys`) as
-        a function over a scratch workspace (:meth:`_audit_state`) with
-        ``chunk_in`` loaded, run eagerly in its frames when called."""
-        kind = key[0]
-        work = self._audit_state(chunk_in, dev, revision=kind == "revise")
+        """``(fn, work)``: the step of ``key`` (one of :meth:`aot_keys`,
+        :meth:`_step_for`) and a scratch workspace (:meth:`_audit_state`)
+        with ``chunk_in`` loaded, over which ``fn`` runs it eagerly in its
+        frames."""
+        work = self._audit_state(chunk_in, dev, revision=key[0] == "revise")
         work.load(chunk_in)
-        if kind == "sparse":
-            return functools.partial(self._sparse_eager,
-                                     force_first=key[1]), work
-        if kind == "dense":
-            step = self._dense_step(dev)
-        else:
-            cap, rstep = key[1], self._revision_step(dev)
-            local = self._compute_local(cap, dev)
-            step = lambda wk: rstep(wk, cap, local)  # noqa: E731
-
-        def fn(wk):
-            with capture.frame("step"):
-                return step(wk)
-        return fn, work
+        return self._step_for(key, dev)[0], work
 
     def staged_steps(self, chunks: Optional[Dict] = None) -> List[dict]:
         """The steps one chunk runs, with concrete example arguments:
@@ -1956,7 +1908,7 @@ class Runner:
         for the layout of ``chunks`` (default :meth:`audit_example_chunks`)
         with fresh-stream state, leaving the live stream untouched; it
         returns the step's packed outputs.  A sparse step runs as
-        :meth:`_sparse_eager` does on the chunks' device.  Building them
+        :meth:`_sparse_chunk` does on the chunks' device.  Building them
         populates the shared step cache exactly as a first chunk would."""
         chunks = chunks if chunks is not None else \
             self.audit_example_chunks()

@@ -208,12 +208,31 @@ def keyed_grid(v, m):
     return _keyed_grid(v, m, device="cpu")
 
 
+# the capacities of the compacted bodies each runner ran, by runner
+ran = {}
+build_body = Runner._sparse_body
+
+
+def spied_body(self, cap, dev):
+    body = build_body(self, cap, dev)
+
+    def run(work):
+        ran.setdefault(id(self), []).append(cap)
+        return body(work)
+    return run
+
+
+Runner._sparse_body = spied_body
+
+
 def record_caps(tag, exe, runner):
-    # the per-shard ladder, and the buckets this rank's chunks picked
+    # the per-shard ladder, the buckets of the bodies this rank's chunks
+    # ran, and those the bucket metric counted
     res[tag] = np.array(runner.capacity_ladder())
-    res[tag + "_used"] = np.array(sorted(
-        k[-1] for k in exe._runner_step_cache
-        if isinstance(k, tuple) and k[0] == "compute"))
+    res[tag + "_used"] = np.array(sorted(set(ran.pop(id(runner)))))
+    picks = runner.metrics.snapshot()["vectors"]["runner.bucket_picks"]
+    res[tag + "_picked"] = np.array(sorted(
+        int(c) for c, n in zip(picks["labels"], picks["values"]) if n))
 
 
 def compile_(q, out_len, sparse=False):
@@ -478,6 +497,7 @@ def test_policy_mesh_runner_matches_reference(runs):
             used = port[f"caps/{what}_used"]
             assert np.array_equal(port[f"caps/{what}"], ladder), what
             assert set(used) <= set(ladder) and used[0] <= top, (what, used)
+            assert np.array_equal(port[f"caps/{what}_picked"], used), what
 
 
 def test_sparse_union_session_mesh_matches_reference(runs):

@@ -160,7 +160,23 @@ def test_sparse_matches_dense_chunked(keys):
     assert st["dirty_units"] < st["units"], st
 
 
-def test_keyed_runner_compacts_to_small_buckets():
+def _spy_bodies(monkeypatch) -> list:
+    """The capacities of the compacted bodies that ran, in order: every
+    body ``Runner._sparse_body`` builds records its capacity when called."""
+    ran, build = [], Runner._sparse_body
+
+    def spied(self, cap, dev):
+        body = build(self, cap, dev)
+
+        def run(work):
+            ran.append(cap)
+            return body(work)
+        return run
+    monkeypatch.setattr(Runner, "_sparse_body", spied)
+    return ran
+
+
+def test_keyed_runner_compacts_to_small_buckets(monkeypatch):
     n_keys, T = 32, 256
     vals = np.zeros((n_keys, T), np.float32)
     for k in range(0, n_keys, 4):                    # 1 in 4 keys active
@@ -169,12 +185,17 @@ def test_keyed_runner_compacts_to_small_buckets():
     exe_s = _exe(True, True, out_len=64)
     ref = Runner(_exe(True, out_len=64), ExecPolicy(keys="vmapped"),
                  n_keys=n_keys).run(g, 4)
-    got = Runner(exe_s, ExecPolicy(body="sparse", keys="vmapped"),
-                 n_keys=n_keys).run(g, 4)
-    _assert_same(ref, got, "keyed")
-    caps = sorted(k[-1] for k in exe_s._runner_step_cache
-                  if k[0] == "compute")
-    assert caps and caps[0] <= n_keys // 2, caps
+    ran = _spy_bodies(monkeypatch)
+    r = Runner(exe_s, ExecPolicy(body="sparse", keys="vmapped"),
+               n_keys=n_keys)
+    _assert_same(ref, r.run(g, 4), "keyed")
+    # the bodies the chunks ran: one a chunk, small ones among them
+    caps = sorted(set(ran))
+    assert len(ran) == 4 and caps[0] <= n_keys // 2, ran
+    # the bucket metric counts the same bodies
+    picks = r.metrics.snapshot()["vectors"]["runner.bucket_picks"]
+    assert caps == sorted(int(c) for c, n in zip(picks["labels"],
+                                                  picks["values"]) if n)
 
 
 @pytest.mark.parametrize("name", apps.KEYED_APPS)
@@ -606,15 +627,62 @@ def test_each_capture_is_one_runner_capture_span(monkeypatch):
                         lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(capture, "record", lambda step, pool, keep=False:
                         capture.Captured(None, step(), []))
-    work, dev = r._work, r._work.dev
     for _ in range(2):
-        r._graph(work, ("dense",), r._cache_key("dense", dev),
-                 r._dense_step(dev))
+        r._graph(r._work, ("dense",))
     rep = tr.span_report()
     assert rep["runner.capture"]["count"] == 1 == sum(
         tr.captures().values())
     assert rep["runner.capture/warm_up"]["count"] == 1
     assert rep["runner.capture/record"]["count"] == 1
+
+
+@pytest.mark.parametrize("kind", ["dense", "sparse", "revision"])
+def test_every_route_builds_the_one_step_of_each_key(kind):
+    """A step key becomes its step in one place: ``step`` (and ``revise``
+    at every capacity), ``install_executable`` and ``staged_steps`` over
+    every ``aot_keys`` entry build the same steps, each once.  After any
+    one route the others add nothing to the step cache or to
+    ``compiles()``, and each route alone builds the same cache."""
+    vals = pw_const((2 * SEG * SPC,), 0.1, 5)
+    chunks = [_grid(v, t0) for v, t0 in _chunks(vals, SEG * SPC)]
+
+    def by_step(r):
+        for c in chunks:
+            r.step(c)
+        if kind == "revision":
+            last = r.state()["__t"] // (SEG * SPC) - 1
+            for cap in r.capacity_ladder():      # one mask per bucket
+                r.revise(last, chunks[1:], [np.arange(SPC) < cap],
+                         commit=False)
+
+    def by_install(r):
+        for _label, key in r.aot_keys():
+            assert r.install_executable(key, chunks=chunks[0]) == "eager"
+
+    def by_staged(r):
+        for s in r.staged_steps(chunks[0]):
+            s["fn"](*s["args"])
+
+    routes = (by_step, by_install, by_staged)
+    built = []
+    for first in routes:
+        exe = _exe(sparse=kind != "dense")
+        r = Runner(exe, ExecPolicy(body="dense" if kind == "dense"
+                                   else "sparse"), segs_per_chunk=SPC)
+        if kind == "revision":
+            r.enable_revision(2)
+            assert any(key[0] == "revise" for _l, key in r.aot_keys())
+        first(r)
+        cache = set(exe._runner_step_cache)
+        counts = r.metrics.tracer.compiles()
+        assert counts and all(n == 1 for n in counts.values()), counts
+        assert len(cache) == len(counts)
+        for route in routes:
+            route(r)
+        assert set(exe._runner_step_cache) == cache
+        assert r.metrics.tracer.compiles() == counts
+        built.append(cache)
+    assert built[0] == built[1] == built[2]
 
 
 # ---------------------------------------------------------------------------

@@ -393,6 +393,18 @@ def test_staged_switch_picks_the_body_by_the_count():
         out, count = sw(torch.tensor(vals))
         assert int(count) == sum(vals) and bool((out == cap).all())
     assert len(sw.entries) == 1
+    # every count from 0 to one past the units, over a capacity ladder:
+    # the body is the one core/sparse.bucket_capacity names
+    U = 6
+    ladder = sp.capacity_ladder(U)
+    sw = capture.StagedSwitch(
+        lambda x: (x, x.sum(dtype=torch.int32)),
+        [lambda x, c=c: x * 0 + c for c in ladder],
+        lambda out, count: (out, count.clone()), caps=ladder)
+    for n in range(U + 2):
+        out, count = sw((torch.arange(U + 1) < n).int())
+        assert int(count) == n
+        assert bool((out == sp.bucket_capacity(n, U)).all()), n
 
 
 def test_staged_entry_by_spec_is_the_tensors_entry():
