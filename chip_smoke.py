@@ -24,7 +24,8 @@ Phases (each raises on failure; the script then exits non-zero):
    during the first-use run of each dense runner of phases 5-6, the same
    chunks as the timed run) are timed after phase 7, with their launches
    per timed run.  ``masked_rows`` is held bit for bit and timed at the
-   benchmark cells' window rows.
+   benchmark cells' window rows, and ``region_program`` at their unit
+   windows (qrs96's largest region, ysb100's ``views``).
 3. The main path, single stream: every app of ``repro_torch.data.apps``
    through ``compile_query`` -> ``partition_run`` over 2**24 ticks held on
    the card, in 16 partitions of 2**20 ticks; ysb once more with the
@@ -615,7 +616,76 @@ def check_kernels(dev):
             f"{t['host_ms']:.4f} ms of host time per call; plain "
             f"{t['plain_ms']:.4f} ms; bound {b:.4f} ms ({by}); bit for bit "
             "the plain version")
+    region_program_rows(dev, gen, errs, rows)
     return errs, rows
+
+
+def region_program_rows(dev, gen, errs: dict, rows: dict) -> None:
+    """``region_program`` at the benchmark cells' unit windows: qrs96's
+    largest region (the derivative and the square over four shifted reads
+    of the high-pass, 3072 rows of 8665 ticks) and ysb100's ``views``
+    (1600 rows of 10000), bit for bit the plain version run on the card;
+    its bound is each source leaf and validity read once and the outputs
+    written once."""
+    import torch
+    from torch.utils._pytree import tree_flatten, tree_map
+    from repro_torch.core import compile as qc
+    from repro_torch.data import apps
+    from repro_torch.kernels import ref, region_program as rp
+    errs["region_program"] = 0.0
+    cases = (("qrs96", apps.make_keyed_app("qrs").query.node, 8192, 3072,
+              "square_fused"),
+             ("ysb100", apps.make_keyed_app("ysb", win=10000).query.node, 1,
+              1600, "views"))
+    for label, node, out_len, R, name in cases:
+        exe = qc.compile_query(node, out_len)
+        (region,) = [r for r in exe.regions.by_root.values()
+                     if r.root.name == name]
+        args = []
+        for s in region.sources:
+            L = exe.plan.plan_of(s).length
+            x = torch.randint(-1024, 1024, (R, L), generator=gen).float()
+            v = torch.rand(R, L, generator=gen) < 0.9
+            val = ({"etype": (x > 0).float(), "camp": x}
+                   if label == "ysb100" else x)
+            args.append((tree_map(lambda a: a.to(dev), val), v.to(dev)))
+        region.run(args)
+        prog = region._lowered[-1][1].program
+        valids = [args[src][1] for src, _, _ in region.slots]
+        leaves = [tree_flatten(args[region.slots[k][0]][0])[0][li]
+                  for k, li, _ in prog.leaves]
+        fn = lambda: rp.region_program(prog, valids, leaves)  # noqa: E731
+        (outs, valid), (w_outs, w_valid) = fn(), ref.region_program_ref(
+            prog, valids, leaves)
+        if not torch.equal(valid, w_valid) or not all(
+                torch.equal(o.view(torch.int32) if o.is_floating_point()
+                            else o, w.view(torch.int32)
+                            if w.is_floating_point() else w)
+                for o, w in zip(outs, w_outs)):
+            raise AssertionError(f"region_program {label}: bits differ "
+                                 "from the plain version")
+        t = {
+            "ms": cuda_ms(fn),
+            "plain_ms": cuda_ms(lambda: ref.region_program_ref(
+                prog, valids, leaves)),
+            "device_ms": kernel_device_ms(fn, "region_program"),
+            "host_ms": host_ms(fn),
+        }
+        read = {(region.slots[k][0], li) for k, li, _ in prog.leaves}
+        per_tick = (sum(4 for _ in read) + len(region.sources)
+                    + sum(1 if dt == rp.BOOL else 4 for _, dt in prog.outs)
+                    + 1)
+        T = prog.length
+        b, by = bound(float(per_tick) * R * T, 0.0)
+        rows[("region_program", label)] = dict(
+            t, max_abs_err=0.0, bound_ms=b, bound_by=by, shape=[R, T],
+            instructions=len(prog.ins), registers=prog.n_regs)
+        log(f"region_program {label} {name} ({R},{T}), "
+            f"{len(prog.ins)} instructions: {t['ms']:.4f} ms event-timed, "
+            f"{_ms(t['device_ms'])} on the device, wrapper "
+            f"{t['host_ms']:.4f} ms of host time per call; plain "
+            f"{t['plain_ms']:.4f} ms; bound {b:.4f} ms ({by}, {per_tick} "
+            "bytes a tick); bit for bit the plain version")
 
 
 def _ms(v) -> str:
@@ -1176,16 +1246,18 @@ def compare(name: str, got, want) -> dict:
 
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count, by kernel name."""
-    from repro_torch.kernels import fused_query, sparse_compact
+    from repro_torch.kernels import fused_query, region_program
+    from repro_torch.kernels import sparse_compact
     from repro_torch.kernels import window_reduce as wr
     return {**wr.launches, **sparse_compact.launches,
-            **fused_query.launches}
+            **fused_query.launches, **region_program.launches}
 
 
 def reset_launch_counts() -> None:
-    from repro_torch.kernels import fused_query, sparse_compact
+    from repro_torch.kernels import fused_query, region_program
+    from repro_torch.kernels import sparse_compact
     from repro_torch.kernels import window_reduce as wr
-    for mod in (wr, sparse_compact, fused_query):
+    for mod in (wr, sparse_compact, fused_query, region_program):
         mod.reset_launches()
 
 
@@ -4321,9 +4393,11 @@ KERNELS = {
                     "src/repro/kernels/fused_query.py:76"),
     "masked_rows": ("src/repro_torch/kernels/csrc/masked_rows.cu",
                     "src/repro/kernels/ops.py:61"),
+    "region_program": ("src/repro_torch/kernels/csrc/region_program.cu",
+                       "src/repro/core/compile.py:63"),
 }
 # the row of check_kernels each kernel reports on the kernels line
-KERNEL_ROWS = {"masked_rows": "qrs96"}
+KERNEL_ROWS = {"masked_rows": "qrs96", "region_program": "qrs96"}
 OFF_PATH = ("fused_trend",)     # no caller in either package
 
 
@@ -4362,7 +4436,8 @@ def main() -> int:
 
     single, keyed_launches, runner_launches, one_shot_launches = {}, {}, {}, {}
     apps = phase("3 apps", run_apps, dev, single, N_TICKS, PART, N_CMP_PARTS)
-    for k in wr.launches:
+    from repro_torch.kernels import region_program
+    for k in (*wr.launches, *region_program.launches):
         if single.get(k, 0) == 0:
             raise AssertionError(f"{k} was never launched on the main path")
     keyed = phase("4 keyed", run_keyed, dev, keyed_launches, KEYS,

@@ -7,7 +7,10 @@ interpreted mode evaluates operator at a time with a device barrier after
 each node (the event-centric baseline of the Fig. 10 ablation).  Both go
 through the single node evaluator :func:`_eval_op`, on the device the
 input tensors live on; every windowed aggregate goes through
-:mod:`repro_torch.kernels.ops`.
+:mod:`repro_torch.kernels.ops`.  The fused mode runs each elementwise
+region of an optimized query (:mod:`.region`) as one program, one launch
+on the card, where its user functions trace to the program's op set;
+``regions`` on the compiled query says which did.
 
 Staging, as the reference's ``jax.jit``: ``trace_fn`` is the eager body;
 with ``jit=True`` (the default) ``fn`` is
@@ -42,7 +45,7 @@ import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils._pytree import tree_map
 
-from . import fusion, ir
+from . import fusion, ir, region
 from .plan import ChangePlan, InputSpec, QueryPlan, plan_change, plan_query
 from .reduction import get_reduction
 from ..device import resolve
@@ -270,7 +273,8 @@ class CompiledQuery:
     time, with a device barrier after every node (the event-centric
     execution model, for the Fig. 10 ablation).  ``plan`` is the static
     artifact everything shares.  ``change_plan`` is attached by
-    ``compile_query(..., sparse=True)``.
+    ``compile_query(..., sparse=True)``.  ``regions`` are the elementwise
+    regions ``trace_fn`` runs as one program each (:mod:`.region`).
     """
 
     root: ir.Node
@@ -281,6 +285,8 @@ class CompiledQuery:
     change_plan: Optional[ChangePlan] = None
     sum_algo: str = "block"
     jit: bool = True
+    regions: region.Regions = dataclasses.field(
+        default_factory=lambda: region.Regions({}))
 
     @property
     def out_len(self) -> int:
@@ -326,7 +332,8 @@ def compile_query(root: ir.Node, out_len: int, *, opt: bool = True,
     change-compressed executors need — :func:`repro_torch.core.sparse.
     sparse_run` and ``Runner(exe, ExecPolicy(body="sparse"))`` — to skip
     partitions and keys whose inputs did not change.  ``out_len`` is then
-    the *segment* length they compact over.
+    the *segment* length they compact over.  The fused body runs each
+    elementwise region as one program (:mod:`.region`).
     """
     if opt:
         root = fusion.optimize(root)
@@ -338,16 +345,26 @@ def compile_query(root: ir.Node, out_len: int, *, opt: bool = True,
 
 def compile_planned(root: ir.Node, qp: QueryPlan, *, sum_algo: str = "block",
                     jit: bool = True,
-                    change_plan: Optional[ChangePlan] = None
-                    ) -> CompiledQuery:
+                    change_plan: Optional[ChangePlan] = None,
+                    lower: bool = True) -> CompiledQuery:
     """The evaluator of an already optimized and planned query: what
     :func:`compile_query` returns, without running the planner (a warm
     serving start rebuilds ``qp`` from a persisted plan artifact, see
-    :mod:`repro_torch.serve.loop`)."""
+    :mod:`repro_torch.serve.loop`).  Each elementwise region runs as one
+    program (:func:`.region.lower`); ``lower=False`` evaluates it call by
+    call instead, what the lowering is held against."""
+    regions = region.lower(root, qp) if lower else region.Regions({})
 
     def eval_node(n: ir.Node, env_vals, memo, dev):
         if id(n) in memo:
             return memo[id(n)]
+        reg = regions.get(n)
+        if reg is not None and reg.sources:
+            out = reg.run([eval_node(a, env_vals, memo, dev)
+                           for a in reg.sources])
+            if out is not None:
+                memo[id(n)] = out
+                return out
         if isinstance(n, ir.Input):
             args = (env_vals[n.name],)
         else:
@@ -365,4 +382,5 @@ def compile_planned(root: ir.Node, qp: QueryPlan, *, sum_algo: str = "block",
                 for n in ir.topo_order(root)]
     return CompiledQuery(root=root, plan=qp, trace_fn=trace_fn,
                          fn=stage(trace_fn), _node_fns=node_fns,
-                         change_plan=change_plan, sum_algo=sum_algo, jit=jit)
+                         change_plan=change_plan, sum_algo=sum_algo, jit=jit,
+                         regions=regions)

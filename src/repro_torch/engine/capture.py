@@ -67,7 +67,8 @@ from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from ..buckets import pick
 from ..device import resolve
-from ..kernels import fused_query, sparse_compact, window_reduce
+from ..kernels import (fused_query, region_program, sparse_compact,
+                       window_reduce)
 from ..kernels.build import launch_stream, library
 
 __all__ = ["Captured", "Frame", "STAGED_CACHE_MAX", "Spec", "Staged",
@@ -79,7 +80,8 @@ __all__ = ["Captured", "Frame", "STAGED_CACHE_MAX", "Spec", "Staged",
 STAGED_CACHE_MAX = 8
 
 _COUNTS = (window_reduce.launches, window_reduce.copies,
-           sparse_compact.launches, fused_query.launches)
+           sparse_compact.launches, fused_query.launches,
+           region_program.launches, region_program.copies)
 
 
 # graph replays, by kind ("graph": one captured graph launched): the

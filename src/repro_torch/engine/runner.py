@@ -153,6 +153,9 @@ class BodySpec:
     # query.  Empty means the body is opaque (a hand-built outs_fn) and the
     # temporal-plan verifier can only check internal plan consistency.
     roots: tuple = ()
+    # the elementwise regions the body runs as one program each
+    # (repro_torch.core.region.Regions); None for a body that lowers none
+    regions: object = None
 
     @property
     def span(self) -> int:
@@ -189,7 +192,8 @@ def body_spec_of(exe) -> BodySpec:
         change_plan=exe.change_plan, root=exe.root, solo=True,
         step_cache=exe.__dict__.setdefault("_runner_step_cache", {}),
         plan=exe.plan, sum_algo=exe.sum_algo,
-        roots=(exe.root,) if exe.root is not None else ())
+        roots=(exe.root,) if exe.root is not None else (),
+        regions=exe.regions)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -778,6 +782,18 @@ class Runner:
             self.metrics.gauge("runner.compact",
                                "dirty fraction since construction/reset",
                                "fraction").set(stats["compact"])
+        if self.spec.regions is not None:
+            # fixed once the body has met its inputs (the warm-up)
+            status = self.spec.regions.status()
+            self.metrics.gauge(
+                "runner.regions_lowered", "elementwise regions the body "
+                "runs as one program", "regions").set(
+                    status.pop("lowered", 0))
+            for why, n in status.items():
+                self.metrics.gauge(
+                    f"runner.regions_eager.{why}", "elementwise regions "
+                    "the body evaluates call by call, by reason",
+                    "regions").set(n)
 
     def _obs_accum(self, dev: torch.device):
         """The per-chunk device metric accumulator: folds the chunk's

@@ -52,6 +52,10 @@ _SIGNATURES = {
     "ft_max_window": ([], _LL),
     "ft_fused_trend": ([_VOID, _VOID, _VOID, _LL, _INT, _INT, _INT, _LL, _LL,
                         _INT, _VOID], _INT),
+    "rp_tile": ([], _INT),
+    "rp_limits": ([], _LL),
+    "rp_param_bytes": ([], _INT),
+    "rp_region_program": ([_VOID, _INT, _VOID], _INT),
     "gs_max_bodies": ([], _INT),
     "gs_compose": ([_VOID, _VOIDP, _INT, _VOID, _VOID, _VOID, _INT, _VOID,
                     _VOIDP], _INT),

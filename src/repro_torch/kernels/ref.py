@@ -11,13 +11,15 @@ leading key/channel axes ride along.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 __all__ = ["prefix_sum_ref", "sliding_sum_ref", "sliding_assoc_ref",
            "sliding_assoc_block_ref", "masked_rows_ref",
-           "seg_dirty_fused_ref", "fused_trend_block_ref"]
+           "seg_dirty_fused_ref", "fused_trend_block_ref",
+           "region_program_ref"]
 
 _FILLS = {"add": 0.0, "max": -math.inf, "min": math.inf}
 
@@ -192,3 +194,109 @@ def fused_trend_block_ref(x: torch.Tensor, w1: int, w2: int):
     c2 = torch.clamp(pos + 1, max=W).float()
     diff = (wsum(w1) / c1 - wsum(W) / c2).reshape(Tp)[:T]
     return diff, diff > 0
+
+
+# region_program: each opcode as the torch call it was recorded from
+_DT = (torch.float32, torch.int32, torch.bool)
+_SWAP = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le"}
+_BINARY = {"add": torch.add, "sub": torch.sub, "mul": torch.mul,
+           "div": torch.div, "min": torch.minimum, "max": torch.maximum,
+           "eq": torch.eq, "ne": torch.ne, "lt": torch.lt, "le": torch.le,
+           "gt": torch.gt, "ge": torch.ge, "and": torch.bitwise_and,
+           "or": torch.bitwise_or, "xor": torch.bitwise_xor}
+_UNARY = {"recip": torch.reciprocal, "neg": torch.neg, "abs": torch.abs,
+          "not": torch.bitwise_not}
+
+
+def _binary(op: str, a, b):
+    """``op(a, b)`` with at most one Python scalar, on the side torch
+    takes it (a constant's dtype is already the instruction's)."""
+    if not torch.is_tensor(a):
+        if op == "sub":
+            return torch.rsub(b, a)
+        a, b, op = b, a, _SWAP.get(op, op)
+    if not torch.is_tensor(b) and op in ("min", "max"):
+        # the clamp a bound came from: max(a, b) is clamp(a, min=b)
+        return torch.clamp(a, **{"max" if op == "min" else "min": b})
+    return _BINARY[op](a, b)
+
+
+@functools.lru_cache(maxsize=1024)
+def _region_index(stages, size: int, T: int):
+    """The ticks one slot reads for output ticks ``0..T-1`` (numpy, clamped
+    as ``take`` clamps), whether each read lies in range, and whether the
+    ticks are one run (kept: a CPU runner reads the same slots every
+    chunk)."""
+    import numpy as np
+    idx = np.arange(T, dtype=np.int64)
+    ok = np.ones(T, dtype=bool)
+    for k, (start, length) in enumerate(stages):
+        u = idx + start
+        ok &= (u >= 0) & (u < length)
+        top = size if k == len(stages) - 1 else length
+        idx = np.clip(u, 0, top - 1)
+    return idx, ok, bool(T and np.all(np.diff(idx) == 1))
+
+
+def region_program_ref(prog, valids, leaves):
+    """Plain version of :func:`repro_torch.kernels.region_program.
+    region_program`: the program's instructions as the torch calls they
+    were recorded from, in order, each on whole ``(*B, T)`` tensors, so on
+    the CPU (and on the card) it gives the bits of the eager calls."""
+    import numpy as np
+    T = prog.length
+    dev = valids[0].device
+    reads = [_region_index(st, v.shape[-1], T)
+             for st, v in zip(prog.slots, valids)]
+
+    def take(x, s):
+        idx, _, run = reads[s]
+        if run:
+            return x[..., int(idx[0]):int(idx[0]) + T]
+        return x.index_select(-1, torch.as_tensor(idx, device=x.device))
+
+    regs: list = [None] * prog.n_regs
+    for ins in prog.ins:
+        op = ins.op
+        if op not in ("load", "loadv", "const"):
+            a, b, c = (regs[i] if i >= 0 else None
+                       for i in (ins.a, ins.b, ins.c))
+            if ins.b < 0:
+                b = ins.imm     # an immediate second operand
+            if not torch.is_tensor(a) and (op == "where" or not (
+                    torch.is_tensor(b) or torch.is_tensor(c))):
+                # a constant torch takes only as a tensor: a 0-d one
+                src = {"cast": ins.imm, "where": 2}.get(op, ins.dt)
+                a = torch.tensor(a, dtype=_DT[src], device=dev)
+        if op == "load":
+            slot = prog.leaves[ins.a][0]
+            r = take(leaves[ins.a], slot)
+        elif op == "loadv":
+            r = take(valids[ins.a], ins.a)
+            ok = reads[ins.a][1]
+            if not ok.all():
+                r = r & torch.as_tensor(ok, device=dev)
+        elif op == "const":
+            r = ins.imm
+        elif op == "cast":
+            r = a.to(_DT[ins.dt])
+        elif op == "divc":
+            r = torch.div(a, ins.imm)
+        elif op == "where":
+            r = torch.where(a, b, c)
+            if r.dtype != _DT[ins.dt]:
+                r = r.to(_DT[ins.dt])
+        elif op in _UNARY:
+            r = _UNARY[op](a)
+        else:
+            r = _binary(op, a, b)
+        regs[ins.dst] = r
+    shape = valids[0].shape[:-1] + (T,)
+
+    def full(r, dt):
+        if not torch.is_tensor(r):
+            return torch.full(shape, r, dtype=_DT[dt], device=dev)
+        return r if r.shape == shape else r.expand(shape).clone()
+
+    return ([full(regs[r], dt) for r, dt in prog.outs],
+            full(regs[prog.ok], 2))

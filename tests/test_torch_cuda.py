@@ -26,8 +26,10 @@ from repro_torch.core import parallel as par
 from repro_torch.core import sparse as sp
 from repro_torch.data import apps, streams
 from repro_torch.engine import ExecPolicy, Runner, keyed_grid
+from repro_torch.core import region as rg
 from repro_torch.kernels import fused_query as fq
 from repro_torch.kernels import ops, ref, sparse_compact as sc
+from repro_torch.kernels import region_program as rp
 from repro_torch.kernels import window_reduce as wr
 
 EPS32 = float(np.finfo(np.float32).eps)
@@ -472,6 +474,230 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
         wr.sliding_assoc(x[None], 8, "add")   # not (R, T)
     with pytest.raises(ValueError):               # more than one launch
         wr.masked_rows([x] * (wr.MASKED_MAX_CH + 1), x > 0, "add")
+
+
+# ---------------------------------------------------------------------------
+# region_program
+# ---------------------------------------------------------------------------
+
+# opcodes a random program draws, by the dtypes they compute in
+_RP_BINARY = {rp.F32: ("add", "sub", "mul", "div", "min", "max"),
+              rp.I32: ("add", "sub", "mul", "min", "max", "and", "or", "xor"),
+              rp.BOOL: ("and", "or", "xor")}
+_RP_UNARY = {rp.F32: ("recip", "neg", "abs"), rp.I32: ("neg", "abs", "not"),
+             rp.BOOL: ("not",)}
+_RP_COMPARE = ("eq", "ne", "lt", "le", "gt", "ge")
+
+
+def _random_program(seed: int, T: int, size: int = 18):
+    """A random program over 1-4 slots of random dtypes, some of whose
+    stages read out of range, with inputs for it on the CPU: every opcode
+    and cast can come up.  Scheduled as the lowering schedules (constants
+    as immediates, loads first, registers reused); one that needs more
+    registers than the kernel has is drawn again, smaller."""
+    rng = np.random.default_rng(seed)
+    ins, dts, slots, leaves, vals, valids = [], [], [], [], [], []
+
+    def emit(op, dt, a=-1, b=-1, c=-1, imm=0, res=None):
+        ins.append(rp.Ins(op, dt, len(dts), a, b, c, imm))
+        dts.append(dt if res is None else res)
+        return len(dts) - 1
+
+    B = (3, 5)
+    for k in range(int(rng.integers(1, 5))):
+        Ts = T + int(rng.integers(0, 6))
+        if rng.random() < 0.5:
+            stages = ((int(rng.integers(-3, Ts - T + 4)), Ts),)
+        else:
+            stages = ((int(rng.integers(-2, 3)), T + 1),
+                      (int(rng.integers(-2, Ts - T + 2)), Ts))
+        slots.append(stages)
+        dt = int(rng.integers(0, 3))
+        x = rng.normal(size=B + (Ts,)) * 4
+        x[rng.random(x.shape) < 0.1] = 0
+        vals.append(torch.from_numpy(x).to(rp.DTYPES[dt]) if dt != rp.F32
+                    else torch.from_numpy(x.astype(np.float32)))
+        valids.append(torch.from_numpy(rng.random(B + (Ts,)) > 0.2))
+        leaves.append((k, 0, dt))
+        emit("load", dt, k)
+
+    def reg(dt):
+        have = [r for r, d in enumerate(dts) if d == dt]
+        if not have or rng.random() < 0.15:
+            if rng.random() < 0.5:
+                v = {rp.F32: float(np.float32(rng.normal() * 3)),
+                     rp.I32: int(rng.integers(-9, 10)),
+                     rp.BOOL: bool(rng.random() < 0.5)}[dt]
+                return emit("const", dt, imm=v)
+            src = int(rng.integers(0, len(dts)))
+            return emit("cast", dt, src, imm=dts[src])
+        return int(rng.choice(have))
+
+    while len(ins) < size:
+        dt = int(rng.integers(0, 3))
+        kind = rng.random()
+        if kind < 0.4:
+            emit(str(rng.choice(_RP_BINARY[dt])), dt, reg(dt), reg(dt))
+        elif kind < 0.55:
+            emit(str(rng.choice(_RP_UNARY[dt])), dt, reg(dt))
+        elif kind < 0.7:
+            emit(str(rng.choice(_RP_COMPARE)), dt, reg(dt), reg(dt),
+                 res=rp.BOOL)
+        elif kind < 0.8:
+            emit("where", dt, reg(rp.BOOL), reg(dt), reg(dt))
+        elif kind < 0.9 and dt == rp.F32:
+            emit("divc", dt, reg(dt), imm=float(rng.choice([8.0, 3.0, -0.7])))
+        else:
+            reg(dt)
+    n_body = len(dts)
+    ok = emit("loadv", rp.BOOL, 0)
+    for k in range(1, len(slots)):
+        ok = emit("and", rp.BOOL, ok, emit("loadv", rp.BOOL, k))
+    ok = emit("and", rp.BOOL, ok, reg(rp.BOOL))
+    outs = [(int(r), dts[r]) for r in rng.choice(
+        np.arange(max(0, n_body - 6), n_body), 3, replace=False)]
+    ins, n_regs, phys = rg._schedule(ins, {ok} | {r for r, _ in outs})
+    if n_regs > rp.MAX_REGS:
+        return _random_program(seed, T, size - 2)
+    prog = rp.Program(length=T, slots=tuple(slots), leaves=tuple(leaves),
+                      ins=tuple(ins), n_regs=n_regs,
+                      outs=tuple((phys[r], dt) for r, dt in outs),
+                      ok=phys[ok])
+    return prog, valids, vals
+
+
+def _same_bits(got, want):
+    """Equal bits, any NaN equal to any NaN (their payloads are the
+    kernels', which torch.minimum and torch.maximum do not fix)."""
+    if got.dtype == torch.float32:
+        nan = torch.isnan(got)
+        assert torch.equal(nan, torch.isnan(want))
+        got, want = got.masked_fill(nan, 0), want.masked_fill(nan, 0)
+        return torch.equal(_bits32(got), _bits32(want))
+    return torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(16))
+def test_cuda_region_program_equals_the_plain_version_on_random_programs(
+        cuda, seed):
+    """Random programs (every opcode, cast and dtype; reads in and out of
+    range; strided rows): the kernel against ``region_program_ref`` run
+    on the card, bit for bit."""
+    prog, valids, vals = _random_program(seed, 700)
+    vd = [v.to(cuda) for v in valids]
+    xd = [x.to(cuda) for x in vals]
+    if seed % 2:            # rows of another stride: views of wider rows
+        xd = [torch.cat([x, x[..., :7]], -1)[..., :x.shape[-1]] for x in xd]
+    n0 = rp.launches["region_program"]
+    outs, valid = rp.region_program(prog, vd, xd)
+    torch.cuda.synchronize()
+    assert rp.launches["region_program"] == n0 + 1
+    w_outs, w_valid = ref.region_program_ref(prog, vd, xd)
+    assert torch.equal(valid, w_valid)
+    for got, want in zip(outs, w_outs):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert _same_bits(got, want)
+
+
+def _qrs_regions(out_len: int):
+    """qrs's three regions at partitions of ``out_len`` ticks, each with
+    random sources of the unit windows' shape, one of them a strided
+    view."""
+    exe = qc.compile_query(apps.make_keyed_app("qrs").query.node, out_len)
+    return [r for r in exe.regions.by_root.values()], exe.plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [96 * 32])
+def test_cuda_region_program_runs_qrs_regions_bit_for_bit(cuda, rows):
+    """qrs's three regions at the benchmark cell's unit windows (3072 rows
+    of 8192 output ticks, the sources 8192-8665 ticks long), one source a
+    strided view: one launch each, against the plain version on the card
+    bit for bit, nothing copied."""
+    regions, qp = _qrs_regions(8192)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for r in regions:
+        args = []
+        for i, s in enumerate(r.sources):
+            L = qp.plan_of(s).length
+            w = L + (5 if i == 0 else 0)
+            v = torch.randint(-2**20, 2**20, (rows, w), device=cuda,
+                              generator=gen).float() / 64
+            m = torch.rand((rows, w), device=cuda, generator=gen) > 0.1
+            args.append((v[:, :L], m[:, :L]))
+        n0, c0 = rp.launches["region_program"], rp.copies["region_program"]
+        got = r.run(args)
+        torch.cuda.synchronize()
+        assert r.status == "lowered", (r.root.name, r.status)
+        assert rp.launches["region_program"] == n0 + 1
+        assert rp.copies["region_program"] == c0
+        low = r._lowered[-1][1]
+        want = ref.region_program_ref(
+            low.program, [args[src][1] for src, _, _ in r.slots],
+            [args[r.slots[k][0]][0] for k, _, _ in low.program.leaves])
+        assert torch.equal(got[1], want[1])
+        assert _same_bits(got[0], want[0][0])
+
+
+@pytest.mark.cuda
+def test_cuda_region_program_in_a_captured_graph(cuda):
+    """A launch captured in a graph and replayed twice over new inputs
+    copied into its buffers: the bits of an eager launch each time."""
+    prog, valids, vals = _random_program(3, 1500)
+    vd = [v.to(cuda) for v in valids]
+    xd = [x.to(cuda) for x in vals]
+    rp.region_program(prog, vd, xd)        # warm-up: the library loads
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs, valid = rp.region_program(prog, vd, xd)
+    for seed in (11, 12):
+        _, valids2, vals2 = _random_program(seed, 1500)
+        for dst, src in zip(vd + xd, valids2 + vals2):
+            if dst.shape == src.shape:
+                dst.copy_(src.to(dst.dtype))
+        g.replay()
+        torch.cuda.synchronize()
+        w_outs, w_valid = rp.region_program(prog, vd, xd)
+        assert torch.equal(valid, w_valid)
+        for got, want in zip(outs, w_outs):
+            assert _same_bits(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,regions", [("qrs", 3), ("ysb", 1)])
+def test_cuda_captured_step_runs_each_region_in_one_launch(cuda, name,
+                                                           regions):
+    """One captured step of the benchmark's apps: each elementwise region
+    is one ``region_program`` launch, nothing copied, and the gauges read
+    every region lowered."""
+    K, segs = 4, 2
+    if name == "ysb":
+        exe = qc.compile_query(
+            apps.make_keyed_app("ysb", win=1000).query.node, 1)
+    else:
+        exe = qc.compile_query(apps.make_keyed_app("qrs").query.node, 512)
+    r = Runner(exe, ExecPolicy(keys="vmapped"), n_keys=K,
+               segs_per_chunk=segs)
+    span = r.spec.input_specs["in"].core * segs
+    rng = np.random.default_rng(31)
+    ok = np.ones((K, span), bool)
+    for c in range(3):
+        if name == "ysb":
+            vals = {"etype": rng.integers(0, 3, (K, span)).astype(
+                np.float32)}
+        else:
+            vals = rng.integers(-1024, 1024, (K, span)).astype(np.float32)
+        n0, c0 = dict(rp.launches), dict(rp.copies)
+        r.step({"in": keyed_grid(vals, ok, t0=c * span)})
+        torch.cuda.synchronize()
+    assert r.metrics.tracer.captures(), "the step was not captured"
+    assert rp.launches["region_program"] - n0["region_program"] == regions
+    assert rp.copies == c0, (rp.copies, c0)
+    gauges = r.metrics.snapshot()["gauges"]
+    assert gauges["runner.regions_lowered"]["value"] == regions
+    assert not [k for k in gauges if k.startswith("runner.regions_eager")]
 
 
 @pytest.mark.cuda
